@@ -3,18 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the text→3D serving path of ``ln3diff_tpu_torch`` at the full
-width of the released Objaverse model (CLIP text tower, DiT-L/2 with
-250-step DDIM and CFG 6.5, triplane VAE decode, a 24-frame 192² orbit and
-the 192³ σ-grid query) with random weights drawn from a fixed seed, after
-building every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc`` with nvcc
-and holding each one against its plain PyTorch version.  It prints one
-JSON line per phase as the phase finishes, then the ``{"kernels": [...]}``
-line, the card's name and power limit from nvidia-smi, and as its last
-line ``{"ok": true, "device": {...}}``.  Any failed build, launch or check
-exits non-zero without the last line, as does a machine without a CUDA
-device.  The run writes nothing into the tree except the kernel build
-directory ``ln3diff_tpu_torch/_build/``.
+Drives two paths of ``ln3diff_tpu_torch`` at the full width of the
+released Objaverse text→3D model, with random weights drawn from a fixed
+seed:
+
+* ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
+  triplane VAE decode, a 24-frame 192² orbit and the 192³ σ-grid query;
+* ``serving_pipeline``: the full serving call ``__call__`` with a
+  ``mesh_path`` and the fused-attention denoiser (``fused_attention=True``):
+  the same stages, then marching tetrahedra, vertex colours and the OBJ
+  file, interleaved with the orbit.
+
+Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
+with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
+g++, holds each kernel against its plain PyTorch version
+(``kernel_check``, ``attention_check``), checks the mesh stage on an
+analytic sphere (``mesh_check``) and a small model card against CPU
+(``small_reference``).  It prints one JSON line per phase as the phase
+finishes, then the ``{"kernels": [...]}`` line, the card's name and power
+limit from nvidia-smi, and as its last line ``{"ok": true, "device":
+{...}}``.  Any failed build, launch or check exits non-zero without the
+last line, as does a machine without a CUDA device.  The run writes
+nothing into the tree except the build directory
+``ln3diff_tpu_torch/_build/``; the mesh files go to a temporary directory.
 
 TF32: matmuls run in full f32 (PyTorch's default) and cuDNN's TF32 for f32
 convolutions is switched off, so the f32 comparisons below hold the f32
@@ -28,19 +39,29 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 BUDGET_S = 900            # wall-clock budget of the whole run
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 without tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 
 # tolerances of the kernel against its plain version (elementwise
 # |Δ| <= atol + rtol·|plain|).  f32 rows: only the order of the f32 MLP
 # sums differs.  bf16 rows: both lerp in bf16 with the same rounding
 # order; the margin covers the f32 sums and an occasional 1-ulp bf16 tie.
 TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (1e-2, 1e-2)}
+# fused attention against its plain version: |Δ| <= atol + rtol·|plain|.
+# f32: another summation order only.  bf16: both round p and o to bf16
+# from f32 values summed in another order, so an element may land one
+# bf16 ulp away (2^-7 relative) and a p one ulp away moves o by about
+# 2^-8·p·|v|.
+TOL_ATTN = {'float32': (2e-5, 2e-5), 'bfloat16': (4e-3, 1e-2)}
 # small-size pipeline, card vs CPU, both in f32: |Δ| <= TOL_PIPE·max(1,|ref|)
 TOL_PIPE = 2e-3
+# the serving path's mesh: σ > 10 inside, 192³ grid over ±0.45
+MESH_GRID, MESH_AABB, MESH_THRESHOLD = 192, 0.45, 10.0
 
 T0 = time.perf_counter()
 
@@ -168,56 +189,440 @@ def kernel_check():
 def small_reference():
     """A small model through the whole slice on the card and on the CPU,
     same weights and noise, f32 throughout: latents, planes and frames
-    must agree (the CPU side runs the kernel's plain version)."""
+    must agree (the CPU side runs the kernels' plain versions).  Twice:
+    with the plain attention and no mesh, and as the serving call, with
+    the fused-attention denoiser and a mesh_path."""
     import torch
     from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
     from ln3diff_tpu_torch.models.dit import DiT2Config, DiTConfig
     from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
     from ln3diff_tpu_torch.render.renderer import RenderOptions
 
     f32 = torch.float32
-    kw = dict(
-        den_cfg=DiTConfig(input_size=8, hidden_size=64, depth=2,
-                          num_heads=2, context_dim=64, exact_gelu=False,
-                          dtype=f32),
-        vae_cfg=TriplaneVAEConfig(
-            latent_size=8,
-            dit2=DiT2Config(tokens_per_plane=16, hidden_size=64, depth=2,
-                            num_heads=2, dtype=f32),
-            conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=f32),
-        text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2, num_heads=2,
-                                intermediate_size=128),
-        render_opts=dataclasses.replace(
-            RenderOptions(), depth_resolution=16,
-            depth_resolution_importance=16, filter_out_of_bbox=True),
-        render_resolution=32,
-        sampler=SamplerSpec(num_steps=10, latent_shape=(8, 8, 12)),
-        render_dtype=None)
-    cpu_pipe, cpu_enc, mods = build_t23d_pipeline('cpu', seed=7, **kw)
-    gpu_pipe, gpu_enc, _ = build_t23d_pipeline(
-        'cuda', modules={k: copy.deepcopy(m) for k, m in mods.items()}, **kw)
-    noise = torch.randn((1, 8, 8, 12),
-                        generator=torch.Generator().manual_seed(3))
-    outs = {}
-    for name, pipe, enc in (('cpu', cpu_pipe, cpu_enc),
-                            ('cuda', gpu_pipe, gpu_enc)):
-        FusedOSG.launches = 0
-        cond, uncond = enc('a small wooden chair')
-        outs[name] = pipe(cond, uncond, num_frames=2, render_resolution=32,
-                          x_init=noise)
-    check(FusedOSG.launches > 0, 'the card run did not launch fused_osg')
     res = {}
-    for key in ('latents', 'planes', 'video'):
-        ref = outs['cpu'][key]
-        got = outs['cuda'][key].cpu()
-        err = float((got - ref).abs().max())
-        scale = max(1.0, float(ref.abs().max()))
-        res[key] = dict(max_abs_err=err, tol=TOL_PIPE * scale)
-        check(bool(torch.isfinite(got).all()), f'{key}: non-finite on card')
-        check(err <= TOL_PIPE * scale,
-              f'{key}: card vs CPU max|Δ| {err} > {TOL_PIPE * scale}')
+    for variant, fused in (('plain', False), ('fused_attention_mesh', True)):
+        kw = dict(
+            den_cfg=DiTConfig(input_size=8, hidden_size=64, depth=2,
+                              num_heads=2, context_dim=64, exact_gelu=False,
+                              fused_attention=fused, dtype=f32),
+            vae_cfg=TriplaneVAEConfig(
+                latent_size=8,
+                dit2=DiT2Config(tokens_per_plane=16, hidden_size=64, depth=2,
+                                num_heads=2, dtype=f32),
+                conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=f32),
+            text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2,
+                                    num_heads=2, intermediate_size=128),
+            render_opts=dataclasses.replace(
+                RenderOptions(), depth_resolution=16,
+                depth_resolution_importance=16, filter_out_of_bbox=True),
+            render_resolution=32,
+            sampler=SamplerSpec(num_steps=10, latent_shape=(8, 8, 12)),
+            render_dtype=None)
+        cpu_pipe, cpu_enc, mods = build_t23d_pipeline('cpu', seed=7, **kw)
+        gpu_pipe, gpu_enc, _ = build_t23d_pipeline(
+            'cuda', modules={k: copy.deepcopy(m) for k, m in mods.items()},
+            **kw)
+        noise = torch.randn((1, 8, 8, 12),
+                            generator=torch.Generator().manual_seed(3))
+        outs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, pipe, enc in (('cpu', cpu_pipe, cpu_enc),
+                                    ('cuda', gpu_pipe, gpu_enc)):
+                FusedOSG.launches = FusedAttention.launches = 0
+                cond, uncond = enc('a small wooden chair')
+                mesh_kw = (dict(mesh_path=os.path.join(tmp, f'{name}.obj'),
+                                mesh_grid=32) if fused else {})
+                outs[name] = pipe(cond, uncond, num_frames=2,
+                                  render_resolution=32, x_init=noise,
+                                  **mesh_kw)
+                if fused:
+                    nv, nf = obj_counts(mesh_kw['mesh_path'])
+                    check((nv, nf) == tuple(map(len, outs[name]['mesh'])),
+                          f'{name}: the OBJ does not parse back')
+        check(FusedOSG.launches > 0, 'the card run did not launch fused_osg')
+        if fused:
+            check(FusedAttention.launches > 0,
+                  'the card run did not launch fused_attention')
+        r = dict(fused_osg_launches=FusedOSG.launches,
+                 fused_attention_launches=FusedAttention.launches)
+        for key in ('latents', 'planes', 'video'):
+            ref = outs['cpu'][key]
+            got = outs['cuda'][key].cpu()
+            err = float((got - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            r[key] = dict(max_abs_err=err, tol=TOL_PIPE * scale)
+            check(bool(torch.isfinite(got).all()),
+                  f'{variant} {key}: non-finite on card')
+            check(err <= TOL_PIPE * scale,
+                  f'{variant} {key}: card vs CPU max|Δ| {err} > '
+                  f'{TOL_PIPE * scale}')
+        if fused:
+            r['triangles'] = dict(cpu=len(outs['cpu']['mesh'][1]),
+                                  cuda=len(outs['cuda']['mesh'][1]))
+        res[variant] = r
+    return res
+
+
+def attention_bound_ms(B, L, H, d, itemsize):
+    """Least time for one call: 4·B·H·L²·d operations (q·kᵀ and p·v) over
+    the rate of the operands' type (bf16 tensor cores, or f32 without
+    them) against q, k, v read once and o written once over HBM
+    bandwidth; the larger of the two."""
+    flops = 4 * B * H * L * L * d
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
+    t_bytes = 4 * B * L * H * d * itemsize / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def host_us(fn, calls=20, repeats=5):
+    """Median over ``repeats`` of the host time per call of ``calls``
+    back-to-back calls (enqueue only: the card synchronises after the
+    clock stops), in µs."""
+    import torch
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def attention_check():
+    """fused_attention against attention_reference on the card: the DiT's
+    self-attention (q, k, v read in place from one (2, 768, 3·1024) qkv
+    projection, bf16), a ragged L, d = 32 (the small model's head) and
+    f32 operands; each with the kernel's, the plain version's and
+    scaled_dot_product_attention's times on the same inputs, and the host
+    time per call of the kernel's wrapper and of the attention the DiT
+    runs without the switch (``dot_product_attention``)."""
+    import torch
+    import torch.nn.functional as F
+    from ln3diff_tpu_torch.models.layers import dot_product_attention
+    from ln3diff_tpu_torch.ops.fused_attention import (attention_reference,
+                                                       fused_attention)
+    cases = [('dit_self_attention', 2, 768, 16, 64, torch.bfloat16),
+             ('ragged_L77', 2, 77, 16, 64, torch.bfloat16),
+             ('head_dim_32', 2, 192, 2, 32, torch.bfloat16),
+             ('dit_shape_f32', 2, 768, 16, 64, torch.float32)]
+    results = []
+    for i, (name, B, L, H, d, dt) in enumerate(cases):
+        g = torch.Generator(device='cuda').manual_seed(200 + i)
+        qkv = torch.randn((B, L, 3 * H * d), generator=g,
+                          device='cuda').to(dt)
+        q, k, v = (t.reshape(B, L, H, d) for t in qkv.chunk(3, dim=-1))
+        got = fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v)
+        atol, rtol = TOL_ATTN[str(dt).split('.')[-1]]
+        err = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got).all()
+                  and (err <= atol + rtol * want.float().abs()).all())
+        ms = cuda_time_ms(lambda: fused_attention(q, k, v))
+        plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bound, bound_by = attention_bound_ms(B, L, H, d, q.element_size())
+        res = dict(case=name, shape=[B, L, H, d], dtype=str(dt),
+                   max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound, bound_by=bound_by,
+                   host_us=host_us(lambda: fused_attention(q, k, v)),
+                   dit_plain_host_us=host_us(
+                       lambda: dot_product_attention(q, k, v)))
+        results.append(res)
+        emit({'attention_check': res})
+        check(ok, f'fused_attention disagrees with its plain version on '
+              f'{name}')
+        del qkv, q, k, v, got, want, err
+        torch.cuda.empty_cache()
+    return results
+
+
+def obj_counts(path):
+    """(vertex lines, face lines) of an OBJ file, read in 64 MiB blocks;
+    the first vertex line must parse to 6 floats and the first face line
+    to 3 indices."""
+    nv = nf = 0
+    prev = b'\n'
+    with open(path, 'rb') as f:
+        head = f.read(1 << 16)
+        f.seek(0)
+        while True:
+            block = f.read(1 << 26)
+            if not block:
+                break
+            buf = prev + block
+            nv += buf.count(b'\nv ')
+            nf += buf.count(b'\nf ')
+            prev = buf[-2:]
+    lines = head.split(b'\n')
+    vl = next((ln for ln in lines if ln.startswith(b'v ')), None)
+    fl = next((ln for ln in lines if ln.startswith(b'f ')), None)
+    if vl is not None:
+        check(len([float(x) for x in vl.split()[1:]]) == 6,
+              f'bad vertex line {vl!r}')
+    if fl is not None:
+        check(len([int(x) for x in fl.split()[1:]]) == 3,
+              f'bad face line {fl!r}')
+    return nv, nf
+
+
+def mesh_check(point_decoder):
+    """The host mesh stage on an analytic field and the colour query on the
+    card: a sphere of radius 0.3 (σ = 10 + 200·(0.3 − r), f16 like the
+    grid query) on the serving grid goes through the device census and
+    march_grid, every vertex within one voxel of the sphere; the vertex
+    colours come from ``point_decoder`` (real decoder planes) through the
+    fused point kernel; the OBJ parses back to the same mesh."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render import mesh
+    g, aabb, radius = MESH_GRID, MESH_AABB, 0.3
+    pts = mesh.grid_points(g, aabb, device='cuda')
+    sigma = (MESH_THRESHOLD + (radius - pts.norm(dim=-1)) * 200.0).half()
+    n_cross = int(mesh.count_crossing_cells(sigma, g, MESH_THRESHOLD))
+    t0 = time.perf_counter()
+    sigma_np = sigma.cpu().numpy().reshape(g, g, g)
+    verts, faces = mesh.march_grid(sigma_np, g, aabb, MESH_THRESHOLD)
+    march_s = time.perf_counter() - t0
+    voxel = 2 * aabb / (g - 1)
+    dev = float(np.abs(np.linalg.norm(verts, axis=-1) - radius).max())
+    check(len(faces) > 0, 'sphere: no triangles')
+    check(n_cross == mesh._crossing_cells(
+        sigma_np.astype(np.float32), MESH_THRESHOLD).size,
+        'device crossing census disagrees with the host scan')
+    check(dev < voxel, f'sphere: a vertex {dev} from the surface, voxel '
+          f'{voxel}')
+    before = FusedOSG.launches
+    rgb = mesh.dispatch_vertex_colors(point_decoder, verts, device='cuda')
+    rgb8 = mesh.dispatch_vertex_colors(point_decoder, verts, as_uint8=True,
+                                       device='cuda')
+    torch.cuda.synchronize()
+    launches = FusedOSG.launches - before
+    check(launches > 0, 'vertex colours did not launch fused_osg')
+    check(bool(torch.isfinite(rgb).all()), 'vertex colours not finite')
+    # the sigmoid head's range is [-0.001, 1.001]; exported colours clip
+    rmin, rmax = float(rgb.min()), float(rgb.max())
+    check(-0.001 - 1e-6 <= rmin and rmax <= 1.001 + 1e-6,
+          f'vertex colours out of range [{rmin}, {rmax}]')
+    colors = np.clip(rgb.cpu().numpy(), 0.0, 1.0)
+    check(bool(torch.equal(rgb8.cpu(), torch.from_numpy(
+        (colors * 255.0).astype(np.uint8)))), 'uint8 colours disagree')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'sphere.obj')
+        mesh.export_obj(path, mesh.rotate_x(verts), colors, faces)
+        nv, nf = obj_counts(path)
+        data = np.loadtxt(path, comments='f', usecols=(1, 2, 3, 4, 5, 6))
+    check((nv, nf) == (len(verts), len(faces)),
+          f'OBJ parses to {nv} vertices / {nf} faces, wrote '
+          f'{len(verts)} / {len(faces)}')
+    check(np.abs(data[:, :3] - mesh.rotate_x(verts)).max() <= 1e-6
+          and np.abs(data[:, 3:] - colors).max() <= 1e-4,
+          'OBJ coordinates or colours do not read back')
+    return dict(grid=g, crossing_cells=n_cross, triangles=len(faces),
+                max_vertex_offset=dev, voxel=voxel,
+                march_seconds=round(march_s, 3),
+                color_launches=launches, colors_range=[rmin, rmax])
+
+
+def fused_denoiser(denoiser):
+    """The DiT-L/2 serving denoiser with ``fused_attention=True``, holding
+    the weights of ``denoiser`` (the first path's)."""
+    import torch
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    cfg = dataclasses.replace(denoiser.cfg, fused_attention=True)
+    with torch.device('cuda'):
+        fused = DiT_TriLatent(cfg)
+    fused.load_state_dict(denoiser.state_dict())
+    return fused.to(cfg.dtype).eval()
+
+
+def serving_pipeline(modules, prompt):
+    """The serving call at full width: ``__call__`` with a ``mesh_path``
+    and the fused-attention DiT-L/2 in ``modules['denoiser']``.  The call
+    runs twice from the same noise: once as a user runs it (its wall
+    time, ``call_seconds``), then with every stage under a synchronising
+    timer, so the seconds by phase add up without the overlap of march
+    and orbit; launches are counted per phase in the second run."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+    from ln3diff_tpu_torch.render import mesh
+
+    den_cfg = modules['denoiser'].cfg
+    check(den_cfg.fused_attention, 'the serving denoiser is not fused')
+    pipe, encode, _ = build_t23d_pipeline('cuda', den_cfg=den_cfg,
+                                          modules=modules)
+
+    def call(path):
+        return pipe(cond, uncond, batch=1, num_frames=24, mesh_path=path,
+                    mesh_grid=MESH_GRID, mesh_smooth=True,
+                    render_resolution=192,
+                    generator=torch.Generator(device='cuda').manual_seed(1))
+
+    cond, uncond = encode(prompt)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        untimed = call(os.path.join(tmp, 'untimed.obj'))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+
+    secs, osg, last = {}, {}, {}
+
+    def timed(key, fn):
+        secs[key] = 0.0
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            n0, t0 = FusedOSG.launches, time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            osg[key] = osg.get(key, 0) + FusedOSG.launches - n0
+            last[key] = out
+            return out
+        return run
+
+    encode = timed('text_encode', encode)
+    pipe.denoiser_fn = timed('dit_sample', pipe.denoiser_fn)
+    pipe.decode_fn = timed('vae_decode', pipe.decode_fn)
+    pipe.render_fn = timed('render', pipe.render_fn)
+    pipe.dispatch_mesh_sigma = timed('sigma_query', pipe.dispatch_mesh_sigma)
+    stages = dict(count_crossing_cells='crossing_count', march_grid='march',
+                  dispatch_vertex_colors='vertex_colors',
+                  export_obj='export')
+    originals = {n: getattr(mesh, n) for n in stages}
+    for n, key in stages.items():
+        setattr(mesh, n, timed(key, originals[n]))
+    try:
+        cond, uncond = encode(prompt)
+        FusedOSG.launches = FusedAttention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'out.obj')
+            t0 = time.perf_counter()
+            out = call(path)
+            torch.cuda.synchronize()
+            timed_s = time.perf_counter() - t0
+            attn_launches = FusedAttention.launches
+            osg_launches = FusedOSG.launches
+            nv, nf = obj_counts(path)
+            obj_bytes = os.path.getsize(path)
+    finally:
+        for n, fn in originals.items():
+            setattr(mesh, n, fn)
+
+    video, latents, planes = out['video'], out['latents'], out['planes']
+    verts, faces = out['mesh']
+    check(bool(torch.equal(untimed['latents'], latents)),
+          'the timed and the untimed call sample different latents')
+    check(tuple(latents.shape) == (1, 32, 32, 12), 'latent shape')
+    check(tuple(planes.shape) == (1, 3, 128, 128, 32), 'plane shape')
+    check(tuple(video.shape) == (1, 24, 192, 192, 3), 'video shape')
+    for key, t in (('latents', latents), ('planes', planes),
+                   ('frames', video)):
+        check(bool(torch.isfinite(t).all()), f'{key} not finite')
+    vmin, vmax = float(video.min()), float(video.max())
+    check(-1.01 <= vmin and vmax <= 1.01,
+          f'frames out of range [{vmin}, {vmax}]')
+    check(bool(torch.isfinite(last['sigma_query']).all()),
+          'sigma grid not finite')
+    check((nv, nf) == (len(verts), len(faces)),
+          f'OBJ parses to {nv} vertices / {nf} faces, the call returned '
+          f'{len(verts)} / {len(faces)}')
+    want_attn = den_cfg.depth * pipe.spec.num_steps
+    check(attn_launches == want_attn, f'fused_attention launched '
+          f'{attn_launches} times, expected {want_attn}')
+    check(osg['render'] > 0 and osg['sigma_query'] > 0,
+          'render or sigma query did not launch fused_osg')
+    check(len(verts) == 0 or osg['vertex_colors'] > 0,
+          'vertex colours did not launch fused_osg')
+    check(osg_launches == osg['render'] + osg['sigma_query']
+          + osg['vertex_colors'], 'fused_osg launched outside the phases')
+    n_cross = int(last['crossing_count'])
+    cells = (MESH_GRID - 1)**3
+    field = ('empty' if n_cross == 0 else
+             'noise-like' if n_cross > 0.05 * cells else 'surface')
+    return dict(
+        seconds_by_phase={k: round(v, 3) for k, v in secs.items()},
+        call_seconds=round(call_s, 3), timed_call_seconds=round(timed_s, 3),
+        fused_attention_launches=attn_launches,
+        fused_osg_launches=dict(render=osg['render'],
+                                sigma_query=osg['sigma_query'],
+                                vertex_colors=osg['vertex_colors']),
+        crossing_cells=n_cross, sigma_field=field,
+        triangles=len(faces), vertices=len(verts),
+        max_tris_cap_hit=len(faces) >= 20_000_000, obj_bytes=obj_bytes,
+        frames_range=[vmin, vmax],
+        sigma_range=[float(last['sigma_query'].min()),
+                     float(last['sigma_query'].max())],
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+
+
+def dit_profile(denoisers, cond, uncond, steps=10):
+    """Where a DDIM step's time goes, for each DiT-L/2 denoiser: the host
+    wall time of one CFG call (batch 2, no profiler, synchronised at the
+    end of ``steps`` calls, the two denoisers timed in turns and each
+    one's two runs averaged), the device time of its kernels under
+    torch.profiler (CUDA activity only), their ratio (the device's busy
+    share of the step) and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device='cuda').manual_seed(5)
+    x = torch.randn((2, 32, 32, 12), generator=g, device='cuda')
+    t = torch.full((2,), 500, device='cuda')
+    ctx = {'crossattn': torch.cat([cond['crossattn'],
+                                   uncond['crossattn']])}
+    names = list(denoisers)
+    walls = {name: [] for name in names}
+    with torch.no_grad():
+        for name in names:
+            denoisers[name](x, t, ctx)
+        # in turns, A B B A, so that a drift of the host's speed falls on
+        # both alike
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                denoisers[name](x, t, ctx)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / steps * 1e3)
+    res = {}
+    for name, den in denoisers.items():
+        wall_ms = sum(walls[name]) / len(walls[name])
+        with torch.no_grad():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    den(x, t, ctx)
+                torch.cuda.synchronize()
+
+        def dev_us(e):
+            return getattr(e, 'self_device_time_total', None) \
+                or getattr(e, 'self_cuda_time_total', 0)
+        events = [e for e in prof.key_averages() if dev_us(e) > 0]
+        device_ms = sum(dev_us(e) for e in events) / steps / 1e3
+        top = sorted(events, key=dev_us, reverse=True)[:6]
+        res[name] = dict(
+            wall_ms_per_step=wall_ms, wall_ms_runs=walls[name],
+            device_ms_per_step=device_ms if events else None,
+            device_busy_share=device_ms / wall_ms if events else None,
+            top_kernels=[dict(name=e.key[:80],
+                              ms_per_step=dev_us(e) / steps / 1e3,
+                              calls_per_step=e.count / steps)
+                         for e in top])
     return res
 
 
@@ -246,11 +651,11 @@ def main():
     phase_done('device', t0, name=name, count=count, nvidia_smi=smi_line,
                torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build every kernel source with nvcc
+    # 2. build every source: the kernels with nvcc, the mesh code with g++
     t0 = time.perf_counter()
     from ln3diff_tpu_torch.ops._build import build_all
     builds = build_all()
-    phase_done('build', t0, kernels=[
+    phase_done('build', t0, sources=[
         dict(name=b.name, path=os.path.relpath(b.path, here),
              compile_seconds=round(b.seconds, 3),
              ptxas=[ln for ln in b.log.splitlines() if 'ptxas' in ln])
@@ -260,6 +665,9 @@ def main():
     t0 = time.perf_counter()
     checks = kernel_check()
     phase_done('kernel_check', t0)
+    t0 = time.perf_counter()
+    attn_checks = attention_check()
+    phase_done('attention_check', t0)
 
     # 4. small model: card vs CPU
     t0 = time.perf_counter()
@@ -267,10 +675,11 @@ def main():
     phase_done('small_reference', t0, **small)
 
     # 5. the main path at full width, random weights
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
     t0 = time.perf_counter()
-    pipe, encode, _ = build_t23d_pipeline('cuda', seed=0)
+    pipe, encode, modules = build_t23d_pipeline('cuda', seed=0)
     phase_done('pipeline_build', t0, weights='random (torch.Generator '
                'seed 0); DiT-L/2 bf16 tanh-GELU, DiT2-L/2 VAE decoder bf16, '
                'CLIP-L text f32; ddim250, cfg 6.5, 24 x 192^2 orbit, '
@@ -292,17 +701,20 @@ def main():
     pipe.decode_fn = timed('vae_decode', pipe.decode_fn)
     pipe.render_fn = timed('render', pipe.render_fn)
 
+    prompt = 'a red wooden chair with four legs'
     t0 = time.perf_counter()
-    cond, uncond = encode('a red wooden chair with four legs')
+    cond, uncond = encode(prompt)
     text_s = time.perf_counter() - t0
 
-    FusedOSG.launches = 0
+    FusedOSG.launches = FusedAttention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_main = time.perf_counter()
     out = pipe(cond, uncond, batch=1, num_frames=24, render_resolution=192,
                generator=torch.Generator(device='cuda').manual_seed(1))
     torch.cuda.synchronize()
     render_launches = FusedOSG.launches
+    check(FusedAttention.launches == 0,
+          'the first path (fused_attention=False) launched fused_attention')
     FusedOSG.launches = 0
     t1 = time.perf_counter()
     sigma = pipe.dispatch_mesh_sigma(out['planes'].to(torch.bfloat16), 192,
@@ -339,17 +751,47 @@ def main():
         sigma_range=[float(sigma.min()), float(sigma.max())],
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
-    main_check = checks[0]
-    emit({'kernels': [dict(
-        name='fused_osg', route='cuda',
-        source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',
-        replaces='ln3diff_tpu/ops/fused_render.py:98',
-        launches=render_launches + query_launches,
-        max_abs_err=max(max(c['max_abs_err_rgb'], c['max_abs_err_sigma'])
-                        for c in checks),
-        ms=main_check['ms'], plain_ms=main_check['plain_ms'],
-        bound_ms=main_check['bound_ms'], bound_by=main_check['bound_by'],
-        library_ms=None)]})
+    # 6. the mesh stage on an analytic sphere, colours from real planes
+    t0 = time.perf_counter()
+    mesh_res = mesh_check(pipe._mesh_decoder(out['planes'].to(
+        torch.bfloat16)))
+    phase_done('mesh_check', t0, **mesh_res)
+    del out, video, latents, sigma, pipe
+    torch.cuda.empty_cache()
+
+    # 7. the serving call at full width: fused attention, mesh file
+    t0 = time.perf_counter()
+    plain_denoiser = modules['denoiser']
+    modules = dict(modules, denoiser=fused_denoiser(plain_denoiser))
+    serving = serving_pipeline(modules, prompt)
+    phase_done('serving_pipeline', t0, **serving)
+
+    # 8. a DDIM step of each denoiser under the profiler
+    t0 = time.perf_counter()
+    profile = dit_profile({'plain_attention': plain_denoiser,
+                           'fused_attention': modules['denoiser']},
+                          cond, uncond)
+    phase_done('dit_profile', t0, **profile)
+
+    osg_main, attn_main = checks[0], attn_checks[0]
+    emit({'kernels': [
+        dict(name='fused_osg', route='cuda',
+             source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',
+             replaces='ln3diff_tpu/ops/fused_render.py:98',
+             launches=sum(serving['fused_osg_launches'].values()),
+             max_abs_err=max(max(c['max_abs_err_rgb'],
+                                 c['max_abs_err_sigma']) for c in checks),
+             ms=osg_main['ms'], plain_ms=osg_main['plain_ms'],
+             bound_ms=osg_main['bound_ms'], bound_by=osg_main['bound_by'],
+             library_ms=None),
+        dict(name='fused_attention', route='cuda',
+             source='ln3diff_tpu_torch/ops/csrc/fused_attention.cu',
+             replaces='ln3diff_tpu/ops/fused_attention.py:39',
+             launches=serving['fused_attention_launches'],
+             max_abs_err=max(c['max_abs_err'] for c in attn_checks),
+             ms=attn_main['ms'], plain_ms=attn_main['plain_ms'],
+             bound_ms=attn_main['bound_ms'], bound_by=attn_main['bound_by'],
+             library_ms=attn_main['library_ms'])]})
     print(smi_line, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': count}})

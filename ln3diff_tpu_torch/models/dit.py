@@ -4,9 +4,11 @@ Port of ``ln3diff_tpu/models/dit.py`` for the block variants on the
 text→3D path: plain adaLN-zero (``'adaln'``, DiT2) and adaLN with text
 cross-attention (``'text'``, DiT-L/2).  Attention is the plain
 matmul-softmax-matmul of ``jax.nn.dot_product_attention`` (the JAX
-default, ``fused_attention=False``).  The PixArt / image-conditioned
-variants, the fused-attention and int8 serving knobs wait for later
-slices.
+default); ``DiTConfig.fused_attention=True`` (the serving switch) sends the
+denoiser's self-attention through the fused kernel
+(``ops/fused_attention.py``), as the JAX package's ``Attention.fused``
+does.  The PixArt / image-conditioned variants and the int8 serving knob
+are not ported.
 
 Layout: latents are channels-last ``(B, H, W, C)`` with the channel axis
 decomposed as ``(c, plane)``, plane fastest, as in the JAX package.  The
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fused_attention import sdpa_auto
 from .layers import dot_product_attention, timestep_embedding
 
 
@@ -71,9 +74,14 @@ def _layer_norm(x):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    """Multi-head self-attention.  ``fused=True`` runs the fused kernel on
+    q, k and v read in place from the one qkv projection."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 fused: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.fused = fused
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
@@ -81,9 +89,10 @@ class Attention(nn.Module):
         B, L, D = x.shape
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         hd = D // self.num_heads
-        out = dot_product_attention(q.reshape(B, L, self.num_heads, hd),
-                                    k.reshape(B, L, self.num_heads, hd),
-                                    v.reshape(B, L, self.num_heads, hd))
+        out = sdpa_auto(q.reshape(B, L, self.num_heads, hd),
+                        k.reshape(B, L, self.num_heads, hd),
+                        v.reshape(B, L, self.num_heads, hd),
+                        use_fused=self.fused)
         return self.proj(out.reshape(B, L, D))
 
 
@@ -161,14 +170,15 @@ class DiTBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int = 4,
                  variant: str = 'adaln', context_dim: Optional[int] = None,
-                 token_modulation: bool = False, exact_gelu: bool = True):
+                 token_modulation: bool = False, exact_gelu: bool = True,
+                 fused_attention: bool = False):
         super().__init__()
         if variant not in ('adaln', 'text'):
             raise NotImplementedError(f'DiT block variant {variant!r}')
         self.variant = variant
         self.token_modulation = token_modulation
         self.adaLN_modulation = nn.Linear(hidden_size, 6 * hidden_size)
-        self.attn = Attention(hidden_size, num_heads)
+        self.attn = Attention(hidden_size, num_heads, fused=fused_attention)
         if variant == 'text':
             self.cross_attn = CrossAttention(
                 hidden_size, num_heads, context_dim or hidden_size)
@@ -238,6 +248,8 @@ class DiTConfig:
     variant: str = 'text'
     # serving mode: tanh-approximate MLP GELU
     exact_gelu: bool = True
+    # serving mode: self-attention through the fused kernel
+    fused_attention: bool = False
     dtype: Any = torch.bfloat16
 
 
@@ -260,7 +272,8 @@ class DiT_TriLatent(nn.Module):
         self.clip_text_proj = CaptionEmbedder(D, context_dim=cfg.context_dim)
         self.blocks = nn.ModuleList([
             DiTBlock(D, cfg.num_heads, cfg.mlp_ratio, variant=cfg.variant,
-                     context_dim=D, exact_gelu=cfg.exact_gelu)
+                     context_dim=D, exact_gelu=cfg.exact_gelu,
+                     fused_attention=cfg.fused_attention)
             for _ in range(cfg.depth)])
         self.final_layer = FinalLayer(D, cfg.patch_size**2 * cfg.in_channels)
         L = (cfg.input_size // cfg.patch_size)**2

@@ -1,15 +1,21 @@
-"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with
-``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface, so it
-compiles in seconds without PyTorch's headers.  The shared library goes
-to ``ln3diff_tpu_torch/_build/<name>-<hash>.so``, where the hash covers
-the source, the headers beside it and the flags: a changed source builds
-anew, an unchanged one is reused.  The compiler writes to a temporary name
-that is renamed into place, so an interrupted build leaves nothing
-half-written, and no lock file is taken that could be left behind.
+Two kinds of source, each exposing a plain ``extern "C"`` interface:
 
-Nothing here runs at import time; the first launch of a kernel builds it.
+* ``ops/csrc/<name>.cu``: CUDA kernels, compiled by ``nvcc`` for sm_90a
+  without PyTorch's headers, so each builds in seconds;
+* ``native/<name>.cpp``: host code of the mesh stage (marching
+  tetrahedra, the OBJ/PLY writers), compiled by ``g++``.
+
+A shared library goes to ``ln3diff_tpu_torch/_build/<name>-<hash>.so``,
+where the hash covers the source (for CUDA, every file in ``csrc/``), the
+compiler and the flags: a changed source builds anew, an unchanged one is
+reused.  The compiler writes to a temporary name that is renamed into
+place, so an interrupted build leaves nothing half-written, and no lock
+file is taken that could be left behind.
+
+Nothing here runs at import time; the first call that needs a library
+builds it.
 """
 
 from __future__ import annotations
@@ -23,11 +29,16 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / 'csrc'
-BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / 'ops' / 'csrc'
+NATIVE = PACKAGE / 'native'
+BUILD_DIR = PACKAGE / '_build'
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# the flags the JAX package builds the same sources with, so that both
+# march a σ grid to the same triangles on one machine
+GXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17')
 
 
 @dataclass
@@ -35,7 +46,7 @@ class BuildResult:
     name: str
     path: Path
     seconds: float        # compile wall time; 0.0 when the file was reused
-    log: str              # nvcc's stderr (the -Xptxas -v report)
+    log: str              # the compiler's stderr (nvcc: the -Xptxas -v report)
 
 
 def nvcc_path() -> str:
@@ -51,27 +62,37 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256()
-    for src in sorted(CSRC.glob('*.cu*')) + sorted(CSRC.glob('*.h')):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(name.encode())
-    h.update(' '.join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
+def _source(name: str) -> tuple[Path, list[Path], list[str]]:
+    """(source, files its hash covers, compiler command without -o)."""
+    cu = CSRC / f'{name}.cu'
+    if cu.exists():
+        deps = sorted(CSRC.glob('*.cu*')) + sorted(CSRC.glob('*.h'))
+        return cu, deps, [nvcc_path(), *NVCC_FLAGS]
+    cpp = NATIVE / f'{name}.cpp'
+    if cpp.exists():
+        return cpp, [cpp], ['g++', *GXX_FLAGS]
+    raise FileNotFoundError(f'no source named {name!r} in {CSRC} or '
+                            f'{NATIVE}')
 
 
 def _start(name: str):
-    """Start one ``nvcc`` for ``csrc/<name>.cu``; returns (target, tmp,
-    process) or (target, None, None) when the library is already built."""
-    out = _target(name)
+    """Start the compiler for one source; returns (target, tmp, process)
+    or (target, None, None) when the library is already built."""
+    src, deps, cmd = _source(name)
+    h = hashlib.sha256()
+    for dep in deps:
+        h.update(dep.name.encode())
+        h.update(dep.read_bytes())
+    h.update(name.encode())
+    h.update(' '.join(cmd).encode())
+    out = BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.tmp{os.getpid()}')
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen([*cmd, '-o', str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
     return out, tmp, proc
 
 
@@ -84,18 +105,24 @@ def _finish(name: str, out: Path, tmp, proc, t0: float) -> BuildResult:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed on csrc/{name}.cu '
-                           f'(exit {proc.returncode}):\n{stdout}{stderr}')
+        raise RuntimeError(f'building {name} failed (exit '
+                           f'{proc.returncode}):\n{stdout}{stderr}')
     os.replace(tmp, out)
     out.with_suffix('.log').write_text(stderr)
     return BuildResult(name, out, seconds, stderr)
 
 
+def all_sources() -> list[str]:
+    """Every CUDA source and every native source, by name."""
+    return (sorted(p.stem for p in CSRC.glob('*.cu'))
+            + sorted(p.stem for p in NATIVE.glob('*.cpp')))
+
+
 def build_all(names=None) -> list[BuildResult]:
-    """Build every ``csrc/*.cu`` (or ``names``), one ``nvcc`` per source,
+    """Build every source (or ``names``), one compiler process per source,
     all started together."""
     if names is None:
-        names = sorted(p.stem for p in CSRC.glob('*.cu'))
+        names = all_sources()
     t0 = time.perf_counter()
     started = [(n, *_start(n)) for n in names]
     return [_finish(n, out, tmp, proc, t0)
@@ -103,7 +130,7 @@ def build_all(names=None) -> list[BuildResult]:
 
 
 class _Libraries:
-    """Loaded kernel libraries, one per source, built on first use."""
+    """Loaded libraries, one per source, built on first use."""
 
     def __init__(self):
         self._libs: dict[str, ctypes.CDLL] = {}
@@ -113,6 +140,17 @@ class _Libraries:
             (res,) = build_all([name])
             self._libs[name] = ctypes.CDLL(str(res.path))
         return self._libs[name]
+
+    def function(self, name: str, symbol: str, argtypes,
+                 restype=ctypes.c_int):
+        """``symbol`` of library ``name`` with its ctypes signature set
+        (pointers as ``c_void_p``, so that ctypes never cuts them to 32
+        bits)."""
+        fn = getattr(self.get(name), symbol)
+        if fn.argtypes is None:
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+        return fn
 
 
 LIBRARIES = _Libraries()

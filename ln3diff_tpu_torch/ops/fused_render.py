@@ -23,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ._build import LIBRARIES
+
 _ACTIVATIONS = {'sigmoid': 0, 'lrelu': 1}
 # the shapes the CUDA kernel is compiled for (csrc/fused_osg.cu)
 KERNEL_C, KERNEL_HIDDEN, KERNEL_OUT = 32, 64, 33
@@ -128,8 +130,11 @@ def osg_pointwise_fused(rows, tx, ty, live, w1, b1, w2, b2,
     sigma = torch.empty((M, 1), dtype=torch.float32, device=rows.device)
     if M == 0:
         return rgb, sigma
-    from ._build import LIBRARIES
-    fn = _launcher(LIBRARIES.get('fused_osg'))
+    vp = ctypes.c_void_p
+    fn = LIBRARIES.function(
+        'fused_osg', 'ln3diff_fused_osg_forward',
+        [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+         ctypes.c_longlong, ctypes.c_int, vp])
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(rows.data_ptr(), int(rows.dtype == torch.bfloat16),
@@ -143,16 +148,6 @@ def osg_pointwise_fused(rows, tx, ty, live, w1, b1, w2, b2,
                            f'{err}')
     FusedOSG.launches += 1
     return rgb, sigma
-
-
-def _launcher(lib: ctypes.CDLL):
-    fn = lib.ln3diff_fused_osg_forward
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                       vp, ctypes.c_longlong, ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 class FusedOSG:

@@ -3,18 +3,19 @@
 Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
 ``TextTo3DPipeline`` :55, ``_sample_impl`` / ``_make_cfg_fn`` /
 ``sample_latents`` :128-200, ``render_orbit`` :202,
-``dispatch_mesh_sigma`` :315, ``__call__`` :363-399 on its
-``mesh_path=None`` branch):
+``dispatch_mesh_sigma`` :315, ``export_mesh`` :347, ``__call__`` :363,
+``save_video_frames`` :447):
 
   1. (cond, uncond) text context;
   2. DDIM over ``(B, 32, 32, 12)`` latents with doubled-batch
      classifier-free guidance (cfg 1.0 runs the conditional half only);
   3. latent × triplane_scaling_divider → VAE decode → planes;
   4. orbit render, frames folded into the batch in memory-budgeted chunks;
-  5. the σ-grid query that feeds mesh extraction.
+  5. with a ``mesh_path``: σ-grid query, marching tetrahedra on the host,
+     per-vertex colours and the OBJ/PLY export, interleaved with the orbit.
 
-Marching tetrahedra, vertex colours and OBJ/PLY export are the next
-slice: a ``mesh_path`` raises ``NotImplementedError``.
+The JAX version's explicit ``cameras`` and its multi-chip sharding are not
+ported.
 
 The pipeline takes callables over tensors (the JAX version takes
 param-explicit ones); :func:`build_t23d_pipeline` assembles the released
@@ -26,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .render.camera import orbit_cameras
@@ -128,13 +130,15 @@ class TextTo3DPipeline:
                      radius: float = 1.8, fov: float = 30.0,
                      pitch_deg: float = 20.0,
                      render_resolution: Optional[int] = None,
-                     hbm_budget_bytes: float = 4e9):
+                     hbm_budget_bytes: float = 4e9,
+                     frame_slice: Optional[tuple] = None):
         """Render the evaluation orbit → (B, F, H, W, 3) in [-1, 1].
 
         Frames fold into the batch in chunks small enough that the
         gathered-corner tensor (frames·3·rays·128 samples·4C·itemsize)
         stays within ``hbm_budget_bytes``: one 192² frame per call with
-        bf16 planes and the 4 GB default."""
+        bf16 planes and the 4 GB default.  ``frame_slice=(a, b)`` renders
+        only frames [a, b) of the same ring of cameras."""
         C = planes.shape[-1]
         res = render_resolution or 128
         bytes_per_frame = 3 * res * res * 128 * 4 * C * planes.element_size()
@@ -145,6 +149,13 @@ class TextTo3DPipeline:
         cams = torch.as_tensor(orbit_cameras(num_frames, radius, fov,
                                              pitch_deg),
                                device=planes.device)
+        if frame_slice is not None:
+            a, b = frame_slice
+            cams = cams[a:b]
+            num_frames = b - a
+            frames_per_call = min(frames_per_call, num_frames)
+            while num_frames % frames_per_call:
+                frames_per_call -= 1
         B = planes.shape[0]
         chunks = []
         for f0 in range(0, num_frames, frames_per_call):
@@ -172,33 +183,107 @@ class TextTo3DPipeline:
                                 chunk=2**18, smooth=smooth,
                                 device=planes.device)
 
+    @torch.no_grad()
+    def export_mesh(self, planes, path: str, grid_size: int = 192,
+                    aabb: float = 0.45, threshold: float = 10.0,
+                    sigma_grid=None, smooth: bool = False):
+        """Mesh of the first instance (reference 192³ grid, σ > 10, −90°
+        about x) written to ``path`` (``.ply`` or OBJ) → (verts, faces)."""
+        from .render.mesh import export_obj, export_ply, extract_mesh, rotate_x
+        verts, colors, faces = extract_mesh(
+            self._mesh_decoder(planes), grid_size=grid_size, aabb=aabb,
+            threshold=threshold, sigma_grid=sigma_grid, smooth=smooth,
+            device=planes.device)
+        verts = rotate_x(verts, -90.0)
+        (export_ply if path.endswith('.ply') else export_obj)(
+            path, verts, colors, faces)
+        return verts, faces
+
     # -- full run ----------------------------------------------------------
 
     @torch.no_grad()
     def __call__(self, cond, uncond, batch: int = 1, num_frames: int = 24,
-                 mesh_path: Optional[str] = None,
+                 mesh_path: Optional[str] = None, mesh_grid: int = 192,
                  render_resolution: Optional[int] = None,
                  video_uint8: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 x_init: Optional[torch.Tensor] = None):
-        """Full run → {'latents', 'planes', 'video'}.  ``video_uint8``
-        returns the orbit as host uint8 frames.  The σ grid for a mesh is
-        :meth:`dispatch_mesh_sigma`; a ``mesh_path`` (marching and export)
-        is the next slice and raises."""
-        if mesh_path:
-            raise NotImplementedError('mesh export: next slice')
+                 x_init: Optional[torch.Tensor] = None,
+                 mesh_smooth: bool = True):
+        """Full run → {'latents', 'planes', 'video'} and, with a
+        ``mesh_path``, 'mesh' = (verts, faces) of the file written there.
+        ``video_uint8`` returns the orbit as host uint8 frames.
+        ``mesh_smooth`` (serving default) runs the 3³ σ denoise before
+        marching; False marches the reference's raw field."""
         latents = self.sample_latents(batch, cond, uncond,
                                       generator=generator, x_init=x_init)
         planes = self.decode_fn(latents)
         out = {'latents': latents, 'planes': planes}
         if self.render_dtype is not None:
             planes = planes.to(self.render_dtype)
-        video = self.render_orbit(planes, num_frames,
-                                  render_resolution=render_resolution)
+        if mesh_path:
+            video, out['mesh'] = self._orbit_and_mesh(
+                planes, num_frames, render_resolution, mesh_path, mesh_grid,
+                mesh_smooth)
+        else:
+            video = self.render_orbit(planes, num_frames,
+                                      render_resolution=render_resolution)
         if video_uint8:
             video = frames_to_uint8(video).cpu().numpy()
         out['video'] = video
         return out
+
+    def _orbit_and_mesh(self, planes, num_frames, render_resolution,
+                        mesh_path, mesh_grid, mesh_smooth):
+        """The orbit and the mesh, interleaved as in the JAX pipeline
+        (``pipeline.py:401-444``): σ query, crossing count and the head
+        quarter of the orbit are queued; the σ grid comes to the host only
+        when the count is non-zero; the rest of the orbit is queued before
+        the host march, so the device renders while the host marches (no
+        synchronisation sits between them: the stream stays busy); then
+        the vertex colours and the export."""
+        from .render.mesh import (count_crossing_cells,
+                                  dispatch_vertex_colors, export_obj,
+                                  export_ply, march_grid, rotate_x)
+        sigma_grid = self.dispatch_mesh_sigma(planes, mesh_grid,
+                                              smooth=mesh_smooth)
+        n_cross = count_crossing_cells(sigma_grid, mesh_grid)
+        head = min(max(num_frames // 4, 1), num_frames)
+        v1 = self.render_orbit(planes, num_frames,
+                               render_resolution=render_resolution,
+                               frame_slice=(0, head))
+        sigma_np = sigma_grid.cpu().numpy() if int(n_cross) else None
+        v2 = None
+        if head < num_frames:
+            v2 = self.render_orbit(planes, num_frames,
+                                   render_resolution=render_resolution,
+                                   frame_slice=(head, num_frames))
+        if sigma_np is not None:
+            verts, faces = march_grid(sigma_np, mesh_grid)
+        else:
+            verts = np.zeros((0, 3), np.float32)
+            faces = np.zeros((0, 3), np.int64)
+        verts_w = rotate_x(verts, -90.0)
+        rgb = dispatch_vertex_colors(self._mesh_decoder(planes), verts,
+                                     as_uint8=True, device=planes.device)
+        colors = np.zeros_like(verts) if rgb is None \
+            else rgb.cpu().numpy().astype(np.float32) / 255.0
+        (export_ply if mesh_path.endswith('.ply') else export_obj)(
+            mesh_path, verts_w, colors, faces)
+        video = v1 if v2 is None else torch.cat([v1, v2], dim=1)
+        return video, (verts_w, faces)
+
+
+def save_video_frames(frames, path_prefix: str):
+    """Write (F, H, W, 3) frames in [-1, 1] as ``<prefix>_000.png``, ...;
+    returns the paths.  Needs Pillow."""
+    from PIL import Image
+    paths = []
+    for i, f in enumerate(np.asarray(torch.as_tensor(frames).float().cpu())):
+        img = ((np.clip(f, -1, 1) + 1) * 127.5).astype(np.uint8)
+        p = f'{path_prefix}_{i:03d}.png'
+        Image.fromarray(img).save(p)
+        paths.append(p)
+    return paths
 
 
 def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,

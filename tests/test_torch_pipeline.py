@@ -6,7 +6,9 @@ same start noise (JAX's draw, fed to the port as ``x_init``); the JAX side
 runs ``FusedOSG`` through its jnp reference on the CPU, the port through
 the kernel's plain version.  Whole-slice tolerance: 1e-4 relative to each
 output's scale, as DDIM multiplies early-step differences by up to
-√(1/ᾱ_t).
+√(1/ᾱ_t).  The mesh call runs a toy model whose σ output bias is shifted
+to put the σ = 10 iso-surface inside the grid, and a denoiser with
+``fused_attention=True``.
 """
 
 import functools
@@ -61,9 +63,10 @@ def _perturbed(v, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _models():
+def _models(sigma_shift=0.0, fused_attention=False):
     den_kw = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32,
-                  depth=2, num_heads=2, context_dim=32, exact_gelu=False)
+                  depth=2, num_heads=2, context_dim=32, exact_gelu=False,
+                  fused_attention=fused_attention)
     clip_kw = dict(vocab_size=49408, hidden_size=32, num_layers=1,
                    num_heads=2, intermediate_size=64)
     d2_kw = dict(tokens_per_plane=16, hidden_size=32, depth=2, num_heads=2)
@@ -85,6 +88,8 @@ def _models():
                       jnp.zeros((1, 25)), JOpts(**OPTS), 4,
                       method=jvae.init_decoder_paths)
     vae_v = {'params': _perturbed(vae_v['params'], 11)}
+    osg_out = vae_v['params']['osg_decoder']['EqualDense_1']
+    osg_out['bias'] = osg_out['bias'].at[0].add(sigma_shift)
     clip_v = jclip.init(jax.random.PRNGKey(2), jnp.zeros((1, 77), jnp.int32))
     np_tree = functools.partial(jax.tree_util.tree_map, np.asarray)
 
@@ -105,8 +110,8 @@ def _models():
                 tmods=dict(denoiser=tden, vae=tvae, text_model=tclip))
 
 
-def _pipelines(cfg_scale=6.5, steps=10):
-    m = _models()
+def _pipelines(cfg_scale=6.5, steps=10, **model_kw):
+    m = _models(**model_kw)
     jden, jvae, opts = m['jden'], m['jvae'], JOpts(**OPTS)
     jpipe = JPipeline(
         lambda p, x, t, c: jden.apply(p, x, t, c), m['den_v'],
@@ -132,8 +137,8 @@ def _pipelines(cfg_scale=6.5, steps=10):
     return jpipe, tpipe, tencode
 
 
-def _jax_context(prompt):
-    m = _models()
+def _jax_context(prompt, **model_kw):
+    m = _models(**model_kw)
     ids = jnp.asarray(SimpleCLIPTokenizer()([prompt, '']))
     both = m['jclip'].apply(m['clip_v'], ids)['last_hidden_state']
     return {'crossattn': both[:1]}, {'crossattn': both[1:]}
@@ -214,11 +219,82 @@ def test_cfg_one_runs_conditional_half_only():
     torch.testing.assert_close(single, double, atol=2e-5, rtol=1e-5)
 
 
-def test_mesh_export_is_next_slice():
+MESH = dict(sigma_shift=10.3, fused_attention=True)
+
+
+def _read_obj(path):
+    lines = Path(path).read_text().splitlines()
+    v = np.array([[float(x) for x in ln.split()[1:]] for ln in lines
+                  if ln.startswith('v ')]).reshape(-1, 6)
+    f = np.array([[int(x) for x in ln.split()[1:]] for ln in lines
+                  if ln.startswith('f ')], np.int64).reshape(-1, 3)
+    return v, f
+
+
+def test_mesh_export_is_next_slice(tmp_path):
+    """The serving path's mesh call: ``__call__`` with a ``mesh_path``
+    against JAX's, with the fused-attention denoiser.  Latents, planes and
+    frames to 1e-4 of scale; the smoothed f16 σ grids to the σ-grid tests'
+    tolerance (6e-3 relative); the port's mesh is the march of its own σ
+    grid, and from JAX's σ grid the port's march gives JAX's triangles
+    exactly; the OBJ written parses back to the returned vertices and
+    faces.  (The two calls' own meshes differ by a few percent of
+    triangles: the toy field hovers within 0.5 of the threshold, where one
+    f16 ulp of the smoothed grid flips cells.)"""
+    jpipe, tpipe, tencode = _pipelines(steps=4, **MESH)
+    jc, ju = _jax_context('a red wooden chair', **MESH)
+    tc, tu = tencode('a red wooden chair')
+    key = jax.random.PRNGKey(3)
+    jpath, tpath = str(tmp_path / 'jax.obj'), str(tmp_path / 'port.obj')
+    want = jpipe(key, jc, ju, num_frames=4, render_resolution=RES,
+                 mesh_path=jpath, mesh_grid=24)
+    noise = torch.from_numpy(np.array(_jax_noise(key, (1, 8, 8, 12))))
+    got = tpipe(tc, tu, num_frames=4, render_resolution=RES, x_init=noise,
+                mesh_path=tpath, mesh_grid=24)
+    assert got['video'].shape == (1, 4, RES, RES, 3)
+    for k in ('latents', 'planes', 'video'):
+        _close(got[k], want[k])
+
+    from ln3diff_tpu.render.mesh import march_grid as jmarch
+    from ln3diff_tpu_torch.render.mesh import march_grid, rotate_x
+    jsig = np.asarray(jpipe.dispatch_mesh_sigma(want['planes'], 24,
+                                                smooth=True), np.float32)
+    tsig = tpipe.dispatch_mesh_sigma(got['planes'], 24, smooth=True)
+    np.testing.assert_allclose(tsig.float().numpy(), jsig, rtol=6e-3,
+                               atol=1e-3)
+    assert (jsig > 10).any() and (jsig < 10).any()
+    verts, faces = got['mesh']
+    mv, mf = march_grid(tsig.numpy(), 24)
+    assert len(faces) > 0
+    np.testing.assert_array_equal(verts, rotate_x(mv, -90.0))
+    np.testing.assert_array_equal(faces, mf)
+    jv, jf = jmarch(jsig, 24)
+    tv, tf = march_grid(jsig, 24)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tf, jf)
+    v, f = _read_obj(tpath)
+    np.testing.assert_allclose(v[:, :3], verts, atol=1e-6)
+    assert ((v[:, 3:] >= 0) & (v[:, 3:] <= 1)).all()
+    np.testing.assert_array_equal(f - 1, faces)
+
+
+def test_mesh_call_empty_surface_and_ply(tmp_path):
+    """A field with no crossing skips the σ pull and the march and still
+    writes a valid (empty) mesh; ``.ply`` selects the PLY writer;
+    ``export_mesh`` exports the first instance."""
     _, tpipe, tencode = _pipelines(steps=2)
     tc, tu = tencode('x')
-    with pytest.raises(NotImplementedError, match='next slice'):
-        tpipe(tc, tu, mesh_path='/nonexistent/out.obj')
+    path = tmp_path / 'empty.ply'
+    out = tpipe(tc, tu, num_frames=2, render_resolution=RES,
+                mesh_path=str(path), mesh_grid=12)
+    assert len(out['mesh'][0]) == 0 and len(out['mesh'][1]) == 0
+    assert out['video'].shape == (1, 2, RES, RES, 3)
+    assert path.read_text().startswith('ply\n')
+    _, tpipe, _ = _pipelines(steps=2, **MESH)
+    verts, faces = tpipe.export_mesh(out['planes'], str(tmp_path / 'm.obj'),
+                                     grid_size=12)
+    v, f = _read_obj(tmp_path / 'm.obj')
+    assert len(v) == len(verts) and len(f) == len(faces)
 
 
 def test_cuda_entry_points_need_a_card():
@@ -272,3 +348,18 @@ def test_no_jax_reference_in_source(path):
     ``from jax``, ``flax`` or ``ln3diff_tpu.``."""
     src = (REPO / (path.replace('.', '/') + '.py')).read_text()
     assert not _FORBIDDEN.findall(src)
+
+
+def test_save_video_frames_matches_jax(tmp_path):
+    """The PNG dump of an orbit: the same files, byte for byte, as the
+    JAX package's for the same frames."""
+    from ln3diff_tpu.pipeline import save_video_frames as jsave
+    from ln3diff_tpu_torch.pipeline import save_video_frames
+    frames = np.random.default_rng(6).uniform(-1.2, 1.2, (3, 8, 8, 3)) \
+        .astype(np.float32)
+    got = save_video_frames(torch.from_numpy(frames), str(tmp_path / 'p'))
+    want = jsave(frames, str(tmp_path / 'j'))
+    assert [Path(p).name for p in got] == ['p_000.png', 'p_001.png',
+                                           'p_002.png']
+    for a, b in zip(got, want):
+        assert Path(a).read_bytes() == Path(b).read_bytes()
