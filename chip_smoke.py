@@ -3,23 +3,28 @@
 
     python3 chip_smoke.py
 
-Drives two paths of ``ln3diff_tpu_torch`` at the full width of the
-released Objaverse text→3D model, with random weights drawn from a fixed
-seed:
+Drives three paths of ``ln3diff_tpu_torch`` at the full width of the
+released Objaverse models, with random weights drawn from a fixed seed:
 
 * ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
   triplane VAE decode, a 24-frame 192² orbit and the 192³ σ-grid query;
 * ``serving_pipeline``: the full serving call ``__call__`` with a
   ``mesh_path`` and the fused-attention denoiser (``fused_attention=True``):
   the same stages, then marching tetrahedra, vertex colours and the OBJ
-  file, interleaved with the orbit.
+  file, interleaved with the orbit;
+* ``vae_train``: training steps of the stage-1 VAE (``VAETrainer``: SD
+  MVEncoder over 4 views of 256², DiT2-L/2 decoder, patch-32 renders with
+  64+64 samples, AdamW, EMA) in bf16 over f32 parameters, with the point
+  pipeline through the fused kernel and its backward kernel
+  (``use_fused_osg=True``) and through plain PyTorch.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
 g++, holds each kernel against its plain PyTorch version
-(``kernel_check``, ``attention_check``), checks the mesh stage on an
-analytic sphere (``mesh_check``) and a small model card against CPU
-(``small_reference``).  It prints one JSON line per phase as the phase
+(``kernel_check``, ``attention_check``, ``osg_backward_check``), checks
+the mesh stage on an analytic sphere (``mesh_check``), a small model card
+against CPU (``small_reference``) and a small training step card against
+CPU (``small_train_reference``).  It prints one JSON line per phase as the phase
 finishes, then the ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed build, launch or check exits non-zero without the
@@ -36,6 +41,7 @@ import copy
 import dataclasses
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -60,6 +66,24 @@ TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (1e-2, 1e-2)}
 TOL_ATTN = {'float32': (2e-5, 2e-5), 'bfloat16': (4e-3, 1e-2)}
 # small-size pipeline, card vs CPU, both in f32: |Δ| <= TOL_PIPE·max(1,|ref|)
 TOL_PIPE = 2e-3
+# the backward kernel against its plain version: |Δ| <= atol·max|plain| +
+# rtol·|plain|.  Per-point f32 outputs: the f32 MLP sums run in another
+# order.  bf16 row grads: w_k·round(g_f) rounds to bf16 on both sides and a
+# g_f a few f32 ulps away may round to the neighbouring bf16 value, which
+# moves the rounded product by up to two of its ulps (2^-6 relative).
+# Weight grads: sums over all M points in another order.
+TOL_BWD = {'point': (1e-5, 1e-4), 'grows_bf16': (1e-5, 2e-2),
+           'weights': (1e-4, 1e-4)}
+# small training step, card vs CPU, f32: the loss to TOL_TRAIN relative,
+# each grad to TOL_TRAIN of its tensor's scale (with a floor of 1e-5 of
+# the largest grad: grads that are zero in exact arithmetic hold rounding
+# noise); after one AdamW step, weights whose grad is resolved to 1e-5 of
+# scale plus 1e-2·lr, the rest (first-step Adam moves them by lr·sign of
+# noise) within 2·lr
+TOL_TRAIN = 1e-3
+# the two routes of the full-width training step (bf16 compute): the
+# first step's loss, kernel pair against plain PyTorch, relative
+TOL_TRAIN_ROUTES = 1e-2
 # the serving path's mesh: σ > 10 inside, 192³ grid over ±0.45
 MESH_GRID, MESH_AABB, MESH_THRESHOLD = 192, 0.45, 10.0
 
@@ -346,6 +370,405 @@ def attention_check():
         del qkv, q, k, v, got, want, err
         torch.cuda.empty_cache()
     return results
+
+
+def osg_bwd_bound_ms(M, rows_itemsize, with_inbox):
+    """Least time for one backward call: bytes (the forward's inputs, the
+    cotangents g_rgb and g_σ read once; the row, tx/ty/live and inbox
+    grads written once; the weights and their grads) over HBM bandwidth
+    vs the f32 operations (the forward recomputed, the two transposed
+    products, the weight-grad sums and the corner sums) over the f32
+    rate; the larger of the two."""
+    per_point_in = (3 * 128 * rows_itemsize + 3 * 3 * 4
+                    + (4 if with_inbox else 0) + 32 * 4 + 4)
+    per_point_out = (3 * 128 * rows_itemsize + 3 * 3 * 4
+                     + (4 if with_inbox else 0))
+    weights = 4 * (32 * 64 + 64 + 64 * 33 + 33)
+    nbytes = M * (per_point_in + per_point_out) + 2 * weights
+    forward = 2 * 32 * 64 + 2 * 64 * 33 + 3 * 32 * 7 + 3 * 8
+    backward = (2 * 33 * 64 * 2 + 2 * 32 * 64 * 2 + 3 * 128
+                + 3 * 4 * 32 * 2 + 3 * 20)
+    flops = M * (forward + backward)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+BWD_NAMES = ('grows', 'gtx', 'gty', 'glive', 'ginbox', 'gw1', 'gb1', 'gw2',
+             'gb2')
+
+
+def _bwd_errors(got, want, rows_dtype):
+    """max |Δ| per output and whether each is within TOL_BWD."""
+    errs, ok = {}, True
+    for name, a, b in zip(BWD_NAMES, got, want):
+        if b is None:
+            ok &= a is None
+            continue
+        if name.startswith(('gw', 'gb')):
+            atol, rtol = TOL_BWD['weights']
+        elif name == 'grows' and rows_dtype == 'bfloat16':
+            atol, rtol = TOL_BWD['grows_bf16']
+        else:
+            atol, rtol = TOL_BWD['point']
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        ok &= bool(a.shape == b.shape and a.isfinite().all()
+                   and (err <= atol * scale + rtol * b.abs()).all())
+        errs[name] = float(err.max())
+    return errs, ok
+
+
+def osg_backward_check():
+    """Kernel 2 (``osg_pointwise_backward``) against its plain version on
+    all nine outputs: one training-step launch (M = 64·32² points of a
+    patch-32 render, bf16 rows, bbox fold), f32 rows, lrelu without the
+    fold and a ragged M; then autograd through the kernel pair against
+    autograd of the plain forward, in f32."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_render import (
+        osg_pointwise_backward, osg_pointwise_backward_reference,
+        osg_pointwise_fused, osg_pointwise_reference)
+    train_M = 64 * 32 * 32
+    cases = [('training_launch', train_M, torch.bfloat16, True, 'sigmoid'),
+             ('f32_rows', train_M, torch.float32, True, 'sigmoid'),
+             ('lrelu_no_inbox', train_M, torch.bfloat16, False, 'lrelu'),
+             ('ragged_1001', 1001, torch.bfloat16, True, 'sigmoid')]
+    results = []
+    for i, (name, M, dt, with_inbox, act) in enumerate(cases):
+        args, inbox = osg_inputs(M, dt, with_inbox, seed=300 + i)
+        g = torch.Generator(device='cuda').manual_seed(400 + i)
+        g_rgb = torch.randn((M, 32), generator=g, device='cuda')
+        g_sig = torch.randn((M, 1), generator=g, device='cuda')
+
+        def kernel():
+            return osg_pointwise_backward(*args, g_rgb, g_sig,
+                                          activation=act, inbox=inbox)
+
+        def plain():
+            return osg_pointwise_backward_reference(
+                *args, g_rgb, g_sig, activation=act, inbox=inbox)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        errs, ok = _bwd_errors(got, plain(), str(dt).split('.')[-1])
+        again = kernel()
+        deterministic = all(
+            (a is None and b is None) or bool(torch.equal(a, b))
+            for a, b in zip(got, again))
+        bound, bound_by = osg_bwd_bound_ms(M, args[0].element_size(),
+                                           with_inbox)
+        res = dict(case=name, M=M, rows_dtype=str(dt), inbox=with_inbox,
+                   activation=act, max_abs_err=errs, ok=ok,
+                   deterministic=deterministic,
+                   ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
+                   bound_ms=bound, bound_by=bound_by)
+        results.append(res)
+        emit({'osg_backward_check': res})
+        check(ok, f'fused_osg backward disagrees with its plain version '
+              f'on {name}')
+        check(deterministic, f'fused_osg backward is not repeatable on '
+              f'{name}')
+        del args, inbox, g_rgb, g_sig, got, again
+        torch.cuda.empty_cache()
+
+    # autograd through the kernel pair, f32
+    M = train_M
+    args, inbox = osg_inputs(M, torch.float32, True, seed=310)
+    g = torch.Generator(device='cuda').manual_seed(410)
+    g_rgb = torch.randn((M, 32), generator=g, device='cuda')
+    g_sig = torch.randn((M, 1), generator=g, device='cuda')
+    grads = {}
+    for route, fn in (('kernel', osg_pointwise_fused),
+                      ('plain', osg_pointwise_reference)):
+        leaves = [a.clone().requires_grad_() for a in args]
+        box = inbox.clone().requires_grad_()
+        rgb, sigma = fn(*leaves, inbox=box)
+        ((rgb * g_rgb).sum() + (sigma * g_sig).sum()).backward()
+        grads[route] = [t.grad for t in leaves] + [box.grad]
+    torch.cuda.synchronize()
+    names = ['rows', 'tx', 'ty', 'live', 'w1', 'b1', 'w2', 'b2', 'inbox']
+    auto = {}
+    for name, a, b in zip(names, grads['kernel'], grads['plain']):
+        atol, rtol = TOL_BWD['weights' if name[0] in 'wb'
+                             and name != 'inbox' else 'point']
+        err = (a - b).abs()
+        ok = bool(torch.isfinite(a).all() and (
+            err <= atol * float(b.abs().max()) + rtol * b.abs()).all())
+        auto[name] = float(err.max())
+        check(ok, f'autograd through the kernels: grad of {name} differs')
+    emit({'osg_backward_autograd': dict(M=M, max_abs_err=auto)})
+    return results, auto
+
+
+def _train_cfgs(small):
+    """(model config, train config, loss config, render options) of the
+    small card-vs-CPU step or of the full-width step."""
+    import torch
+    from ln3diff_tpu_torch.config import RENDER_PRESETS, vae_preset
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainConfig
+    if small:
+        # the kernels' widths (32 plane channels, 32 colour channels), the
+        # rest tiny; f32
+        model = TriplaneVAEConfig(
+            encoder_ch=8, encoder_ch_mult=(1, 2), img_resolution=32,
+            num_views=2, latent_size=16,
+            dit2=DiT2Config(tokens_per_plane=64, hidden_size=32, depth=2,
+                            num_heads=2, dtype=torch.float32),
+            conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=torch.float32)
+        train = VAETrainConfig(lr=2e-3, patch_resolution=16,
+                               render_resolution=32, ema_rate=0.5,
+                               use_fused_osg=True)
+        opts = RenderOptions(depth_resolution=16,
+                             depth_resolution_importance=16,
+                             filter_out_of_bbox=True)
+        loss = LossConfig(lpips_lambda=0.0, ssim_lambda=0.2, l1_lambda=0.3)
+        return model, train, loss, opts
+    return (vae_preset('objaverse'),
+            VAETrainConfig(lr=1e-4, grad_clip=0.5, ema_rate=0.9999,
+                           patch_resolution=32, render_resolution=128),
+            LossConfig(depth_lambda=0.5, lpips_lambda=0.0),
+            RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto'])
+
+
+def small_train_reference():
+    """One training step of a small VAE on the card (``use_fused_osg=True``:
+    kernels 1 and 2) and on the CPU (plain versions), f32, from the same
+    weights, batch and draws: the loss, every grad and the parameters
+    after the AdamW step must agree; the OSG decoder's weights must get
+    non-zero grads on the card."""
+    import torch
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.vae_trainer import TrainDraws, VAETrainer
+
+    model_cfg, train_cfg, loss_cfg, opts = _train_cfgs(small=True)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    cpu = VAETrainer(model_cfg, train_cfg, loss_cfg, render_opts=opts,
+                     seed=3, device='cpu')
+    card = VAETrainer(model_cfg, train_cfg, loss_cfg, render_opts=opts,
+                      seed=3, device='cuda')
+    card.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(4)
+    R = train_cfg.patch_resolution**2
+    draws = TrainDraws(torch.randn((1, 16, 16, 4, 3), generator=g),
+                       draw_uniforms(2, R, opts, g, 'cpu'))
+    out = {}
+    for name, tr in (('cpu', cpu), ('cuda', card)):
+        dev = tr.device
+        d = TrainDraws(draws.eps.to(dev),
+                       type(draws.render)(*(t.to(dev)
+                                            for t in draws.render)))
+        batch = tr.prepare_batch(raw)
+        FusedOSG.launches = FusedOSG.backward_launches = 0
+        loss, _ = tr.loss_fn(batch, draws=d)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in tr.model.named_parameters()}
+        tr.model.zero_grad(set_to_none=True)
+        tr.train_step(batch, draws=d)
+        out[name] = dict(
+            loss=loss.item(), grads=grads,
+            params={k: p.detach().cpu() for k, p in tr.state.params.items()},
+            launches=(FusedOSG.launches, FusedOSG.backward_launches))
+    check(out['cpu']['launches'] == (0, 0), 'the CPU run launched kernels')
+    fwd, bwd = out['cuda']['launches']
+    check(fwd > 0 and bwd > 0, 'the card step did not launch both kernels')
+    lc, lg = out['cpu']['loss'], out['cuda']['loss']
+    check(abs(lg - lc) <= TOL_TRAIN * abs(lc), f'loss {lg} vs CPU {lc}')
+    gmax = max(float(v.abs().max()) for v in out['cpu']['grads'].values())
+    worst_grad, worst_param, n_resolved = 0.0, 0.0, 0
+    lr = train_cfg.lr
+    for k, want in out['cpu']['grads'].items():
+        got = out['cuda']['grads'][k]
+        tol = max(TOL_TRAIN * float(want.abs().max()), 1e-5 * gmax)
+        err = float((got - want).abs().max())
+        worst_grad = max(worst_grad, err / max(tol, 1e-30) * TOL_TRAIN)
+        check(err <= tol, f'grad of {k}: card vs CPU max|Δ| {err} > {tol}')
+        if k.startswith('osg_decoder.'):
+            check(float(got.abs().max()) > 0, f'{k}: zero grad on the card')
+        p_cpu, p_card = out['cpu']['params'][k], out['cuda']['params'][k]
+        perr = (p_card - p_cpu).abs()
+        resolved = want.abs() >= 10 * tol
+        n_resolved += int(resolved.sum())
+        check(float(perr.max()) <= 2 * lr + 1e-6, f'{k}: step off by more '
+              f'than 2·lr')
+        ptol = 1e-5 * float(p_cpu.abs().max()) + 1e-2 * lr
+        check(bool((perr[resolved] <= ptol).all()),
+              f'{k}: the AdamW step differs where the grad is resolved')
+        worst_param = max(worst_param, float(perr[resolved].max())
+                          if resolved.any() else 0.0)
+    return dict(loss_cpu=lc, loss_cuda=lg,
+                loss_rel_err=abs(lg - lc) / abs(lc),
+                grad_err_in_units_of_tol=worst_grad / TOL_TRAIN,
+                resolved_weights=n_resolved,
+                max_step_err_resolved=worst_param,
+                fused_osg_launches=fwd, fused_osg_backward_launches=bwd,
+                tensors=len(out['cpu']['grads']))
+
+
+def _step_profile(trainer, raw, gen, top=6):
+    """One training step under torch.profiler (CUDA activity): device
+    kernel time, the time of the fused point kernels, the largest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = trainer.prepare_batch(raw)
+    batch['step'] = 0.0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, 'self_device_time_total', None) \
+            or getattr(e, 'self_cuda_time_total', 0)
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    if not events:
+        return dict(device_ms=None)
+    osg = {}
+    for e in events:
+        for kind in ('osg_forward_kernel', 'osg_backward_kernel',
+                     'reduce_partials_kernel'):
+            if kind in e.key:
+                osg[kind] = osg.get(kind, 0.0) + dev_us(e) / 1e3
+    return dict(
+        device_ms=sum(dev_us(e) for e in events) / 1e3,
+        kernel_launches=sum(e.count for e in events),
+        fused_osg_kernels_ms=osg,
+        top_kernels=[dict(name=e.key[:80], ms=dev_us(e) / 1e3,
+                          calls=e.count)
+                     for e in sorted(events, key=dev_us, reverse=True)[:top]])
+
+
+def vae_train(steps=5, warmup=2):
+    """The training step at the released width (``vae_preset('objaverse')``,
+    bf16 compute over f32 parameters, patch 32 of a 128² render, 64+64
+    samples, AdamW lr 1e-4, clip 0.5, EMA 0.9999, one synthetic instance of
+    4 views at 256²), with the kernel pair (``use_fused_osg=True``) and with
+    plain PyTorch, from the same random weights (seed 0) and the same
+    draws.  Each route is built and warmed up (``warmup`` steps; its peak
+    memory above what was resident before it); both stay resident and the
+    ``steps`` timed steps of each run in turns (fused, plain, plain, fused,
+    ...; host clock, synchronised per step), with the launch counts of
+    kernels 1 and 2 reset to 0 just before and read just after.  Also: the
+    first step's loss of both routes, which parameter tensors that step
+    moved and how often the two routes moved a weight the same way, and
+    one profiled step per route."""
+    import torch
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+
+    model_cfg, base_cfg, loss_cfg, opts = _train_cfgs(small=False)
+    raw = make_multiview_batch(4, 256, 128, seed=0)
+    routes = {'fused': True, 'plain': False}
+    trainers, gens, res, first = {}, {}, {}, {}
+    init = None
+    for route, fused in routes.items():
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = VAETrainer(model_cfg, dataclasses.replace(
+            base_cfg, use_fused_osg=fused), loss_cfg, render_opts=opts,
+            seed=0, device='cuda')
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        if init is None:
+            init = {k: p.detach().clone()
+                    for k, p in tr.model.named_parameters()}
+        losses, norms = [], []
+        for i in range(warmup):
+            batch = tr.prepare_batch(raw)
+            batch['step'] = float(i)
+            m = tr.train_step(batch, generator=gen)
+            losses.append(float(m['loss']))
+            norms.append(float(m['grad_norm']))
+            if i == 0:
+                first[route] = {k: p.detach() - init[k]
+                                for k, p in tr.model.named_parameters()}
+        torch.cuda.synchronize()
+        res[route] = dict(
+            peak_mem_gib=round((torch.cuda.max_memory_allocated()
+                                - resident) / 2**30, 3),
+            losses=losses, grad_norms=norms, secs=[], launches=[0, 0],
+            params=sum(p.numel() for p in tr.model.parameters()),
+            tensors=len(list(tr.model.parameters())),
+            not_moved=[k for k, d in first[route].items()
+                       if not bool(d.any())])
+        trainers[route], gens[route] = tr, gen
+    del init
+    same = moved = 0
+    for k, d in first['fused'].items():
+        e = first['plain'][k]
+        both = (d != 0) & (e != 0)
+        moved += int(both.sum())
+        same += int((both & ((d > 0) == (e > 0))).sum())
+    del first
+
+    order = (['fused', 'plain', 'plain', 'fused'] * steps)[:2 * steps]
+    FusedOSG.launches = FusedOSG.backward_launches = 0
+    for i, route in enumerate(order):
+        tr = trainers[route]
+        batch = tr.prepare_batch(raw)
+        batch['step'] = float(warmup + len(res[route]['secs']))
+        n0 = (FusedOSG.launches, FusedOSG.backward_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, generator=gens[route])
+        torch.cuda.synchronize()
+        r = res[route]
+        r['secs'].append(time.perf_counter() - t0)
+        r['losses'].append(float(m['loss']))
+        r['grad_norms'].append(float(m['grad_norm']))
+        r['launches'][0] += FusedOSG.launches - n0[0]
+        r['launches'][1] += FusedOSG.backward_launches - n0[1]
+    total = (FusedOSG.launches, FusedOSG.backward_launches)
+
+    for route, r in res.items():
+        r['profile'] = _step_profile(trainers[route], raw, gens[route])
+        check(all(math.isfinite(x) for x in r['losses']),
+              f'{route}: non-finite loss {r["losses"]}')
+        not_moved = r.pop('not_moved')
+        check(not [k for k in not_moved if k.startswith('osg_decoder.')],
+              f'{route}: the first step did not move the OSG decoder')
+        # zero-initialised biases whose grad is zero at the first step
+        # (adaLN-zero blocks start as the identity) stay where they are
+        r['tensors_not_moved_by_step_1'] = len(not_moved)
+        r['not_moved_examples'] = not_moved[:4]
+        r.update(s_per_step=sum(r['secs']) / len(r['secs']),
+                 s_per_step_runs=r.pop('secs'),
+                 fused_osg_launches=r['launches'][0],
+                 fused_osg_backward_launches=r['launches'][1],
+                 fused_osg_launches_per_step=r['launches'][0] / steps,
+                 fused_osg_backward_launches_per_step=(r['launches'][1]
+                                                       / steps))
+        del r['launches']
+    del trainers
+    f, p = res['fused'], res['plain']
+    check(total == (f['fused_osg_launches'], f['fused_osg_backward_launches']),
+          'fused_osg launched outside the fused route\'s steps')
+    check(f['fused_osg_launches_per_step'] == 8
+          and f['fused_osg_backward_launches_per_step'] == 8,
+          f'fused route: {f["fused_osg_launches_per_step"]} forward and '
+          f'{f["fused_osg_backward_launches_per_step"]} backward launches '
+          f'per step, expected 8 and 8')
+    check(p['fused_osg_launches'] == 0
+          and p['fused_osg_backward_launches'] == 0,
+          'plain route launched the fused kernels')
+    rel = abs(f['losses'][0] - p['losses'][0]) / abs(p['losses'][0])
+    check(rel <= TOL_TRAIN_ROUTES, f'first-step loss: fused '
+          f'{f["losses"][0]} vs plain {p["losses"][0]}')
+    res['first_loss_rel_diff'] = rel
+    res['first_step_same_direction_share'] = same / max(moved, 1)
+    res['timed_order'] = order
+    return res
 
 
 def obj_counts(path):
@@ -668,11 +1091,17 @@ def main():
     t0 = time.perf_counter()
     attn_checks = attention_check()
     phase_done('attention_check', t0)
+    t0 = time.perf_counter()
+    bwd_checks, bwd_autograd = osg_backward_check()
+    phase_done('osg_backward_check', t0)
 
-    # 4. small model: card vs CPU
+    # 4. small models: card vs CPU
     t0 = time.perf_counter()
     small = small_reference()
     phase_done('small_reference', t0, **small)
+    t0 = time.perf_counter()
+    small_train = small_train_reference()
+    phase_done('small_train_reference', t0, **small_train)
 
     # 5. the main path at full width, random weights
     from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
@@ -772,8 +1201,15 @@ def main():
                            'fused_attention': modules['denoiser']},
                           cond, uncond)
     phase_done('dit_profile', t0, **profile)
+    del modules, plain_denoiser, cond, uncond
+    torch.cuda.empty_cache()
 
-    osg_main, attn_main = checks[0], attn_checks[0]
+    # 9. the stage-1 VAE training step at full width, both routes
+    t0 = time.perf_counter()
+    train = vae_train()
+    phase_done('vae_train', t0, **train)
+
+    osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     emit({'kernels': [
         dict(name='fused_osg', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',
@@ -791,7 +1227,16 @@ def main():
              max_abs_err=max(c['max_abs_err'] for c in attn_checks),
              ms=attn_main['ms'], plain_ms=attn_main['plain_ms'],
              bound_ms=attn_main['bound_ms'], bound_by=attn_main['bound_by'],
-             library_ms=attn_main['library_ms'])]})
+             library_ms=attn_main['library_ms']),
+        dict(name='fused_osg_bwd', route='cuda',
+             source='ln3diff_tpu_torch/ops/csrc/fused_osg_bwd.cu',
+             replaces='ln3diff_tpu/ops/fused_render.py:219',
+             launches=train['fused']['fused_osg_backward_launches'],
+             max_abs_err=max(e for c in bwd_checks
+                             for e in c['max_abs_err'].values()),
+             ms=bwd_main['ms'], plain_ms=bwd_main['plain_ms'],
+             bound_ms=bwd_main['bound_ms'], bound_by=bwd_main['bound_by'],
+             library_ms=None)]})
     print(smi_line, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': count}})

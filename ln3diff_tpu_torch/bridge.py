@@ -81,12 +81,17 @@ def dit_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def vae_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """Decode-side ``TriplaneVAE`` params (``ldm_upsample``, ``dit2``,
-    ``conv_sr``, ``osg_decoder``) → the port's state dict.  Encoder-side
-    params, if present, are left out."""
+    """``TriplaneVAE`` params → the port's state dict: the decode side
+    (``ldm_upsample``, ``dit2``, ``conv_sr``, ``osg_decoder``) and, when
+    present, the SD encoder and ``quant_conv``.  Other subtrees (SR and
+    background heads) are left out.
+
+    The map is linear (transposes and renames only), so it also carries a
+    JAX grad tree onto the port's parameter names."""
     if 'params' in params:
         params = params['params']
-    keep = ('ldm_upsample', 'dit2', 'conv_sr', 'osg_decoder')
+    keep = ('encoder', 'quant_conv', 'ldm_upsample', 'dit2', 'conv_sr',
+            'osg_decoder')
     params = {k: v for k, v in params.items() if k in keep}
     return _convert(params, {('dit2', 'blocks'): 'dit2.blocks'})
 

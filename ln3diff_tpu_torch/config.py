@@ -1,10 +1,12 @@
-"""The presets of the text→3D serving path, as plain dataclasses.
+"""The presets of the text→3D serving path and the VAE trainer, as plain
+dataclasses.
 
 The port's copy of three presets of ``ln3diff_tpu/config.py`` (that
 module imports JAX and every model): the Objaverse render options
 (``RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto']`` :35),
-the Objaverse VAE (``vae_preset('objaverse')`` :167-186) and the text→3D
-denoiser (``denoiser_preset('t23d-dit-l2')`` :250-252).
+the Objaverse VAE (``vae_preset('objaverse')`` :167-186, encoder fields
+included) and the text→3D denoiser (``denoiser_preset('t23d-dit-l2')``
+:250-252).
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ RENDER_PRESETS: dict[str, RenderOptions] = {
 
 def vae_preset(name: str = 'objaverse',
                dtype=torch.bfloat16) -> TriplaneVAEConfig:
-    """Decode side of the released Objaverse VAE: DiT2-L/2 backbone over
-    16² tokens per plane, SD-Decoder upsampler to (3, 128, 128, 32)
-    planes."""
+    """The released Objaverse VAE: SD MVEncoder over 4 views of 256² ×
+    10 channels, DiT2-L/2 backbone over 16² tokens per plane, SD-Decoder
+    upsampler to (3, 128, 128, 32) planes."""
     if name != 'objaverse':
         raise KeyError(name)
     return TriplaneVAEConfig(
+        encoder_in_channels=10, encoder_ch=64, encoder_ch_mult=(1, 2, 4, 4),
+        encoder_res_blocks=1, img_resolution=256, num_views=4,
         ldm_z_channels=4, latent_size=32,
         dit2=dit2_registry('DiT2-L/2', tokens_per_plane=256, dtype=dtype),
         patch_size=2, conv_sr_ch=32, conv_sr_ch_mult=(1, 2, 2, 4),

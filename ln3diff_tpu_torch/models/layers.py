@@ -8,6 +8,7 @@ runs without released weights.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -53,9 +54,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           is_causal: bool = False) -> torch.Tensor:
     """softmax(q kᵀ/√d) v on ``(B, L, H, d)`` operands, with the numerics
     of ``jax.nn.dot_product_attention``'s XLA path: logits and softmax in
-    f32, probabilities cast to the value dtype before the product."""
+    f32, probabilities cast to the value dtype before the product.  Under
+    autocast (training in bf16) the logits stay f32 all the same."""
     d = q.shape[-1]
-    logits = torch.einsum('bthd,bshd->bhts', q.float(), k.float())
+    dev = q.device.type
+    with (torch.autocast(dev, enabled=False)
+          if torch.is_autocast_enabled(dev) else contextlib.nullcontext()):
+        logits = torch.einsum('bthd,bshd->bhts', q.float(), k.float())
     logits = logits * (1.0 / math.sqrt(d))
     if is_causal:
         T, S = logits.shape[-2:]

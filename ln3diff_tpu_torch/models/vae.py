@@ -1,10 +1,11 @@
-"""Stage-1 triplane VAE, decode side: latent → planes → volume render and
-point queries.
+"""Stage-1 triplane VAE: multi-view encoder → KL bottleneck → DiT2 decode
+→ planes → volume render and point queries.
 
-Port of ``ln3diff_tpu/models/vae.py`` (``decode_latent`` :213-238,
-``_fused_osg`` :245-251, ``render`` :253-306, ``query_points`` :359-378).
-The encoder, the KL bottleneck and the render-space SR heads wait for
-later slices.
+Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
+:194, ``decode_latent`` :213-238, ``_fused_osg`` :245-251, ``render``
+:253-306, ``__call__`` :328, ``query_points`` :359-378) for the SD
+encoders (``encoder_type='sd'``).  The ``'lgm'`` encoder, the render-space
+SR heads and the background planes wait for later slices.
 
 Latent layout ``(B, h, w, z*3)`` channels-last with plane fastest, and the
 absorbed channel interleaves of the reference are reproduced exactly: the
@@ -15,24 +16,35 @@ plane-grouped output channels are viewed as (D, plane) with plane fastest.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
 
 from ..ops.fused_render import FusedOSG, fused_osg_from_params
 from ..render.ray_sampler import sample_full_rays, unpack_25d_camera
-from ..render.renderer import (RenderOptions, pack_corner_table,
+from ..render.renderer import (RenderDraws, RenderOptions, pack_corner_table,
                                packed_gather, project_onto_planes,
                                render_rays, sample_from_planes)
 from .dit import DiT2, DiT2Config
+from .distributions import make_gaussian
 from .osg_decoder import OSGDecoder
-from .sd_vae import AutoencoderConfig, Decoder
+from .sd_vae import (AutoencoderConfig, Decoder, Encoder, MVEncoder,
+                     MVEncoderDynamic)
 
 
 @dataclasses.dataclass(frozen=True)
 class TriplaneVAEConfig:
-    """Decode-side fields of the JAX ``TriplaneVAEConfig``."""
+    """The fields of the JAX ``TriplaneVAEConfig`` for the SD encoder, the
+    bottleneck and the decode side."""
+    # encoder
+    encoder_in_channels: int = 10      # RGB + 6 Plücker + depth
+    encoder_ch: int = 64
+    encoder_ch_mult: tuple = (1, 2, 4, 4)
+    encoder_res_blocks: int = 1
+    img_resolution: int = 256
+    num_views: int = 4                 # 0 → mono encoder; >4 → dynamic mean
+    # bottleneck
     ldm_z_channels: int = 4            # per-plane latent channels
     latent_size: int = 32              # latent h = w
     dit2: DiT2Config = DiT2Config()
@@ -55,14 +67,21 @@ class TriplaneVAEConfig:
 
 
 class TriplaneVAE(nn.Module):
-    """Decode side of the triplane VAE.
+    """The triplane VAE.
 
-    ``cfg.dtype`` is the compute dtype of ``decode_latent``; call
-    :meth:`cast_decoder` to store the decoder backbone in it (the point
-    decoder stays f32, as the fused kernel takes f32 weights).
+    ``encoder=True`` builds the whole autoencoder (training); the default
+    builds the decode side only (``ldm_upsample``, ``dit2``, ``conv_sr``,
+    ``osg_decoder``), the parameters that JAX's ``init_decoder_paths``
+    creates for sampling.
+
+    Parameters are stored in f32.  ``cfg.dtype`` is the compute dtype: the
+    trainer runs the encoder and the decoder under autocast to it (the
+    renderer and the point decoder stay f32, as in JAX); the serving path
+    calls :meth:`cast_decoder` to store the decoder backbone in it (the
+    point decoder stays f32, as the fused kernel takes f32 weights).
     """
 
-    def __init__(self, cfg: TriplaneVAEConfig):
+    def __init__(self, cfg: TriplaneVAEConfig, encoder: bool = False):
         super().__init__()
         self.cfg = cfg
         D = cfg.dit2.hidden_size
@@ -78,13 +97,69 @@ class TriplaneVAE(nn.Module):
         self.osg_decoder = OSGDecoder(
             in_features=cfg.plane_channels,
             decoder_output_dim=cfg.decoder_output_dim)
+        if encoder:
+            self._build_encoder()
+
+    def _build_encoder(self):
+        """The SD encoder chosen as JAX's ``setup`` chooses it
+        (``vae.py:104-122``) and the ``quant_conv``."""
+        cfg = self.cfg
+        enc_cfg = AutoencoderConfig(
+            ch=cfg.encoder_ch, ch_mult=tuple(cfg.encoder_ch_mult),
+            num_res_blocks=cfg.encoder_res_blocks,
+            z_channels=cfg.latent_channels, double_z=True,
+            in_channels=cfg.encoder_in_channels,
+            resolution=cfg.img_resolution)
+        if cfg.num_views == 0:
+            self.encoder = Encoder(enc_cfg)
+        elif cfg.num_views > 4:
+            self.encoder = MVEncoderDynamic(enc_cfg,
+                                            num_frames=cfg.num_views)
+        else:
+            self.encoder = MVEncoder(enc_cfg, num_frames=cfg.num_views)
+        # 1x1 conv over the per-plane moment channels, grouped by plane
+        # (reference quant_conv, vit_triplane.py:854-857)
+        zc = 2 * cfg.latent_channels
+        self.quant_conv = nn.Conv2d(zc, zc, 1, groups=3)
 
     def cast_decoder(self) -> 'TriplaneVAE':
         """Store ``ldm_upsample``, ``dit2`` and ``conv_sr`` in
-        ``cfg.dtype``."""
+        ``cfg.dtype`` (serving only: training keeps f32 parameters)."""
         for m in (self.ldm_upsample, self.dit2, self.conv_sr):
             m.to(self.cfg.dtype)
         return self
+
+    # -- encoder ----------------------------------------------------------
+
+    def encode(self, imgs: torch.Tensor) -> torch.Tensor:
+        """``(B·V, H, W, C_in)`` → moments ``(B, h, w, 2z, 3)``.
+
+        The grouped ``quant_conv`` output (plane-major groups) is viewed
+        as (2z, plane) with plane fastest, the interleave of the
+        reference's ``vae_encode`` (``vit_triplane.py:912-933``) that the
+        released weights absorbed."""
+        h = self.encoder(imgs)                          # (B, h, w, 6z) NHWC
+        moments = self.quant_conv(h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        B, hh, ww, _ = moments.shape
+        return moments.reshape(B, hh, ww, 2 * self.cfg.ldm_z_channels, 3)
+
+    def reparameterize(self, moments: torch.Tensor,
+                       sample_posterior: bool = True,
+                       eps: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+        """moments ``(B, h, w, 2z, 3)`` → (latent ``(B, h, w, z·3)`` with
+        the plane fastest, posterior).  The latent is a sample with ε
+        given or drawn from ``generator`` when ``sample_posterior``, else
+        the mean (JAX: a sample when a key is given)."""
+        z = self.cfg.ldm_z_channels
+        posterior = make_gaussian(moments[..., :z, :], moments[..., z:, :],
+                                  soft_clamp=True)
+        if sample_posterior and (eps is not None or generator is not None):
+            latent = posterior.sample(eps=eps, generator=generator)
+        else:
+            latent = posterior.mode()
+        B, hh, ww = latent.shape[:3]
+        return latent.reshape(B, hh, ww, z * 3), posterior
 
     # -- decoder ----------------------------------------------------------
 
@@ -107,33 +182,73 @@ class TriplaneVAE(nn.Module):
     # -- rendering --------------------------------------------------------
 
     def fused_osg(self) -> FusedOSG:
-        """The fused point pipeline built from this module's OSG weights."""
+        """The fused point pipeline built from this module's OSG
+        parameters (folded differentiably, so that training through it
+        reaches them)."""
         dec = self.osg_decoder
-        return fused_osg_from_params(dec.state_dict(),
+        return fused_osg_from_params(dict(dec.named_parameters()),
                                      lr_multiplier=dec.decoder_lr_mul,
                                      activation=dec.activation)
 
-    def render(self, planes: torch.Tensor, camera25: torch.Tensor,
+    def render(self, planes: torch.Tensor, camera25: Optional[torch.Tensor],
                render_opts: RenderOptions, resolution: int,
-               use_fused_osg: bool = False) -> dict:
-        """Volume-render planes for 25-dim cameras.  Returns image_raw
-        (B, res, res, 3), feature_image, image_depth, image_mask."""
-        cam2world, intrinsics = unpack_25d_camera(camera25)
-        ray_origins, ray_directions = sample_full_rays(cam2world, intrinsics,
-                                                       resolution)
+               use_fused_osg: bool = False,
+               ray_origins: Optional[torch.Tensor] = None,
+               ray_directions: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[RenderDraws] = None) -> dict:
+        """Volume-render planes for 25-dim cameras (full ``resolution²``
+        images) or for given square ray bundles.  Sampling is jittered
+        when ``draws`` or a ``generator`` is given (see
+        :func:`~ln3diff_tpu_torch.render.renderer.render_rays`).  Returns
+        image_raw (B, res, res, 3), feature_image, image_depth,
+        image_mask."""
+        if ray_origins is None:
+            cam2world, intrinsics = unpack_25d_camera(camera25)
+            ray_origins, ray_directions = sample_full_rays(
+                cam2world, intrinsics, resolution)
         out = render_rays(planes, self.osg_decoder, ray_origins,
                           ray_directions, render_opts,
                           fused_osg=self.fused_osg() if use_fused_osg
-                          else None)
-        B = ray_origins.shape[0]
-        feature_image = out.feature_samples.reshape(B, resolution,
-                                                    resolution, -1)
-        depth_image = out.depth_samples.reshape(B, resolution, resolution, 1)
-        weights = out.weights_samples.reshape(B, resolution, resolution, 1)
+                          else None, generator=generator, draws=draws)
+        B, R = ray_origins.shape[:2]
+        res = resolution
+        if R != resolution * resolution:
+            res = int(round(R**0.5))
+            if res * res != R:
+                raise ValueError(f'render() needs a square ray bundle '
+                                 f'(R={R})')
+        feature_image = out.feature_samples.reshape(B, res, res, -1)
+        depth_image = out.depth_samples.reshape(B, res, res, 1)
+        weights = out.weights_samples.reshape(B, res, res, 1)
         return dict(feature_image=feature_image,
                     image_raw=feature_image[..., :3],
                     image_depth=depth_image,
                     image_mask=weights * 1.002 - 0.001)
+
+    # -- end to end -------------------------------------------------------
+
+    def forward(self, imgs: torch.Tensor, camera25: torch.Tensor,
+                render_opts: RenderOptions, resolution: int,
+                sample_posterior: bool = True,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RenderDraws] = None,
+                use_fused_osg: bool = False) -> dict:
+        """Full autoencode (JAX ``__call__``): multi-view images → renders
+        for ``camera25`` plus ``latent``, ``posterior_kl`` and ``planes``.
+        ε and the render's draws come from the arguments or from
+        ``generator`` (ε first); with neither, the posterior mean and
+        deterministic sampling."""
+        moments = self.encode(imgs)
+        latent, posterior = self.reparameterize(
+            moments, sample_posterior, eps=eps, generator=generator)
+        planes = self.decode_latent(latent)
+        ret = self.render(planes, camera25, render_opts, resolution,
+                          use_fused_osg=use_fused_osg, generator=generator,
+                          draws=draws)
+        ret.update(latent=latent, posterior_kl=posterior.kl(), planes=planes)
+        return ret
 
     # -- point queries (mesh extraction) ----------------------------------
 

@@ -37,58 +37,17 @@
 // Phase 4 writes rgb and sigma with coalesced stores.  The ragged last
 // tile is masked here; the caller pads nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "osg_common.cuh"
 
 namespace {
 
-constexpr int C = 32;          // plane channels (rows hold 4*C)
-constexpr int HID = 64;        // hidden width
-constexpr int NOUT = 33;       // 1 + C_out
-constexpr int COUT = NOUT - 1;
+using namespace osg;
+
 constexpr int P = 64;          // points per tile
 constexpr int THREADS = 256;
 constexpr int XS = C + 1;      // padded row stride of the feature tile
 constexpr int HS = HID + 1;    // padded row stride of the hidden tile
 static_assert(XS == NOUT, "the output tile reuses the feature tile");
-
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Round to the rows' dtype: bf16 rounds, f32 is exact.
-template <typename T> struct Arith;
-
-template <> struct Arith<__nv_bfloat16> {
-    __device__ __forceinline__ static float r(float x) { return round_bf16(x); }
-    // 8 consecutive bf16 (one 16-byte load) widened to f32 (exact).
-    __device__ __forceinline__ static void load8(const __nv_bfloat16* p,
-                                                 float out[8]) {
-        const uint4 q = *reinterpret_cast<const uint4*>(p);
-        const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            out[2 * i] = __uint_as_float(w[i] << 16);
-            out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-        }
-    }
-};
-
-template <> struct Arith<float> {
-    __device__ __forceinline__ static float r(float x) { return x; }
-    __device__ __forceinline__ static void load8(const float* p, float out[8]) {
-        const float4 a = *reinterpret_cast<const float4*>(p);
-        const float4 b = *reinterpret_cast<const float4*>(p + 4);
-        out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-        out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-    }
-};
-
-__device__ __forceinline__ float softplus(float x) {
-    // log(1 + e^x) = max(x, 0) + log1p(e^-|x|), as jax.nn.softplus
-    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

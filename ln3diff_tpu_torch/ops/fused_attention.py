@@ -51,13 +51,19 @@ def fused_attention(q, k, v):
 
     CPU tensors run the plain version.  Any other tensors are checked and
     then launch the kernel (counted in ``FusedAttention.launches``) or
-    raise: q, k and v must be CUDA tensors of one shape ``(B, L, H, d)``
-    and one dtype (bf16 or f32), with d in {32, 64}, unit stride along d
-    and 16-byte aligned rows.  They may be strided views, for example the
+    raise.  The kernel has no backward (the JAX kernel has no VJP either),
+    so with grad mode on, an input that requires grad raises.  q, k and v
+    must be CUDA tensors of one shape ``(B, L, H, d)`` and one dtype (bf16
+    or f32), with d in {32, 64}, unit stride along d and 16-byte aligned
+    rows.  They may be strided views, for example the
     thirds of one qkv projection, and are read in place.
     """
     if q.device.type == 'cpu':
         return attention_reference(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # like the JAX kernel, this one has no backward
+        raise RuntimeError('fused_attention has no backward: call it under '
+                           'torch.no_grad() or on tensors that need no grad')
     if q.ndim != 4:
         raise ValueError(f'q: shape {tuple(q.shape)}, expected (B, L, H, d)')
     B, L, H, d = q.shape

@@ -1,8 +1,12 @@
-"""Orbit cameras (numpy, host side).
+"""Cameras (numpy, host side).
 
-The port's own copy of the two functions of ``ln3diff_tpu/render/camera.py``
-that the orbit render needs (reference ``nsr/camera_utils.py:221-263``):
-G-Objaverse z-up pitch/yaw cameras packed as 25-dim labels.
+The port's own copy of the functions of ``ln3diff_tpu/render/camera.py``
+that it needs (reference ``nsr/camera_utils.py``): G-Objaverse z-up
+pitch/yaw cameras packed as 25-dim labels for the orbit render
+(``generate_input_camera`` :84, reference :221-263), and the look-at
+poses and FOV intrinsics of the synthetic training scene
+(``create_cam2world_matrix`` :20, ``lookat_pose`` :46,
+``fov_to_intrinsics`` :77; reference :23-219).
 """
 
 from __future__ import annotations
@@ -14,6 +18,51 @@ import numpy as np
 
 def _normalize(v, axis=-1):
     return v / np.linalg.norm(v, axis=axis, keepdims=True)
+
+
+def create_cam2world_matrix(forward_vector: np.ndarray,
+                            origin: np.ndarray) -> np.ndarray:
+    """y-up, no-roll cam2world from forward dirs and origins, both
+    ``(B, 3)``."""
+    forward = _normalize(forward_vector)
+    up = np.broadcast_to(np.array([0.0, 1.0, 0.0], np.float32),
+                         forward.shape)
+    right = -_normalize(np.cross(up, forward))
+    up = _normalize(np.cross(forward, right))
+
+    B = forward.shape[0]
+    cam2world = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    cam2world[:, :3, :3] = np.stack([right, up, forward], axis=-1)
+    cam2world[:, :3, 3] = origin
+    return cam2world
+
+
+def _spherical_origin(h, v, radius):
+    """EG3D spherical convention: azimuth h, polar v (radians)."""
+    v = np.clip(v, 1e-5, math.pi - 1e-5)
+    phi = np.arccos(1 - 2 * (v / math.pi))
+    x = radius * np.sin(phi) * np.cos(math.pi - h)
+    z = radius * np.sin(phi) * np.sin(math.pi - h)
+    y = radius * np.cos(phi)
+    return np.stack([x, y, z], axis=-1).astype(np.float32)
+
+
+def lookat_pose(horizontal: np.ndarray, vertical: np.ndarray,
+                lookat_position=np.zeros(3), radius: float = 1.0):
+    """Look-at poses from explicit angles ``(B,)`` (reference
+    ``LookAtPoseSampler``, :71-110)."""
+    origins = _spherical_origin(np.asarray(horizontal, np.float64),
+                                np.asarray(vertical, np.float64), radius)
+    lookat = np.broadcast_to(np.asarray(lookat_position, np.float32),
+                             origins.shape)
+    return create_cam2world_matrix(lookat - origins, origins)
+
+
+def fov_to_intrinsics(fov_degrees: float) -> np.ndarray:
+    """Normalised pinhole intrinsics from a FOV (reference :208-219)."""
+    focal = float(1 / (math.tan(fov_degrees * 3.14159 / 360) * 1.414))
+    return np.array([[focal, 0, 0.5], [0, focal, 0.5], [0, 0, 1]],
+                    np.float32)
 
 
 def generate_input_camera(radius: float, poses_deg, fov: float = 30.0):

@@ -7,9 +7,11 @@ importance sampling, the coarse+fine merge and march, and the optional bbox
 culling of the Objaverse presets.
 
 Sampling is deterministic — fixed stratum midpoints and a linspaced PDF
-draw, as ``key=None`` gives in JAX (``renderer.py:441-446``); the jittered
-training draws come with the training slice.  Planes are channels-last:
-``(B, 3, H, W, C)``.
+draw, as ``key=None`` gives in JAX (``renderer.py:441-446``) — unless the
+caller passes a ``torch.Generator`` or the uniform draws themselves
+(:class:`RenderDraws`, so that a test can feed JAX's draws): then the
+strata are jittered and the PDF is sampled at random, as in training.
+Planes are channels-last: ``(B, 3, H, W, C)``.
 """
 
 from __future__ import annotations
@@ -38,9 +40,21 @@ class RenderOptions:
     ray_end: float | str = 'auto'
     box_warp: float = 0.9
     white_back: bool = True
+    disparity_space_sampling: bool = False
     filter_out_of_bbox: bool = False
     sampler_bbox_min: float = -0.45
     sampler_bbox_max: float = 0.45
+    # midpoints and a linspaced PDF even when draws are given
+    deterministic: bool = False
+
+
+class RenderDraws(NamedTuple):
+    """The renderer's uniform draws in [0, 1): ``stratified`` jitters the
+    coarse depths ``(B, R, S, 1)``, ``importance`` samples the PDF
+    ``(B·R, n_importance)`` (JAX draws them from ``k_strat`` and ``k_imp``
+    of ``jax.random.split(key)``)."""
+    stratified: torch.Tensor
+    importance: torch.Tensor
 
 
 class RenderOutput(NamedTuple):
@@ -132,21 +146,32 @@ def sample_from_planes(plane_features: torch.Tensor,
 
 
 def sample_stratified(ray_origins: torch.Tensor, ray_start, ray_end,
-                      depth_resolution: int) -> torch.Tensor:
-    """Depths ``(B, R, S, 1)`` at the midpoints of S strata between
-    ray_start and ray_end (per-ray tensors or scalars)."""
+                      depth_resolution: int,
+                      disparity_space_sampling: bool = False,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depths ``(B, R, S, 1)`` in S strata between ray_start and ray_end
+    (per-ray tensors or scalars): at the strata's midpoints, or jittered
+    by the uniform draws ``u`` ``(B, R, S, 1)`` (reference
+    ``sample_stratified:437-477``)."""
     B, R, _ = ray_origins.shape
+    S = depth_resolution
+    dev = ray_origins.device
+    jitter = 0.5 if u is None else u
+    if disparity_space_sampling:
+        d = torch.linspace(0.0, 1.0, S, device=dev).reshape(1, 1, S, 1)
+        d = d.expand(B, R, S, 1)
+        d = d + jitter * (1.0 / (S - 1))
+        return 1.0 / (1.0 / ray_start * (1.0 - d) + 1.0 / ray_end * d)
     if torch.is_tensor(ray_start) and ray_start.ndim > 0:
         # per-ray auto bounds: (B, R, 1) each
-        d = math_utils.linspace_vec(ray_start, ray_end, depth_resolution)
+        d = math_utils.linspace_vec(ray_start, ray_end, S)
         d = torch.movedim(d, 0, 2)                    # (B, R, S, 1)
-        delta = (ray_end - ray_start) / (depth_resolution - 1)
-        return d + 0.5 * delta[..., None]
-    d = torch.linspace(float(ray_start), float(ray_end), depth_resolution,
-                       device=ray_origins.device)
-    d = d.reshape(1, 1, depth_resolution, 1).expand(B, R, depth_resolution, 1)
-    delta = (float(ray_end) - float(ray_start)) / (depth_resolution - 1)
-    return d + 0.5 * delta
+        delta = (ray_end - ray_start) / (S - 1)
+        return d + jitter * delta[..., None]
+    d = torch.linspace(float(ray_start), float(ray_end), S, device=dev)
+    d = d.reshape(1, 1, S, 1).expand(B, R, S, 1)
+    delta = (float(ray_end) - float(ray_start)) / (S - 1)
+    return d + jitter * delta
 
 
 def smooth_weights(weights: torch.Tensor) -> torch.Tensor:
@@ -158,17 +183,21 @@ def smooth_weights(weights: torch.Tensor) -> torch.Tensor:
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               n_importance: int, eps: float = 1e-5) -> torch.Tensor:
-    """Inverse-CDF sampling at linspaced u: bins ``(N, S+1)``, weights
-    ``(N, S)`` → ``(N, n_importance)`` (reference ``sample_pdf:504-552``)."""
+               n_importance: int, eps: float = 1e-5,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF sampling: bins ``(N, S+1)``, weights ``(N, S)`` →
+    ``(N, n_importance)`` (reference ``sample_pdf:504-552``), at linspaced
+    u, or at the uniform draws ``u`` ``(N, n_importance)``."""
     N, S = weights.shape
     weights = weights + eps
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
 
-    u = torch.linspace(0.0, 1.0, n_importance, device=weights.device)
-    u = u.expand(N, n_importance).contiguous()
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_importance, device=weights.device)
+        u = u.expand(N, n_importance)
+    u = u.contiguous()
 
     # side='right': the count of cdf entries <= u
     inds = torch.searchsorted(cdf, u, right=True)
@@ -186,15 +215,29 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
 
 
 def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor,
-                      n_importance: int) -> torch.Tensor:
+                      n_importance: int,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Importance depths ``(B, R, n_importance, 1)`` from coarse depths
-    ``(B, R, S, 1)`` and weights ``(B, R, S-1, 1)``."""
+    ``(B, R, S, 1)`` and weights ``(B, R, S-1, 1)``; ``u`` as in
+    :func:`sample_pdf`."""
     B, R, S, _ = z_vals.shape
     z = z_vals.detach().reshape(B * R, S)
     w = smooth_weights(weights.detach().reshape(B * R, -1))
     z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
-    samples = sample_pdf(z_mid, w[:, 1:-1], n_importance)
+    samples = sample_pdf(z_mid, w[:, 1:-1], n_importance, u=u)
     return samples.reshape(B, R, n_importance, 1)
+
+
+def draw_uniforms(B: int, R: int, opts: RenderOptions,
+                  generator: Optional[torch.Generator],
+                  device) -> RenderDraws:
+    """The renderer's uniform draws for a ``(B, R)`` ray bundle, from
+    ``generator`` (stratified first, then importance)."""
+    strat = torch.rand((B, R, opts.depth_resolution, 1),
+                       generator=generator, device=device)
+    imp = torch.rand((B * R, opts.depth_resolution_importance),
+                     generator=generator, device=device)
+    return RenderDraws(strat, imp)
 
 
 def unify_samples(depths1, colors1, densities1, depths2, colors2,
@@ -294,10 +337,18 @@ def run_decoder(planes: torch.Tensor, decoder: DecoderFn,
 
 def render_rays(planes: torch.Tensor, decoder: DecoderFn,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
-                opts: RenderOptions, fused_osg=None) -> RenderOutput:
+                opts: RenderOptions, fused_osg=None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RenderDraws] = None) -> RenderOutput:
     """Full two-pass render (reference ``ImportanceRenderer.forward``):
-    planes ``(B, 3, H, W, C)``, rays ``(B, R, 3)``."""
+    planes ``(B, 3, H, W, C)``, rays ``(B, R, 3)``.  Deterministic unless
+    ``draws`` or a ``generator`` is given and ``opts.deterministic`` is
+    off (JAX: a ``key``)."""
     B, R, _ = ray_origins.shape
+    if opts.deterministic or (draws is None and generator is None):
+        draws = RenderDraws(None, None)
+    elif draws is None:
+        draws = draw_uniforms(B, R, opts, generator, ray_origins.device)
 
     # one corner-packed table shared by the coarse and fine passes
     packed = pack_corner_table(planes)
@@ -306,14 +357,17 @@ def render_rays(planes: torch.Tensor, decoder: DecoderFn,
         if opts.ray_end != 'auto':
             raise ValueError("ray_start='auto' needs ray_end='auto'")
         ray_start, ray_end = math_utils.get_ray_limits_box(
-            ray_origins, ray_directions, box_side_length=opts.box_warp)
+            ray_origins.detach(), ray_directions.detach(),
+            box_side_length=opts.box_warp)
         ray_start, ray_end = math_utils.fix_invalid_ray_limits(
             ray_start, ray_end)
     else:
         ray_start, ray_end = opts.ray_start, opts.ray_end
 
     depths_coarse = sample_stratified(ray_origins, ray_start, ray_end,
-                                      opts.depth_resolution)
+                                      opts.depth_resolution,
+                                      opts.disparity_space_sampling,
+                                      u=draws.stratified)
     S = opts.depth_resolution
 
     def eval_points(depths, n_samples):
@@ -335,7 +389,7 @@ def render_rays(planes: torch.Tensor, decoder: DecoderFn,
         coarse = march_rays(colors_coarse, densities_coarse, depths_coarse,
                             white_back=opts.white_back)
         depths_fine = sample_importance(depths_coarse, coarse.weights,
-                                        n_imp)
+                                        n_imp, u=draws.importance)
         colors_fine, densities_fine = eval_points(depths_fine, n_imp)
         rgb, depth, wtot, vis = merge_and_march(
             depths_coarse, colors_coarse, densities_coarse,

@@ -1,0 +1,293 @@
+"""Stage-1 VAE trainer: patch-ray multi-view reconstruction.
+
+Port of ``ln3diff_tpu/training/vae_trainer.py`` (``VAETrainConfig`` :38,
+``_crop`` :70, ``VAETrainer`` :78 with ``init_state`` :113, ``_loss_fn``
+:137, ``prepare_batch`` :240 and ``run_loop`` :264; reference
+``nsr/train_nv_util.py:675-860``) on one device:
+
+* the V input views of an instance are encoded into one latent, and the
+  supervised views are rendered back from it as ``patch_resolution²``
+  patches at host-sampled, foreground-biased origins of a
+  ``render_resolution²`` image, against crops of the targets;
+* the encoder and the decoder run under autocast to ``cfg.dtype`` over
+  f32 parameters (the renderer and the point decoder in f32, as in JAX);
+  with ``use_fused_osg`` the render's point pipeline is the fused CUDA
+  kernel and its backward kernel;
+* gradients, averaged over ``microbatch_steps``, go through the global-norm
+  clip and AdamW, then the EMA (``train_state.py``).
+
+Randomness: the patch origins come from ``numpy.random.default_rng([seed,
+0])``, the host RNG of the JAX trainer on process 0, so both crop the same
+windows; the posterior's ε and the render's uniform draws come from a
+``torch.Generator`` or are passed in (:class:`TrainDraws`, so that a test
+can feed JAX's).  Not ported yet: the data-parallel mesh, the adversarial
+head, the preemption guard and the logger (metrics are printed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.sd_vae import MVAttn
+from ..models.vae import TriplaneVAE, TriplaneVAEConfig
+from ..pipeline import resolve_device
+from ..render.ray_sampler import (sample_patch_origins, sample_patch_rays,
+                                  unpack_25d_camera)
+from ..render.renderer import RenderDraws, RenderOptions
+from .losses import LossConfig, reconstruction_losses
+from .train_state import TrainState, global_norm, make_optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class VAETrainConfig:
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    grad_clip: float = 0.5
+    ema_rate: float = 0.9999
+    patch_resolution: int = 32        # patch-ray size (reference 32-64)
+    render_resolution: int = 128      # full supervision resolution
+    microbatch_steps: int = 1
+    # which views the render loss supervises: 'nv' = the held-out novel
+    # views when the batch carries them, 'input' = the encoder's input
+    # views, 'both' = the concatenation
+    supervise_views: str = 'nv'
+    # top-level module name → its own learning rate
+    lr_groups: tuple = ()
+    # the render's point pipeline through the fused kernels (forward and
+    # backward); CPU tensors run the same math as plain PyTorch
+    use_fused_osg: bool = False
+    log_interval: int = 10
+    total_steps: int = 100000
+
+
+class TrainDraws(NamedTuple):
+    """The random draws of one loss evaluation: the posterior's ε ``(B, h,
+    w, z, 3)`` and the render's uniforms, used for every supervised
+    source."""
+    eps: torch.Tensor
+    render: RenderDraws
+
+
+def _crop(img: torch.Tensor, h0, w0, size: int) -> torch.Tensor:
+    """Per-sample ``size²`` crops of ``(N, H, W, C)`` at ``(h0, w0)``; the
+    starts are clamped so that the crop fits, as ``lax.dynamic_slice``
+    does."""
+    N, H, W, _ = img.shape
+    crops = []
+    for i, (h, w) in enumerate(zip(h0.tolist(), w0.tolist())):
+        h = min(max(h, 0), H - size)
+        w = min(max(w, 0), W - size)
+        crops.append(img[i, h:h + size, w:w + size])
+    return torch.stack(crops)
+
+
+def zero_init_like_jax(model: torch.nn.Module) -> torch.nn.Module:
+    """Zero what the JAX modules zero-initialise: every DiT block's adaLN
+    modulation (adaLN-zero: each block starts as the identity) and the
+    multi-view attention's ``proj_out``."""
+    with torch.no_grad():
+        for mod in model.modules():
+            zeroed = (mod.proj_out if isinstance(mod, MVAttn)
+                      else getattr(mod, 'adaLN_modulation', None))
+            if zeroed is not None:
+                zeroed.weight.zero_()
+                zeroed.bias.zero_()
+    return model
+
+
+class VAETrainer:
+    """Owns the model, the train state and the step; drives the loop
+    (reference ``run_loop``).  Weights are random, from
+    :func:`~ln3diff_tpu_torch.models.layers.random_init_` seeded with
+    ``seed``, zero where JAX's init is (:func:`zero_init_like_jax`),
+    unless the caller loads others into ``trainer.model`` before the first
+    step."""
+
+    def __init__(self, model_cfg: TriplaneVAEConfig,
+                 train_cfg: VAETrainConfig = VAETrainConfig(),
+                 loss_cfg: LossConfig = LossConfig(),
+                 render_opts: Optional[RenderOptions] = None,
+                 seed: int = 0, lpips_fn: Optional[Callable] = None,
+                 device='cuda'):
+        from ..models.layers import random_init_
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.loss_cfg = loss_cfg
+        self.render_opts = render_opts or RenderOptions(
+            depth_resolution=48, depth_resolution_importance=48,
+            ray_start='auto', ray_end='auto', box_warp=0.9,
+            filter_out_of_bbox=True)
+        with torch.device(self.device):
+            self.model = TriplaneVAE(model_cfg, encoder=True)
+        random_init_(self.model, torch.Generator(
+            device=self.device).manual_seed(seed))
+        zero_init_like_jax(self.model)
+        # host-side patch-origin RNG: the JAX trainer's host_rng(seed) on
+        # process 0
+        self.rng = np.random.default_rng([int(seed), 0])
+        self.lpips_fn = lpips_fn
+        self.state: Optional[TrainState] = None
+
+    # -- state -------------------------------------------------------------
+
+    def init_state(self) -> TrainState:
+        """The optimizer and the EMA over the model's current parameters."""
+        tx = make_optimizer(self.cfg.lr, self.cfg.weight_decay,
+                            grad_clip=self.cfg.grad_clip,
+                            lr_groups=dict(self.cfg.lr_groups) or None)
+        self.state = TrainState.create(
+            self.model, tx, ema_rates=(('ema', self.cfg.ema_rate),))
+        return self.state
+
+    # -- the loss ----------------------------------------------------------
+
+    def _autocast(self):
+        dt = self.model_cfg.dtype
+        return torch.autocast(self.device.type, dtype=dt,
+                              enabled=dt != torch.float32)
+
+    def loss_fn(self, batch: dict,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[TrainDraws] = None):
+        """(total loss, unweighted terms) of one (micro)batch.  ε and the
+        render's draws come from ``draws`` or from ``generator``."""
+        cfg = self.cfg
+        model = self.model
+        opts = self.render_opts
+        patch = cfg.patch_resolution
+
+        with self._autocast():
+            moments = model.encode(batch['img_to_encoder'])
+            latent, posterior = model.reparameterize(
+                moments, True, eps=None if draws is None else draws.eps,
+                generator=generator)
+            planes = model.decode_latent(latent)
+        B = planes.shape[0]
+
+        use_nv = 'nv_c' in batch and cfg.supervise_views != 'input'
+        sources = []
+        if use_nv:
+            sources.append('nv_')
+        if not use_nv or cfg.supervise_views == 'both':
+            sources.append('')
+
+        preds, targets = [], []
+        for prefix in sources:
+            cams = batch[f'{prefix}c']
+            h0 = batch[f'{prefix}patch_h']
+            w0 = batch[f'{prefix}patch_w']
+            n = cams.shape[0] // B
+            planes_v = planes.repeat_interleave(n, dim=0)
+            cam2world, intrinsics = unpack_25d_camera(cams)
+            ray_o, ray_d = sample_patch_rays(
+                cam2world, intrinsics, h0.to(cams.device),
+                w0.to(cams.device), patch, cfg.render_resolution)
+            preds.append(model.render(
+                planes_v, None, opts, patch,
+                use_fused_osg=cfg.use_fused_osg, ray_origins=ray_o,
+                ray_directions=ray_d, generator=generator,
+                draws=None if draws is None else draws.render))
+            targets.append({
+                'img': _crop(batch[f'{prefix}img'], h0, w0, patch),
+                'depth': _crop(batch[f'{prefix}depth'][..., None], h0, w0,
+                               patch),
+                'depth_mask': _crop(batch[f'{prefix}depth_mask'][..., None],
+                                    h0, w0, patch),
+            })
+        pred = {k: torch.cat([p[k] for p in preds]) for k in preds[0]}
+        target = {k: torch.cat([t[k] for t in targets]) for k in targets[0]}
+        return reconstruction_losses(
+            pred, target, self.loss_cfg, kl=posterior.kl(),
+            step=batch.get('step'), lpips_fn=self.lpips_fn)
+
+    # -- the step ----------------------------------------------------------
+
+    def train_step(self, batch: dict,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[TrainDraws] = None) -> dict:
+        """One optimizer step (JAX ``build_train_step``'s ``step_fn``).
+        With ``microbatch_steps > 1`` every batch entry of rank ≥ 2 has a
+        leading microbatch axis and the grads are averaged over it.
+        Returns the metrics: the mean loss terms, ``loss`` and
+        ``grad_norm`` (of the unclipped grads)."""
+        if self.state is None:
+            self.init_state()
+        steps = self.cfg.microbatch_steps
+        if steps > 1 and draws is not None:
+            raise ValueError('explicit draws need microbatch_steps == 1')
+        params = self.state.params
+        for p in params.values():
+            p.grad = None
+        losses, metrics = [], {}
+        for i in range(steps):
+            micro = batch if steps == 1 else {
+                k: (v[i] if torch.is_tensor(v) and v.ndim >= 2 else v)
+                for k, v in batch.items()}
+            loss, terms = self.loss_fn(micro, generator=generator,
+                                       draws=draws)
+            loss.backward()
+            losses.append(loss.detach())
+            for k, v in terms.items():
+                metrics.setdefault(k, []).append(v.detach())
+        grads = {k: (torch.zeros_like(p) if p.grad is None
+                     else p.grad / steps) for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        gnorm = global_norm(list(grads.values()))
+        self.state.apply_gradients(grads)
+        out = {k: torch.stack(v).float().mean() for k, v in metrics.items()}
+        out.update(loss=torch.stack(losses).float().mean(), grad_norm=gnorm)
+        return out
+
+    # -- host-side batch prep ---------------------------------------------
+
+    def prepare_batch(self, raw: dict) -> dict:
+        """The batch on the device, with foreground-biased patch origins
+        (host RNG, int32 on the host) for the input views and, when
+        present, the paired nv_* views."""
+        cfg = self.cfg
+        keep = ('img_to_encoder', 'img', 'depth', 'depth_mask', 'c',
+                'nv_img', 'nv_depth', 'nv_depth_mask', 'nv_c')
+        out = {k: torch.as_tensor(np.asarray(v), device=self.device)
+               for k, v in raw.items() if k in keep}
+        for prefix in ('', 'nv_'):
+            if f'{prefix}c' not in raw:
+                continue
+            n = raw[f'{prefix}c'].shape[0]
+            # bbox in render-resolution coords
+            bbox = raw.get(f'{prefix}bbox')
+            if bbox is not None:
+                bbox = np.asarray(bbox, np.int32)
+            h0, w0 = sample_patch_origins(self.rng, n, cfg.patch_resolution,
+                                          cfg.render_resolution, bbox)
+            out[f'{prefix}patch_h'] = torch.from_numpy(h0)
+            out[f'{prefix}patch_w'] = torch.from_numpy(w0)
+        return out
+
+    # -- loop --------------------------------------------------------------
+
+    def run_loop(self, data: Iterator[dict], num_steps: Optional[int] = None,
+                 step_offset: int = 0,
+                 generator: Optional[torch.Generator] = None,
+                 log: Callable = print) -> TrainState:
+        """``num_steps`` (default ``total_steps``) steps over ``data``;
+        every ``log_interval`` steps the metrics go to ``log`` as a dict
+        of floats.  ε and the render's draws come from ``generator``
+        (default: a generator on the device seeded with 1234)."""
+        num_steps = num_steps or self.cfg.total_steps
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(1234)
+        for i in range(num_steps):
+            batch = self.prepare_batch(next(data))
+            # the live step of the KL anneal (losses.kl_coeff)
+            batch['step'] = float(step_offset + i)
+            metrics = self.train_step(batch, generator=generator)
+            if (i + 1) % self.cfg.log_interval == 0:
+                log(dict({k: float(v) for k, v in metrics.items()},
+                         step=step_offset + i + 1))
+        return self.state

@@ -192,3 +192,175 @@ def test_cpu_tensors_use_plain_version_without_counting():
                                        t['b2'], inbox=t['inbox'])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tfr.FusedOSG.launches == before
+
+
+# -- the backward kernel's plain version --------------------------------------
+
+BWD_NAMES = ('grows', 'gtx', 'gty', 'glive', 'ginbox', 'gw1', 'gb1', 'gw2',
+             'gb2')
+
+
+def _cotangents(M, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((M, 32)).astype(np.float32),
+            rng.standard_normal((M, 1)).astype(np.float32))
+
+
+def _torch_backward(d, g_rgb, g_sigma, activation, rows_dtype):
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in d.items()}
+    return tfr.osg_pointwise_backward_reference(
+        t['rows'].to(rows_dtype), t['tx'], t['ty'], t['live'], t['w1'],
+        t['b1'], t['w2'], t['b2'], torch.from_numpy(g_rgb),
+        torch.from_numpy(g_sigma), activation=activation, inbox=t['inbox'])
+
+
+def _pallas_backward(d, g_rgb, g_sigma, activation, rows_dtype):
+    """JAX's backward kernel, the Pallas kernel in interpret mode, with a
+    128-point tile (M = 300 leaves a padded tail)."""
+    j = {k: None if v is None else jnp.asarray(v) for k, v in d.items()}
+    return jfr._osg_backward(
+        j['rows'].astype(rows_dtype), j['tx'], j['ty'], j['live'], j['w1'],
+        j['b1'], j['w2'], j['b2'], j['inbox'], jnp.asarray(g_rgb),
+        jnp.asarray(g_sigma), activation, True, 128)
+
+
+def _close_to_scale(name, got, want, rel):
+    """|Δ| <= rel · max|want| (the tolerance of the JAX package's own
+    backward test, ``tests/test_fused_render.py``)."""
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got.float() if torch.is_tensor(got) else got,
+                     np.float32)
+    assert got.shape == want.shape, name
+    scale = float(np.abs(want).max()) + 1e-12
+    np.testing.assert_allclose(got, want, atol=rel * scale, rtol=0,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize('activation', ['sigmoid', 'lrelu'])
+@pytest.mark.parametrize('with_inbox', [False, True])
+def test_backward_reference_matches_pallas_kernel_f32(activation,
+                                                      with_inbox):
+    """f32 rows: all nine outputs of the plain backward against the Pallas
+    backward kernel in interpret mode, to 1e-5 of each output's scale
+    (f32 sum order only)."""
+    d = _inputs(M=300, with_inbox=with_inbox, seed=6)
+    g_rgb, g_sigma = _cotangents(300)
+    got = _torch_backward(d, g_rgb, g_sigma, activation, torch.float32)
+    want = _pallas_backward(d, g_rgb, g_sigma, activation, jnp.float32)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        if name == 'ginbox' and not with_inbox:
+            assert a is None and b is None
+            continue
+        assert a.dtype == torch.float32, name
+        _close_to_scale(name, a, b, 1e-5)
+
+
+@pytest.mark.parametrize('activation', ['sigmoid', 'lrelu'])
+@pytest.mark.parametrize('with_inbox', [False, True])
+def test_backward_reference_matches_jax_grad_f32(activation, with_inbox):
+    """f32 rows: the plain backward equals ``jax.grad`` of JAX's plain
+    forward for every input, the inbox mask included, to 1e-5 of scale."""
+    d = _inputs(M=300, with_inbox=with_inbox, seed=7)
+    g_rgb, g_sigma = _cotangents(300, seed=8)
+    j = {k: None if v is None else jnp.asarray(v) for k, v in d.items()}
+    names = ['rows', 'tx', 'ty', 'live', 'w1', 'b1', 'w2', 'b2']
+    if with_inbox:
+        names.append('inbox')
+
+    def loss(*args):
+        kw = dict(zip(names, args))
+        rgb, sig = jfr.osg_pointwise_reference(
+            kw['rows'], kw['tx'], kw['ty'], kw['live'], kw['w1'],
+            kw['b1'], kw['w2'], kw['b2'], activation=activation,
+            inbox=kw.get('inbox'))
+        return jnp.sum(rgb * g_rgb) + jnp.sum(sig * g_sigma)
+
+    want = jax.grad(loss, argnums=tuple(range(len(names))))(
+        *(j[n] for n in names))
+    got = dict(zip(BWD_NAMES, _torch_backward(d, g_rgb, g_sigma, activation,
+                                              torch.float32)))
+    got.update(rows=got.pop('grows'), tx=got.pop('gtx'), ty=got.pop('gty'),
+               live=got.pop('glive'), inbox=got.pop('ginbox'),
+               w1=got.pop('gw1'), b1=got.pop('gb1'), w2=got.pop('gw2'),
+               b2=got.pop('gb2'))
+    for name, w in zip(names, want):
+        _close_to_scale(name, got[name], w, 1e-5)
+
+
+@pytest.mark.parametrize('with_inbox', [False, True])
+def test_backward_reference_matches_pallas_kernel_bf16(with_inbox):
+    """bf16 rows: the row grads come out in bf16, as ``w_k · round(g_f)``.
+    Held against the Pallas backward in interpret mode to 1e-2 of scale
+    (measured 4.3e-3 on the row grads, 2.2e-3 on gw1): XLA on the CPU
+    keeps the recomputed bf16 lerp in f32 where torch rounds each op (the
+    forward's gap), and a g_f that moves by that much may round to the
+    neighbouring bf16 value (2^-8 relative).  The f32 outputs are held to
+    the same bound.  Sigmoid only: lrelu's derivative jumps at 0, so the
+    lerp gap flips it for points near the kink (1.1e-1 measured on the
+    row grads), which is the precision split itself, not an error."""
+    d = _inputs(M=300, with_inbox=with_inbox, seed=9)
+    g_rgb, g_sigma = _cotangents(300, seed=10)
+    got = _torch_backward(d, g_rgb, g_sigma, 'sigmoid', torch.bfloat16)
+    want = _pallas_backward(d, g_rgb, g_sigma, 'sigmoid', jnp.bfloat16)
+    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    for name, a, b in zip(BWD_NAMES, got, want):
+        if name == 'ginbox' and not with_inbox:
+            continue
+        _close_to_scale(name, a, b, 1e-2)
+
+
+def test_backward_wrapper_uses_plain_version_on_cpu():
+    """``osg_pointwise_backward`` on CPU tensors is the plain version and
+    counts no launch; off the CPU it checks its inputs first."""
+    d = _inputs(M=40, seed=11)
+    g_rgb, g_sigma = _cotangents(40)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    args = (t['rows'], t['tx'], t['ty'], t['live'], t['w1'], t['b1'],
+            t['w2'], t['b2'], torch.from_numpy(g_rgb),
+            torch.from_numpy(g_sigma))
+    before = tfr.FusedOSG.backward_launches
+    got = tfr.osg_pointwise_backward(*args, inbox=t['inbox'])
+    want = tfr.osg_pointwise_backward_reference(*args, inbox=t['inbox'])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tfr.FusedOSG.backward_launches == before
+    meta = _meta_args()
+    with pytest.raises(ValueError, match='g_rgb'):
+        tfr.osg_pointwise_backward(
+            *meta, torch.empty((63, 32), device='meta'),
+            torch.empty((64, 1), device='meta'))
+
+
+def test_fused_osg_grads_reach_the_osg_decoder():
+    """The detach fix: ``TriplaneVAE.fused_osg()`` folds the EqualDense
+    parameters themselves, so a render with ``use_fused_osg=True`` under
+    autograd gives the OSG decoder's weights the same non-zero grads as
+    the plain decoder path (CPU: both run plain PyTorch)."""
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+
+    cfg = TriplaneVAEConfig(latent_size=8, dit2=DiT2Config(
+        tokens_per_plane=16, hidden_size=32, depth=2, num_heads=2,
+        dtype=torch.float32), conv_sr_ch=8, conv_sr_ch_mult=(1, 2),
+        plane_channels=8, decoder_output_dim=8)
+    vae = TriplaneVAE(cfg)
+    random_init_(vae, torch.Generator().manual_seed(0))
+    planes = torch.randn((1, 3, 8, 8, 8),
+                         generator=torch.Generator().manual_seed(1))
+    cams = torch.as_tensor(orbit_cameras(1))
+    opts = RenderOptions(depth_resolution=6, depth_resolution_importance=6,
+                         filter_out_of_bbox=True)
+    grads = {}
+    for fused in (False, True):
+        vae.zero_grad()
+        out = vae.render(planes, cams, opts, 6, use_fused_osg=fused)
+        out['image_raw'].square().mean().backward()
+        grads[fused] = {k: p.grad.clone() for k, p in
+                        vae.osg_decoder.named_parameters()}
+    for k, g in grads[True].items():
+        assert float(g.abs().max()) > 0, k
+        torch.testing.assert_close(g, grads[False][k], rtol=1e-4,
+                                   atol=1e-6 * float(g.abs().max()))

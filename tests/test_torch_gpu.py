@@ -14,9 +14,9 @@ import torch
 from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
                                                    attention_reference,
                                                    fused_attention)
-from ln3diff_tpu_torch.ops.fused_render import (FusedOSG,
-                                                osg_pointwise_fused,
-                                                osg_pointwise_reference)
+from ln3diff_tpu_torch.ops.fused_render import (
+    FusedOSG, osg_pointwise_backward, osg_pointwise_backward_reference,
+    osg_pointwise_fused, osg_pointwise_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -86,6 +86,103 @@ def test_fused_osg_batched_wrapper(cuda):
                                    rtol=1e-2)
 
 
+# -- the backward kernel (kernel 2) ------------------------------------------
+
+BWD_NAMES = ('grows', 'gtx', 'gty', 'glive', 'ginbox', 'gw1', 'gb1', 'gw2',
+             'gb2')
+
+
+def _bwd_close(name, got, want, rows_dtype):
+    """|Δ| <= atol·max|plain| + rtol·|plain|.  Per-point f32 outputs: the
+    f32 MLP sums run in another order (1e-5 of scale, 1e-4 relative).
+    grows in bf16: w_k·round(g_f) rounds to bf16 on both sides, and a g_f
+    a few f32 ulps away may round to the neighbouring bf16 value (one ulp
+    is at most 2^-7 relative), which moves the rounded product by up to
+    two of its ulps (2^-6 relative).  Weight grads: sums over all M points
+    in another order (1e-4 of scale)."""
+    if name.startswith(('gw', 'gb')):
+        atol, rtol = 1e-4, 1e-4
+    elif name == 'grows' and rows_dtype == torch.bfloat16:
+        atol, rtol = 1e-5, 2e-2
+    else:
+        atol, rtol = 1e-5, 1e-4
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    scale = float(want.float().abs().max()) or 1.0
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=atol * scale, rtol=rtol, msg=name)
+
+
+def _cotangents(M, device, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((M, 32), generator=g, device=device),
+            torch.randn((M, 1), generator=g, device=device))
+
+
+@pytest.mark.parametrize('rows_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('with_inbox', [False, True])
+@pytest.mark.parametrize('activation', ['sigmoid', 'lrelu'])
+@pytest.mark.parametrize('M', [1, 1001, 2**16])
+def test_fused_osg_backward_matches_plain(cuda, rows_dtype, with_inbox,
+                                          activation, M):
+    """Kernel 2's nine outputs against its plain version (a ragged M, one
+    point, the training shape M = 64·32²)."""
+    args, inbox = _inputs(M, rows_dtype, with_inbox, cuda)
+    g_rgb, g_sigma = _cotangents(M, cuda)
+    before = FusedOSG.backward_launches
+    got = osg_pointwise_backward(*args, g_rgb, g_sigma,
+                                 activation=activation, inbox=inbox)
+    torch.cuda.synchronize()
+    assert FusedOSG.backward_launches == before + 1
+    want = osg_pointwise_backward_reference(*args, g_rgb, g_sigma,
+                                            activation=activation,
+                                            inbox=inbox)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        if name == 'ginbox' and not with_inbox:
+            assert a is None and b is None
+            continue
+        _bwd_close(name, a, b, rows_dtype)
+
+
+def test_fused_osg_backward_is_deterministic(cuda):
+    """The weight grads are reduced in a fixed order: two launches agree
+    bit for bit."""
+    args, inbox = _inputs(50_000, torch.bfloat16, True, cuda)
+    g_rgb, g_sigma = _cotangents(50_000, cuda)
+    a = osg_pointwise_backward(*args, g_rgb, g_sigma, inbox=inbox)
+    b = osg_pointwise_backward(*args, g_rgb, g_sigma, inbox=inbox)
+    for name, x, y in zip(BWD_NAMES, a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize('with_inbox', [False, True])
+def test_fused_osg_autograd_matches_reference_autograd(cuda, with_inbox):
+    """In f32, autograd through the kernel pair (forward kernel 1,
+    backward kernel 2) gives autograd's grads of the plain forward, for
+    every input; one launch of each kernel."""
+    M = 5000
+    args, inbox = _inputs(M, torch.float32, with_inbox, cuda)
+    g_rgb, g_sigma = _cotangents(M, cuda)
+    leaves = [a.clone().requires_grad_() for a in args]
+    box = None if inbox is None else inbox.clone().requires_grad_()
+    fwd, bwd = FusedOSG.launches, FusedOSG.backward_launches
+    rgb, sigma = osg_pointwise_fused(*leaves, inbox=box)
+    ((rgb * g_rgb).sum() + (sigma * g_sigma).sum()).backward()
+    torch.cuda.synchronize()
+    assert (FusedOSG.launches, FusedOSG.backward_launches) == (fwd + 1,
+                                                               bwd + 1)
+    ref_leaves = [a.clone().requires_grad_() for a in args]
+    ref_box = None if inbox is None else inbox.clone().requires_grad_()
+    rgb_r, sigma_r = osg_pointwise_reference(*ref_leaves, inbox=ref_box)
+    ((rgb_r * g_rgb).sum() + (sigma_r * g_sigma).sum()).backward()
+    names = ['rows', 'tx', 'ty', 'live', 'w1', 'b1', 'w2', 'b2']
+    pairs = list(zip(names, leaves, ref_leaves))
+    if with_inbox:
+        pairs.append(('inbox', box, ref_box))
+    for name, a, b in pairs:
+        kind = 'gw' if name[0] in 'wb' else name
+        _bwd_close(kind, a.grad, b.grad, torch.float32)
+
+
 # -- fused attention ----------------------------------------------------------
 
 # |Δ| <= atol + rtol·|plain|.  f32: the kernel and the plain version sum in
@@ -150,6 +247,76 @@ def test_fused_attention_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 16, 2, 64, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match='dtype'):
         fused_attention(q, k, v.float())
+
+
+def test_fused_attention_has_no_backward(cuda):
+    """Like the JAX kernel, kernel 3 has no backward: with grad mode on, an
+    input that requires grad raises instead of cutting the graph; under
+    no_grad (serving) it launches."""
+    q, k, v = _qkv(1, 16, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError, match='no backward'):
+        fused_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        got = fused_attention(q, k, v)
+    _attn_close(got, attention_reference(q.detach(), k, v), torch.bfloat16)
+
+
+# -- the training slice -------------------------------------------------------
+
+def test_fused_render_grads_match_cpu(cuda):
+    """A patch render through the fused kernel pair on the card, under
+    autograd: the loss and the grads of the planes and of the OSG
+    decoder's EqualDense parameters equal the CPU run's (plain versions),
+    in f32; the decoder's weights get non-zero grads."""
+    import copy
+
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    from ln3diff_tpu_torch.render.ray_sampler import (sample_patch_rays,
+                                                      unpack_25d_camera)
+    from ln3diff_tpu_torch.render.renderer import (RenderDraws,
+                                                   RenderOptions,
+                                                   draw_uniforms)
+
+    cfg = TriplaneVAEConfig(latent_size=8, dit2=DiT2Config(
+        tokens_per_plane=16, hidden_size=32, depth=2, num_heads=2,
+        dtype=torch.float32), conv_sr_ch=8, conv_sr_ch_mult=(1, 2))
+    vae = TriplaneVAE(cfg)
+    random_init_(vae, torch.Generator().manual_seed(0))
+    planes = torch.randn((2, 3, 16, 16, 32),
+                         generator=torch.Generator().manual_seed(1))
+    cams = torch.as_tensor(orbit_cameras(2))
+    opts = RenderOptions(depth_resolution=16, depth_resolution_importance=16,
+                         filter_out_of_bbox=True)
+    draws = draw_uniforms(2, 64, opts, torch.Generator().manual_seed(2),
+                          'cpu')
+    out = {}
+    for dev in ('cpu', cuda):
+        m = copy.deepcopy(vae).to(dev)
+        p = planes.detach().to(dev).requires_grad_()
+        c2w, intr = unpack_25d_camera(cams.to(dev))
+        h0 = torch.tensor([3, 9], device=dev)
+        ray_o, ray_d = sample_patch_rays(c2w, intr, h0, h0.flip(0), 8, 32)
+        d = RenderDraws(*(t.to(dev) for t in draws))
+        bwd = FusedOSG.backward_launches
+        img = m.render(p, None, opts, 8, use_fused_osg=True,
+                       ray_origins=ray_o, ray_directions=ray_d, draws=d)
+        loss = sum(v.float().square().mean() for v in img.values())
+        loss.backward()
+        if dev != 'cpu':
+            torch.cuda.synchronize()
+            assert FusedOSG.backward_launches == bwd + 4   # 2 views × 2
+        out[str(dev)] = dict(loss=loss.detach().cpu(), planes=p.grad.cpu(),
+                        **{k: v.grad.cpu() for k, v in
+                           m.osg_decoder.named_parameters()})
+    for k, want in out['cpu'].items():
+        got = out['cuda'][k]
+        scale = float(want.abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-3,
+                                   msg=k)
 
 
 # -- mesh stage ---------------------------------------------------------------
