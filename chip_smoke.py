@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives three paths of ``ln3diff_tpu_torch`` at the full width of the
+Drives four paths of ``ln3diff_tpu_torch`` at the full width of the
 released Objaverse models, with random weights drawn from a fixed seed:
 
 * ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
@@ -16,12 +16,18 @@ released Objaverse models, with random weights drawn from a fixed seed:
   MVEncoder over 4 views of 256², DiT2-L/2 decoder, patch-32 renders with
   64+64 samples, AdamW, EMA) in bf16 over f32 parameters, with the point
   pipeline through the fused kernel and its backward kernel
-  (``use_fused_osg=True``) and through plain PyTorch.
+  (``use_fused_osg=True``) and through plain PyTorch;
+* ``qkv_attention_chain``: the fused qkv projection + attention (kernel 4)
+  at the DiT-L/2 self-attention's shapes (B=2, L=768, D=1024, H=16, bf16)
+  in the chain of ``.bench_megakernel.py``, x ← 0.5·y + 0.5·x for 1000
+  steps, beside the same chain through library calls and 8 steps of the
+  plain version.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
 g++, holds each kernel against its plain PyTorch version
-(``kernel_check``, ``attention_check``, ``osg_backward_check``), checks
+(``kernel_check``, ``attention_check``, ``qkv_attention_check``,
+``osg_backward_check``), checks
 the mesh stage on an analytic sphere (``mesh_check``), a small model card
 against CPU (``small_reference``) and a small training step card against
 CPU (``small_train_reference``).  It prints one JSON line per phase as the phase
@@ -64,6 +70,16 @@ TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (1e-2, 1e-2)}
 # bf16 ulp away (2^-7 relative) and a p one ulp away moves o by about
 # 2^-8·p·|v|.
 TOL_ATTN = {'float32': (2e-5, 2e-5), 'bfloat16': (4e-3, 1e-2)}
+# kernel 4 against its plain version: kernel 3's tolerance.  The projection
+# adds f32 sums of D products in another order (f32: a few ulps of q, k, v;
+# bf16: now and then an element of q, k or v one bf16 ulp away, which moves
+# o by about 2^-8·p·|v|); the attention is kernel 3's.
+TOL_QKV = TOL_ATTN
+# kernel 4's chain (x ← bf16(0.5·y + 0.5·x)) against the plain version's
+# after 8 steps: |Δ| <= atol·max|plain| + rtol·|plain|.  Each step may put
+# an element one bf16 ulp (2^-8 relative at most) away on either side, and
+# the average carries half of each older difference on.
+TOL_CHAIN = (1e-2, 2e-2)
 # small-size pipeline, card vs CPU, both in f32: |Δ| <= TOL_PIPE·max(1,|ref|)
 TOL_PIPE = 2e-3
 # the backward kernel against its plain version: |Δ| <= atol·max|plain| +
@@ -370,6 +386,220 @@ def attention_check():
         del qkv, q, k, v, got, want, err
         torch.cuda.empty_cache()
     return results
+
+
+def qkv_attention_bound_ms(B, L, D, H, itemsize):
+    """Least time for one call of kernel 4: 2·B·L·D·3D (the qkv projection)
+    + 4·B·H·L²·d (q·kᵀ and p·v) operations over the rate of the operands'
+    type against x, the weights and the biases read once and the output
+    written once over HBM bandwidth; the larger of the two."""
+    d = D // H
+    flops = 2 * B * L * D * 3 * D + 4 * B * H * L * L * d
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
+    nbytes = (2 * B * L * D + 3 * D * D + 3 * D) * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def library_qkv_attention(x, w_t, b, num_heads):
+    """The same function through library calls, for comparison only (the
+    port never calls this): ``F.linear`` with the ``(3D, D)`` weight, the
+    q | k | v split and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    B, L, D = x.shape
+    qkv = F.linear(x, w_t, b).view(B, L, 3, num_heads, D // num_heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return o.transpose(1, 2).reshape(B, L, D)
+
+
+def qkv_stage_ms(fn, calls=10):
+    """Device ms per call of kernel 4's two stages (the projection kernel
+    and the attention kernel it runs over the workspace) under
+    torch.profiler (CUDA activity); None when the profiler shows no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        us = (getattr(e, 'self_device_time_total', None)
+              or getattr(e, 'self_cuda_time_total', 0))
+        for key, kernel in (('projection', 'qkv_projection_kernel'),
+                            ('attention', 'attention_kernel')):
+            if kernel in e.key and us > 0:
+                stages[key] = stages.get(key, 0.0) + us / calls / 1e3
+    return stages or None
+
+
+def qkv_attention_check():
+    """Kernel 4 (``fused_qkv_attention``) against its plain version on the
+    card: the DiT-L/2 self-attention (2, 768, 1024, 16 heads) in bf16 with
+    a nonzero bias, a ragged L = 77, d = 32 at (2, 96, 128, 4 heads), the
+    DiT-L/2 shape in f32, and a port ``Attention(1024, 16)`` in f32 whose
+    ``qkv`` weights go through ``split_qkv_weights``, held to
+    ``attention_reference`` on that module's own q, k and v.  Each with
+    two launches compared bit for bit, the kernel's, the plain version's
+    and the library calls' (``F.linear`` + SDPA) times on the same inputs,
+    and the bound; for the first case also the device time of each of the
+    kernel's two stages."""
+    import torch
+    from ln3diff_tpu_torch.models.dit import Attention
+    from ln3diff_tpu_torch.ops.fused_attention import (
+        FusedAttention, attention_reference, fused_qkv_attention,
+        qkv_attention_reference, split_qkv_weights)
+    cases = [('dit_l2_bf16', 2, 768, 1024, 16, torch.bfloat16),
+             ('ragged_L77', 2, 77, 1024, 16, torch.bfloat16),
+             ('head_dim_32', 2, 96, 128, 4, torch.bfloat16),
+             ('dit_l2_f32', 2, 768, 1024, 16, torch.float32),
+             ('dit_attention_module_f32', 2, 768, 1024, 16, torch.float32)]
+    results = []
+    attn_before = FusedAttention.launches
+    for i, (name, B, L, D, H, dt) in enumerate(cases):
+        g = torch.Generator(device='cuda').manual_seed(500 + i)
+        x = torch.randn((B, L, D), generator=g, device='cuda').to(dt)
+        with torch.no_grad():
+            if name.startswith('dit_attention_module'):
+                torch.manual_seed(500 + i)
+                module = Attention(D, H).to('cuda')
+                w_t, b = module.qkv.weight, module.qkv.bias
+                q, k, v = (t.reshape(B, L, H, D // H)
+                           for t in module.qkv(x).chunk(3, dim=-1))
+                want = attention_reference(q, k, v).reshape(B, L, D)
+            else:
+                w_t = (torch.randn((3 * D, D), generator=g, device='cuda')
+                       / D**0.5).to(dt)
+                b = (0.1 * torch.randn((3 * D,), generator=g,
+                                       device='cuda')).to(dt)
+            ws, bs = split_qkv_weights(w_t.T, b, H)
+            args = (x, *ws, *bs)
+            got = fused_qkv_attention(*args, num_heads=H)
+            again = fused_qkv_attention(*args, num_heads=H)
+            torch.cuda.synchronize()
+            plain = qkv_attention_reference(*args, H)
+            if not name.startswith('dit_attention_module'):
+                want = plain
+            atol, rtol = TOL_QKV[str(dt).split('.')[-1]]
+            err = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got).all()
+                      and (err <= atol + rtol * want.float().abs()).all())
+            ms = cuda_time_ms(lambda: fused_qkv_attention(*args, num_heads=H))
+            plain_ms = cuda_time_ms(lambda: qkv_attention_reference(*args,
+                                                                    H))
+            library_ms = cuda_time_ms(
+                lambda: library_qkv_attention(x, w_t, b, H))
+            stage_ms = (qkv_stage_ms(lambda: fused_qkv_attention(
+                *args, num_heads=H)) if i == 0 else None)
+        bound, bound_by = qkv_attention_bound_ms(B, L, D, H, x.element_size())
+        res = dict(case=name, shape=[B, L, D, H], dtype=str(dt),
+                   max_abs_err=float(err.max()),
+                   out_abs_max=float(want.float().abs().max()),
+                   atol=atol, rtol=rtol, ok=ok,
+                   deterministic=bool(torch.equal(got, again)), ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound, bound_by=bound_by, stage_ms=stage_ms)
+        results.append(res)
+        emit({'qkv_attention_check': res})
+        check(ok, f'fused_qkv_attention disagrees with its plain version on '
+              f'{name}')
+        check(res['deterministic'], f'fused_qkv_attention is not '
+              f'repeatable on {name}')
+        del x, args, got, again, plain, want, err
+        torch.cuda.empty_cache()
+    check(FusedAttention.launches == attn_before,
+          'fused_qkv_attention moved FusedAttention.launches')
+    return results
+
+
+def qkv_attention_chain(steps=1000, check_steps=8):
+    """Kernel 4's path, the port's counterpart of ``.bench_megakernel.py``
+    at its shapes: B=2, L=768, D=1024, H=16, bf16, wqkv = 0.02·N(0, 1),
+    bqkv = 0, x₀ = 0.1·N(0, 1) from a ``torch.Generator`` seed, and
+    x ← bf16(0.5·y + 0.5·x) for ``steps`` steps with y from
+    ``fused_qkv_attention`` (the mega chain), from ``F.linear`` + split +
+    SDPA (the library chain, for comparison only) and, for
+    ``check_steps`` steps, from the plain version.  The mega chain must
+    agree with the plain chain after ``check_steps`` steps and stay finite
+    to the end.  Launch counts are reset to 0 just before the mega chain
+    and read just after; µs per step from CUDA events around each
+    chain."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import (
+        FusedAttention, FusedQKVAttention, fused_qkv_attention,
+        qkv_attention_reference, split_qkv_weights)
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    B, L, D, H = 2, 768, 1024, 16
+    dt = torch.bfloat16
+    g = torch.Generator(device='cuda').manual_seed(0)
+    x0 = (0.1 * torch.randn((B, L, D), generator=g, device='cuda')).to(dt)
+    wqkv = (0.02 * torch.randn((D, 3 * D), generator=g,
+                               device='cuda')).to(dt)
+    bqkv = torch.zeros((3 * D,), dtype=dt, device='cuda')
+    ws, bs = split_qkv_weights(wqkv, bqkv, H)
+    w_t = wqkv.T.contiguous()
+    chains = {
+        'mega': lambda x: fused_qkv_attention(x, *ws, *bs, num_heads=H),
+        'library': lambda x: library_qkv_attention(x, w_t, bqkv, H),
+        'plain': lambda x: qkv_attention_reference(x, *ws, *bs, H)}
+
+    def run(name, n, keep=None):
+        """n steps from x₀; (µs per step, last x, x after ``keep`` steps)."""
+        fn = chains[name]
+        x, kept = x0, None
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(n):
+            x = (0.5 * fn(x) + 0.5 * x).to(dt)
+            if i + 1 == keep:
+                kept = x.clone()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n * 1e3, x, kept
+
+    res = {}
+    with torch.no_grad():
+        for name in chains:          # one warm-up step each
+            run(name, 1)
+        plain_us, plain_x, _ = run('plain', check_steps)
+        FusedOSG.launches = FusedAttention.launches = 0
+        FusedQKVAttention.launches = 0
+        mega_us, mega_x, mega_kept = run('mega', steps, keep=check_steps)
+        torch.cuda.synchronize()
+        launches = (FusedQKVAttention.launches, FusedAttention.launches,
+                    FusedOSG.launches)
+        library_us, library_x, library_kept = run('library', steps,
+                                                  keep=check_steps)
+    check(launches == (steps, 0, 0), f'the mega chain launched kernels 4, '
+          f'3 and 1 {launches} times, expected ({steps}, 0, 0)')
+    atol, rtol = TOL_CHAIN
+    ref = plain_x.float()
+    scale = float(ref.abs().max())
+    err = (mega_kept.float() - ref).abs()
+    ok = bool((err <= atol * scale + rtol * ref.abs()).all())
+    res.update(
+        shape=[B, L, D, H], dtype=str(dt), steps=steps,
+        fused_qkv_attention_launches=launches[0],
+        us_per_step=dict(mega=mega_us, library=library_us, plain=plain_us),
+        check_steps=check_steps,
+        mega_vs_plain=dict(max_abs_err=float(err.max()), scale=scale,
+                           atol=atol, rtol=rtol, ok=ok),
+        library_vs_plain_max_abs_err=float(
+            (library_kept.float() - ref).abs().max()),
+        final_abs_max=dict(mega=float(mega_x.float().abs().max()),
+                           library=float(library_x.float().abs().max())))
+    check(ok, f'mega chain vs plain chain after {check_steps} steps: '
+          f'max|Δ| {float(err.max())} at scale {scale}')
+    check(bool(torch.isfinite(mega_x).all()),
+          f'the {steps}-step mega chain is not finite')
+    return res
 
 
 def osg_bwd_bound_ms(M, rows_itemsize, with_inbox):
@@ -879,7 +1109,8 @@ def serving_pipeline(modules, prompt):
     timer, so the seconds by phase add up without the overlap of march
     and orbit; launches are counted per phase in the second run."""
     import torch
-    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
+                                                       FusedQKVAttention)
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
     from ln3diff_tpu_torch.render import mesh
@@ -933,6 +1164,7 @@ def serving_pipeline(modules, prompt):
     try:
         cond, uncond = encode(prompt)
         FusedOSG.launches = FusedAttention.launches = 0
+        FusedQKVAttention.launches = 0
         torch.cuda.reset_peak_memory_stats()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, 'out.obj')
@@ -942,6 +1174,7 @@ def serving_pipeline(modules, prompt):
             timed_s = time.perf_counter() - t0
             attn_launches = FusedAttention.launches
             osg_launches = FusedOSG.launches
+            qkv_launches = FusedQKVAttention.launches
             nv, nf = obj_counts(path)
             obj_bytes = os.path.getsize(path)
     finally:
@@ -966,6 +1199,7 @@ def serving_pipeline(modules, prompt):
     check((nv, nf) == (len(verts), len(faces)),
           f'OBJ parses to {nv} vertices / {nf} faces, the call returned '
           f'{len(verts)} / {len(faces)}')
+    check(qkv_launches == 0, 'the serving call launched kernel 4')
     want_attn = den_cfg.depth * pipe.spec.num_steps
     check(attn_launches == want_attn, f'fused_attention launched '
           f'{attn_launches} times, expected {want_attn}')
@@ -1092,6 +1326,9 @@ def main():
     attn_checks = attention_check()
     phase_done('attention_check', t0)
     t0 = time.perf_counter()
+    qkv_checks = qkv_attention_check()
+    phase_done('qkv_attention_check', t0)
+    t0 = time.perf_counter()
     bwd_checks, bwd_autograd = osg_backward_check()
     phase_done('osg_backward_check', t0)
 
@@ -1104,7 +1341,8 @@ def main():
     phase_done('small_train_reference', t0, **small_train)
 
     # 5. the main path at full width, random weights
-    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
+                                                       FusedQKVAttention)
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
     t0 = time.perf_counter()
@@ -1136,6 +1374,7 @@ def main():
     text_s = time.perf_counter() - t0
 
     FusedOSG.launches = FusedAttention.launches = 0
+    FusedQKVAttention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_main = time.perf_counter()
     out = pipe(cond, uncond, batch=1, num_frames=24, render_resolution=192,
@@ -1144,6 +1383,8 @@ def main():
     render_launches = FusedOSG.launches
     check(FusedAttention.launches == 0,
           'the first path (fused_attention=False) launched fused_attention')
+    check(FusedQKVAttention.launches == 0,
+          'the first path launched fused_qkv_attention')
     FusedOSG.launches = 0
     t1 = time.perf_counter()
     sigma = pipe.dispatch_mesh_sigma(out['planes'].to(torch.bfloat16), 192,
@@ -1209,7 +1450,13 @@ def main():
     train = vae_train()
     phase_done('vae_train', t0, **train)
 
+    # 10. kernel 4's chain at the DiT-L/2 self-attention's shapes
+    t0 = time.perf_counter()
+    chain = qkv_attention_chain()
+    phase_done('qkv_attention_chain', t0, **chain)
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
+    qkv_main = qkv_checks[0]
     emit({'kernels': [
         dict(name='fused_osg', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',
@@ -1236,7 +1483,15 @@ def main():
                              for e in c['max_abs_err'].values()),
              ms=bwd_main['ms'], plain_ms=bwd_main['plain_ms'],
              bound_ms=bwd_main['bound_ms'], bound_by=bwd_main['bound_by'],
-             library_ms=None)]})
+             library_ms=None),
+        dict(name='fused_qkv_attention', route='cuda',
+             source='ln3diff_tpu_torch/ops/csrc/fused_qkv_attention.cu',
+             replaces='ln3diff_tpu/ops/fused_attention.py:104',
+             launches=chain['fused_qkv_attention_launches'],
+             max_abs_err=max(c['max_abs_err'] for c in qkv_checks),
+             ms=qkv_main['ms'], plain_ms=qkv_main['plain_ms'],
+             bound_ms=qkv_main['bound_ms'], bound_by=qkv_main['bound_by'],
+             library_ms=qkv_main['library_ms'])]})
     print(smi_line, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': count}})

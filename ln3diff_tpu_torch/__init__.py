@@ -6,10 +6,16 @@ easy to find (``ln3diff_tpu_torch/render/renderer.py`` ↔
 standard library only — never JAX, its Linen layers or the JAX package —
 so it runs on a machine that has none of them.
 
-Ported so far: the text→3D serving path (CLIP text tower → DiT-L/2 DDIM
-with classifier-free guidance → triplane VAE decode → orbit render and
-σ-grid query) and its one TPU kernel, the fused triplane point pipeline
-(``ops/fused_render.py``, CUDA source in ``ops/csrc/fused_osg.cu``).
+Ported so far: the text→3D serving call (CLIP text tower → DiT-L/2 DDIM
+with classifier-free guidance → triplane VAE decode → orbit render, σ-grid
+query and mesh file), the stage-1 VAE training step on one device, and all
+four TPU kernels as CUDA sources in ``ops/csrc/``: the fused triplane point
+pipeline (``fused_osg.cu``) and its backward (``fused_osg_bwd.cu``), both
+behind ``ops/fused_render.py``; the fused self-attention
+(``fused_attention.cu``) and the fused qkv projection + attention
+(``fused_qkv_attention.cu``, which runs the former's device code from
+``attention_common.cuh`` over its projection), both behind
+``ops/fused_attention.py``.
 
 Entry points (:class:`~ln3diff_tpu_torch.pipeline.TextTo3DPipeline`,
 :func:`~ln3diff_tpu_torch.pipeline.build_t23d_pipeline`) run on the CUDA

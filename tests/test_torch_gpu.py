@@ -11,9 +11,9 @@ the card's machine, which has no JAX:
 import pytest
 import torch
 
-from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
-                                                   attention_reference,
-                                                   fused_attention)
+from ln3diff_tpu_torch.ops.fused_attention import (
+    FusedAttention, FusedQKVAttention, attention_reference, fused_attention,
+    fused_qkv_attention, qkv_attention_reference, split_qkv_weights)
 from ln3diff_tpu_torch.ops.fused_render import (
     FusedOSG, osg_pointwise_backward, osg_pointwise_backward_reference,
     osg_pointwise_fused, osg_pointwise_reference)
@@ -259,6 +259,112 @@ def test_fused_attention_has_no_backward(cuda):
     with torch.no_grad():
         got = fused_attention(q, k, v)
     _attn_close(got, attention_reference(q.detach(), k, v), torch.bfloat16)
+
+
+# -- fused qkv projection + attention (kernel 4) -------------------------------
+
+# |Δ| <= atol + rtol·|plain|, kernel 3's tolerance: the projection adds f32
+# sums of D products in another order (f32: a few ulps of q, k, v; bf16:
+# now and then a q, k or v element one bf16 ulp away, which moves o by
+# about 2^-8·p·|v|), and the attention is kernel 3's.
+QKV_TOL = ATTN_TOL
+
+
+def _qkv_attention_inputs(B, L, D, H, dtype, device, bias=True, seed=0):
+    """x (B, L, D) of unit scale, one qkv projection's (D, 3D) weights of
+    scale 1/√D (so q, k, v are of unit scale) and a (3D,) bias of scale
+    0.1 or none, split head-major."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, L, D), generator=g, device=device).to(dtype)
+    w = (torch.randn((D, 3 * D), generator=g, device=device)
+         / D**0.5).to(dtype)
+    b = ((0.1 * torch.randn((3 * D,), generator=g, device=device)).to(dtype)
+         if bias else None)
+    ws, bs = split_qkv_weights(w, b, H)
+    return (x, *ws, *bs)
+
+
+@pytest.mark.parametrize('bias', [True, False])
+@pytest.mark.parametrize('B,L,D,H,dtype', [
+    (2, 768, 1024, 16, torch.bfloat16),
+    (2, 768, 1024, 16, torch.float32),
+    (2, 77, 1024, 16, torch.bfloat16),
+    (2, 96, 128, 4, torch.bfloat16),
+    (1, 200, 512, 8, torch.bfloat16),
+], ids=['dit_l2_bf16', 'dit_l2_f32', 'ragged_L77', 'head_dim_32',
+        'batch_1'])
+def test_fused_qkv_attention_matches_plain(cuda, B, L, D, H, dtype, bias):
+    """Kernel 4 against its plain version; one launch of kernel 4 and none
+    of kernel 3."""
+    args = _qkv_attention_inputs(B, L, D, H, dtype, cuda, bias=bias)
+    before = (FusedAttention.launches, FusedQKVAttention.launches)
+    got = fused_qkv_attention(*args, num_heads=H)
+    torch.cuda.synchronize()
+    assert FusedAttention.launches == before[0]
+    assert FusedQKVAttention.launches == before[1] + 1
+    want = qkv_attention_reference(*args, H)
+    atol, rtol = QKV_TOL[dtype]
+    assert got.dtype == dtype and got.shape == (B, L, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_fused_qkv_attention_is_deterministic(cuda):
+    """No atomics: two launches agree bit for bit."""
+    args = _qkv_attention_inputs(2, 768, 1024, 16, torch.bfloat16, cuda)
+    a = fused_qkv_attention(*args, num_heads=16)
+    b = fused_qkv_attention(*args, num_heads=16)
+    assert torch.equal(a, b)
+
+
+def test_fused_qkv_attention_ties_to_the_dit_attention(cuda):
+    """A port ``Attention(1024, 16)`` in f32: kernel 4 on its split ``qkv``
+    weights equals ``attention_reference`` on the module's own q, k, v."""
+    from ln3diff_tpu_torch.models.dit import Attention
+    torch.manual_seed(0)
+    attn = Attention(1024, 16).to(cuda)
+    x = torch.randn((2, 768, 1024), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        ws, bs = split_qkv_weights(attn.qkv.weight.T, attn.qkv.bias, 16)
+        got = fused_qkv_attention(x, *ws, *bs, num_heads=16)
+        q, k, v = (t.reshape(2, 768, 16, 64)
+                   for t in attn.qkv(x).chunk(3, dim=-1))
+        want = attention_reference(q, k, v).reshape(2, 768, 1024)
+    atol, rtol = QKV_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def test_fused_qkv_attention_rejects_what_it_does_not_take(cuda):
+    args = _qkv_attention_inputs(1, 16, 128, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match='head dim'):
+        fused_qkv_attention(*args, num_heads=8)
+    args = _qkv_attention_inputs(1, 16, 128, 2, torch.float16, cuda)
+    with pytest.raises(ValueError, match='dtype'):
+        fused_qkv_attention(*args, num_heads=2)
+    args = list(_qkv_attention_inputs(1, 16, 128, 2, torch.bfloat16, cuda))
+    args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_qkv_attention(*args, num_heads=2)
+    args = list(_qkv_attention_inputs(1, 16, 128, 2, torch.bfloat16, cuda))
+    args[6] = args[6].float()
+    with pytest.raises(ValueError, match='dtype'):
+        fused_qkv_attention(*args, num_heads=2)
+
+
+def test_fused_qkv_attention_has_no_backward(cuda):
+    """Like the JAX kernel, kernel 4 has no backward: with grad mode on, an
+    input that requires grad raises; under no_grad it launches."""
+    args = _qkv_attention_inputs(1, 16, 128, 2, torch.bfloat16, cuda)
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match='no backward'):
+        fused_qkv_attention(*args, num_heads=2)
+    with torch.no_grad():
+        got = fused_qkv_attention(*args, num_heads=2)
+    want = qkv_attention_reference(*(t.detach() for t in args), 2)
+    atol, rtol = QKV_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 # -- the training slice -------------------------------------------------------
