@@ -150,6 +150,36 @@ def cuda_time_ms(fn, warmup=2, iters=10):
     return times[len(times) // 2]
 
 
+def device_ms(fn, calls=10, stages=None):
+    """Device time per call of what ``fn`` launches, from torch.profiler
+    (CUDA activity) over ``calls`` back-to-back calls after one warm-up
+    call: the sum over every kernel and memset, or with ``stages``
+    (``{key: part of a kernel's name}``) a dict of ms per stage.  None
+    when the profiler shows no device time.  Unlike ``cuda_time_ms``, the
+    wrapper's host time is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, by_stage = 0.0, {}
+    for e in prof.key_averages():
+        us = (getattr(e, 'self_device_time_total', None)
+              or getattr(e, 'self_cuda_time_total', 0))
+        if us <= 0:
+            continue
+        total += us / calls / 1e3
+        for key, part in (stages or {}).items():
+            if part in e.key:
+                by_stage[key] = by_stage.get(key, 0.0) + us / calls / 1e3
+    if stages is not None:
+        return by_stage or None
+    return total or None
+
+
 def osg_inputs(M, rows_dtype, with_inbox, seed):
     """Kernel inputs at one call's shapes: rows (3, M, 128), tx/ty/live
     (3, M), inbox (M,), OSG weights with the EqualDense scaling folded."""
@@ -210,14 +240,15 @@ def kernel_check():
                   and (err_rgb <= atol + rtol * rgb_ref.abs()).all()
                   and (err_sig <= atol + rtol * sigma_ref.abs()).all())
         ms = cuda_time_ms(lambda: osg_pointwise_fused(*args, inbox=inbox))
+        dev_ms = device_ms(lambda: osg_pointwise_fused(*args, inbox=inbox))
         plain_ms = cuda_time_ms(
             lambda: osg_pointwise_reference(*args, inbox=inbox))
         bound, bound_by = osg_bound_ms(M, args[0].element_size(), with_inbox)
         res = dict(case=name, M=M, rows_dtype=str(dt), inbox=with_inbox,
                    max_abs_err_rgb=float(err_rgb.max()),
                    max_abs_err_sigma=float(err_sig.max()),
-                   atol=atol, rtol=rtol, ok=ok, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=bound_by)
+                   atol=atol, rtol=rtol, ok=ok, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         results.append(res)
         emit({'kernel_check': res})
         check(ok, f'fused_osg disagrees with its plain version on {name}')
@@ -339,11 +370,13 @@ def host_us(fn, calls=20, repeats=5):
 def attention_check():
     """fused_attention against attention_reference on the card: the DiT's
     self-attention (q, k, v read in place from one (2, 768, 3·1024) qkv
-    projection, bf16), a ragged L, d = 32 (the small model's head) and
-    f32 operands; each with the kernel's, the plain version's and
-    scaled_dot_product_attention's times on the same inputs, and the host
-    time per call of the kernel's wrapper and of the attention the DiT
-    runs without the switch (``dot_product_attention``)."""
+    projection, bf16), a ragged L, d = 32 (the small model's head), a long
+    L = 2048 (the K/V ring streams far past shared memory) and f32
+    operands; each with the kernel's, the plain version's and
+    scaled_dot_product_attention's times on the same inputs (CUDA events
+    around one call, ``ms``, and the profiler's device time, ``device_ms``),
+    and the host time per call of the kernel's wrapper and of the
+    attention the DiT runs without the switch (``dot_product_attention``)."""
     import torch
     import torch.nn.functional as F
     from ln3diff_tpu_torch.models.layers import dot_product_attention
@@ -352,6 +385,7 @@ def attention_check():
     cases = [('dit_self_attention', 2, 768, 16, 64, torch.bfloat16),
              ('ragged_L77', 2, 77, 16, 64, torch.bfloat16),
              ('head_dim_32', 2, 192, 2, 32, torch.bfloat16),
+             ('long_L2048', 2, 2048, 16, 64, torch.bfloat16),
              ('dit_shape_f32', 2, 768, 16, 64, torch.float32)]
     results = []
     for i, (name, B, L, H, d, dt) in enumerate(cases):
@@ -371,10 +405,14 @@ def attention_check():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library_ms = cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        dev_ms = device_ms(lambda: fused_attention(q, k, v))
+        library_dev_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound, bound_by = attention_bound_ms(B, L, H, d, q.element_size())
         res = dict(case=name, shape=[B, L, H, d], dtype=str(dt),
                    max_abs_err=float(err.max()), atol=atol, rtol=rtol,
-                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ok=ok, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_device_ms=library_dev_ms,
                    bound_ms=bound, bound_by=bound_by,
                    host_us=host_us(lambda: fused_attention(q, k, v)),
                    dit_plain_host_us=host_us(
@@ -415,41 +453,19 @@ def library_qkv_attention(x, w_t, b, num_heads):
     return o.transpose(1, 2).reshape(B, L, D)
 
 
-def qkv_stage_ms(fn, calls=10):
-    """Device ms per call of kernel 4's two stages (the projection kernel
-    and the attention kernel it runs over the workspace) under
-    torch.profiler (CUDA activity); None when the profiler shows no device
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    stages = {}
-    for e in prof.key_averages():
-        us = (getattr(e, 'self_device_time_total', None)
-              or getattr(e, 'self_cuda_time_total', 0))
-        for key, kernel in (('projection', 'qkv_projection_kernel'),
-                            ('attention', 'attention_kernel')):
-            if kernel in e.key and us > 0:
-                stages[key] = stages.get(key, 0.0) + us / calls / 1e3
-    return stages or None
-
-
 def qkv_attention_check():
     """Kernel 4 (``fused_qkv_attention``) against its plain version on the
     card: the DiT-L/2 self-attention (2, 768, 1024, 16 heads) in bf16 with
     a nonzero bias, a ragged L = 77, d = 32 at (2, 96, 128, 4 heads), the
     DiT-L/2 shape in f32, and a port ``Attention(1024, 16)`` in f32 whose
     ``qkv`` weights go through ``split_qkv_weights``, held to
-    ``attention_reference`` on that module's own q, k and v.  Each with
-    two launches compared bit for bit, the kernel's, the plain version's
-    and the library calls' (``F.linear`` + SDPA) times on the same inputs,
-    and the bound; for the first case also the device time of each of the
-    kernel's two stages."""
+    ``attention_reference`` on that module's own q, k and v, and the DiT-L/2
+    widths at L = 2048 in bf16.  Each with two launches compared bit for
+    bit, the kernel's, the plain version's and the library calls'
+    (``F.linear`` + SDPA) times on the same inputs (CUDA events, ``ms``;
+    the profiler's device time, ``device_ms``), the wrapper's host time
+    per call and the bound; for the first case also the device time of
+    each of the kernel's two stages."""
     import torch
     from ln3diff_tpu_torch.models.dit import Attention
     from ln3diff_tpu_torch.ops.fused_attention import (
@@ -459,7 +475,8 @@ def qkv_attention_check():
              ('ragged_L77', 2, 77, 1024, 16, torch.bfloat16),
              ('head_dim_32', 2, 96, 128, 4, torch.bfloat16),
              ('dit_l2_f32', 2, 768, 1024, 16, torch.float32),
-             ('dit_attention_module_f32', 2, 768, 1024, 16, torch.float32)]
+             ('dit_attention_module_f32', 2, 768, 1024, 16, torch.float32),
+             ('dit_l2_L2048_bf16', 2, 2048, 1024, 16, torch.bfloat16)]
     results = []
     attn_before = FusedAttention.launches
     for i, (name, B, L, D, H, dt) in enumerate(cases):
@@ -495,16 +512,27 @@ def qkv_attention_check():
                                                                     H))
             library_ms = cuda_time_ms(
                 lambda: library_qkv_attention(x, w_t, b, H))
-            stage_ms = (qkv_stage_ms(lambda: fused_qkv_attention(
-                *args, num_heads=H)) if i == 0 else None)
+            dev_ms = device_ms(lambda: fused_qkv_attention(*args,
+                                                           num_heads=H))
+            library_dev_ms = device_ms(
+                lambda: library_qkv_attention(x, w_t, b, H))
+            wrapper_us = host_us(lambda: fused_qkv_attention(*args,
+                                                             num_heads=H))
+            stage_ms = (device_ms(
+                lambda: fused_qkv_attention(*args, num_heads=H),
+                stages=dict(projection='projection_kernel',
+                            attention='attention_kernel'))
+                if i == 0 else None)
         bound, bound_by = qkv_attention_bound_ms(B, L, D, H, x.element_size())
         res = dict(case=name, shape=[B, L, D, H], dtype=str(dt),
                    max_abs_err=float(err.max()),
                    out_abs_max=float(want.float().abs().max()),
                    atol=atol, rtol=rtol, ok=ok,
                    deterministic=bool(torch.equal(got, again)), ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound, bound_by=bound_by, stage_ms=stage_ms)
+                   device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_device_ms=library_dev_ms,
+                   host_us=wrapper_us, bound_ms=bound, bound_by=bound_by,
+                   stage_ms=stage_ms)
         results.append(res)
         emit({'qkv_attention_check': res})
         check(ok, f'fused_qkv_attention disagrees with its plain version on '
@@ -693,7 +721,8 @@ def osg_backward_check():
         res = dict(case=name, M=M, rows_dtype=str(dt), inbox=with_inbox,
                    activation=act, max_abs_err=errs, ok=ok,
                    deterministic=deterministic,
-                   ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
+                   ms=cuda_time_ms(kernel), device_ms=device_ms(kernel),
+                   plain_ms=cuda_time_ms(plain),
                    bound_ms=bound, bound_by=bound_by)
         results.append(res)
         emit({'osg_backward_check': res})
@@ -1270,12 +1299,12 @@ def dit_profile(denoisers, cond, uncond, steps=10):
             return getattr(e, 'self_device_time_total', None) \
                 or getattr(e, 'self_cuda_time_total', 0)
         events = [e for e in prof.key_averages() if dev_us(e) > 0]
-        device_ms = sum(dev_us(e) for e in events) / steps / 1e3
+        step_ms = sum(dev_us(e) for e in events) / steps / 1e3
         top = sorted(events, key=dev_us, reverse=True)[:6]
         res[name] = dict(
             wall_ms_per_step=wall_ms, wall_ms_runs=walls[name],
-            device_ms_per_step=device_ms if events else None,
-            device_busy_share=device_ms / wall_ms if events else None,
+            device_ms_per_step=step_ms if events else None,
+            device_busy_share=step_ms / wall_ms if events else None,
             top_kernels=[dict(name=e.key[:80],
                               ms_per_step=dev_us(e) / steps / 1e3,
                               calls_per_step=e.count / steps)
@@ -1464,7 +1493,8 @@ def main():
              launches=sum(serving['fused_osg_launches'].values()),
              max_abs_err=max(max(c['max_abs_err_rgb'],
                                  c['max_abs_err_sigma']) for c in checks),
-             ms=osg_main['ms'], plain_ms=osg_main['plain_ms'],
+             ms=osg_main['ms'], device_ms=osg_main['device_ms'],
+             plain_ms=osg_main['plain_ms'],
              bound_ms=osg_main['bound_ms'], bound_by=osg_main['bound_by'],
              library_ms=None),
         dict(name='fused_attention', route='cuda',
@@ -1472,7 +1502,8 @@ def main():
              replaces='ln3diff_tpu/ops/fused_attention.py:39',
              launches=serving['fused_attention_launches'],
              max_abs_err=max(c['max_abs_err'] for c in attn_checks),
-             ms=attn_main['ms'], plain_ms=attn_main['plain_ms'],
+             ms=attn_main['ms'], device_ms=attn_main['device_ms'],
+             plain_ms=attn_main['plain_ms'],
              bound_ms=attn_main['bound_ms'], bound_by=attn_main['bound_by'],
              library_ms=attn_main['library_ms']),
         dict(name='fused_osg_bwd', route='cuda',
@@ -1481,7 +1512,8 @@ def main():
              launches=train['fused']['fused_osg_backward_launches'],
              max_abs_err=max(e for c in bwd_checks
                              for e in c['max_abs_err'].values()),
-             ms=bwd_main['ms'], plain_ms=bwd_main['plain_ms'],
+             ms=bwd_main['ms'], device_ms=bwd_main['device_ms'],
+             plain_ms=bwd_main['plain_ms'],
              bound_ms=bwd_main['bound_ms'], bound_by=bwd_main['bound_by'],
              library_ms=None),
         dict(name='fused_qkv_attention', route='cuda',
@@ -1489,7 +1521,8 @@ def main():
              replaces='ln3diff_tpu/ops/fused_attention.py:104',
              launches=chain['fused_qkv_attention_launches'],
              max_abs_err=max(c['max_abs_err'] for c in qkv_checks),
-             ms=qkv_main['ms'], plain_ms=qkv_main['plain_ms'],
+             ms=qkv_main['ms'], device_ms=qkv_main['device_ms'],
+             plain_ms=qkv_main['plain_ms'],
              bound_ms=qkv_main['bound_ms'], bound_by=qkv_main['bound_by'],
              library_ms=qkv_main['library_ms'])]})
     print(smi_line, flush=True)

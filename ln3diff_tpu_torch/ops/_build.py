@@ -134,6 +134,7 @@ class _Libraries:
 
     def __init__(self):
         self._libs: dict[str, ctypes.CDLL] = {}
+        self._fns = {}    # (library, symbol) -> typed ctypes function
 
     def get(self, name: str) -> ctypes.CDLL:
         if name not in self._libs:
@@ -145,11 +146,14 @@ class _Libraries:
                  restype=ctypes.c_int):
         """``symbol`` of library ``name`` with its ctypes signature set
         (pointers as ``c_void_p``, so that ctypes never cuts them to 32
-        bits)."""
-        fn = getattr(self.get(name), symbol)
-        if fn.argtypes is None:
+        bits); looked up once, then taken from a dict, since the kernels'
+        wrappers call this on every launch."""
+        fn = self._fns.get((name, symbol))
+        if fn is None:
+            fn = getattr(self.get(name), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = restype
+            self._fns[(name, symbol)] = fn
         return fn
 
 

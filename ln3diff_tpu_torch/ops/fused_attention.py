@@ -31,9 +31,82 @@ import torch
 from ..models.layers import dot_product_attention
 from ._build import LIBRARIES
 
-# what the CUDA kernel takes (csrc/fused_attention.cu)
+# what the CUDA kernels take (csrc/fused_attention.cu)
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the bf16 kernels' tiles (csrc/attention_common.cuh, attn::sm90;
+# csrc/fused_qkv_attention.cu, proj::sm90)
+KEY_TILE = 64         # keys per tile of the K/V ring
+PROJ_K_CHUNK = 64     # depth of one projection chunk
+
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                  + [ctypes.c_longlong] * 12
+                  + [ctypes.c_float, ctypes.c_void_p])
+_QKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_void_p])
+# the current stream's handle without building a Stream object
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+
+def _launch(device, fn, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream; enters
+    ``torch.cuda.device`` only when ``device`` is not the current one."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is not None and index != current:
+        with torch.cuda.device(index):
+            return _launch(torch.device('cuda', index), fn, *args)
+    stream = (_raw_stream(current) if _raw_stream is not None
+              else torch.cuda.current_stream(current).cuda_stream)
+    return fn(*args, stream)
+
+
+def _raise_on(err, what):
+    if err >= 10000:
+        raise RuntimeError(f'{what}: the TMA tensor map could not be '
+                           f'encoded (code {err})')
+    if err != 0:
+        raise RuntimeError(f'{what} kernel launch failed: CUDA error {err}')
+
+
+def key_tiles(L: int) -> int:
+    """Key tiles of ``KEY_TILE`` keys that each pass of the bf16 kernel
+    streams through its ring for a sequence of L keys."""
+    return -(-L // KEY_TILE)
+
+
+def key_mask(L: int) -> torch.Tensor:
+    """``(key_tiles(L), KEY_TILE)`` bool: True where a tile's key is below L.
+    The kernel sets the scores of the other keys to -inf (TMA reads their
+    rows of K and V as zeros, which would give s = 0)."""
+    keys = torch.arange(key_tiles(L) * KEY_TILE).reshape(-1, KEY_TILE)
+    return keys < L
+
+
+def _byte_strides(t, name: str):
+    """(row, head, batch) byte strides of a ``(B, L, H, d)`` view; raises
+    ValueError unless d has unit stride, the data is 16-byte aligned and
+    every byte stride is a multiple of 16 (TMA's rule)."""
+    sb, sl, sh, sd = t.stride()
+    if sd != 1:
+        raise ValueError(f'{name}: needs unit stride along d')
+    es = t.element_size()
+    # the item size is a power of two, so the OR has a low bit set iff
+    # one of the strides does
+    if t.data_ptr() % 16 or (sl | sh | sb) * es % 16:
+        raise ValueError(f'{name}: rows must be 16-byte aligned (byte '
+                         f'strides {(sl * es, sh * es, sb * es)} must be '
+                         f'multiples of 16)')
+    return sl * es, sh * es, sb * es
+
+
+def tma_geometry(t, name: str = 't'):
+    """The TMA tensor map of a ``(B, L, H, d)`` view, as the kernel encodes
+    it: dims innermost first ``(d, L, H, B)`` and the byte strides of dims
+    1..3 ``(row, head, batch)``.  Raises ValueError as
+    :func:`fused_attention` does for a view the kernel cannot read."""
+    B, L, H, d = t.shape
+    return (d, L, H, B), _byte_strides(t, name)
 
 
 def attention_reference(q, k, v):
@@ -68,58 +141,51 @@ def fused_attention(q, k, v):
     """
     if q.device.type == 'cpu':
         return attention_reference(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
         # like the JAX kernel, this one has no backward
         raise RuntimeError('fused_attention has no backward: call it under '
                            'torch.no_grad() or on tensors that need no grad')
     if q.ndim != 4:
         raise ValueError(f'q: shape {tuple(q.shape)}, expected (B, L, H, d)')
-    B, L, H, d = q.shape
+    shape, dtype, device = q.shape, q.dtype, q.device
+    B, L, H, d = shape
     for name, t in (('k', k), ('v', v)):
-        if tuple(t.shape) != tuple(q.shape):
+        if t.shape != shape:
             raise ValueError(f'{name}: shape {tuple(t.shape)}, expected '
-                             f'{tuple(q.shape)}')
-        if t.dtype != q.dtype:
-            raise ValueError(f'{name}: dtype {t.dtype}, expected {q.dtype}')
-        if t.device != q.device:
-            raise ValueError(f'all inputs must be on {q.device}, got '
+                             f'{tuple(shape)}')
+        if t.dtype != dtype:
+            raise ValueError(f'{name}: dtype {t.dtype}, expected {dtype}')
+        if t.device != device:
+            raise ValueError(f'all inputs must be on {device}, got '
                              f'{t.device}')
-    if q.device.type != 'cuda':
+    if device.type != 'cuda':
         raise ValueError(f'fused_attention runs on CPU or CUDA tensors, got '
-                         f'{q.device}')
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f'fused_attention: dtype {q.dtype}, the kernel '
+                         f'{device}')
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f'fused_attention: dtype {dtype}, the kernel '
                          f'takes {KERNEL_DTYPES}')
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f'fused_attention: head dim {d}, the kernel takes '
                          f'{KERNEL_HEAD_DIMS}')
     if B * H > 65535:
         raise ValueError(f'fused_attention: B*H = {B * H} > 65535')
-    itemsize = q.element_size()
-    for name, t in (('q', q), ('k', k), ('v', v)):
-        if t.stride(3) != 1:
-            raise ValueError(f'{name}: needs unit stride along d')
-        if (t.data_ptr() % 16
-                or any(t.stride(i) * itemsize % 16 for i in range(3))):
-            raise ValueError(f'{name}: rows must be 16-byte aligned')
+    sq = _byte_strides(q, 'q')
+    sk = _byte_strides(k, 'k')
+    sv = _byte_strides(v, 'v')
 
-    o = torch.empty((B, L, H, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, L, H, d), dtype=dtype, device=device)
     if o.numel() == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    fn = LIBRARIES.function('fused_attention', 'ln3diff_fused_attention', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, L, H, d, strides,
-                 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f'fused_attention kernel launch failed: CUDA '
-                           f'error {err}')
+    es = o.element_size()
+    fn = LIBRARIES.function('fused_attention', 'ln3diff_fused_attention',
+                            _ATTN_ARGTYPES)
+    # o is contiguous: (row, head, batch) byte strides H·d, d, L·H·d
+    err = _launch(device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), int(dtype == torch.bfloat16), B, L, H, d,
+                  *sq, *sk, *sv, H * d * es, d * es, L * H * d * es,
+                  1.0 / math.sqrt(d))
+    _raise_on(err, 'fused_attention')
     FusedAttention.launches += 1
     return o
 
@@ -245,18 +311,13 @@ def fused_qkv_attention(x, wq, wk, wv, bq, bk, bv, num_heads: int):
         return o
     # the rounded q | k | v of every head, read in place by the attention
     qkv = torch.empty((B, L, 3, H, d), dtype=x.dtype, device=x.device)
-    fn = LIBRARIES.function(
-        'fused_qkv_attention', 'ln3diff_fused_qkv_attention',
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in args), qkv.data_ptr(),
-                 o.data_ptr(), int(x.dtype == torch.bfloat16), B, L, H, d,
-                 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f'fused_qkv_attention kernel launch failed: CUDA '
-                           f'error {err}')
+    fn = LIBRARIES.function('fused_qkv_attention',
+                            'ln3diff_fused_qkv_attention', _QKV_ARGTYPES)
+    err = _launch(x.device, fn, *(t.data_ptr() for t in args),
+                  qkv.data_ptr(), o.data_ptr(),
+                  int(x.dtype == torch.bfloat16), B, L, H, d,
+                  1.0 / math.sqrt(d))
+    _raise_on(err, 'fused_qkv_attention')
     FusedQKVAttention.launches += 1
     return o
 

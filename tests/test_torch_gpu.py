@@ -237,6 +237,55 @@ def test_fused_attention_strided_views(cuda, dtype):
     _attn_close(fused_attention(*heads_first), want, dtype)
 
 
+@pytest.mark.parametrize('d', [32, 64])
+@pytest.mark.parametrize('L', [1, 63, 64, 65, 77, 128, 129, 768, 2048])
+def test_fused_attention_bf16_tile_edges(cuda, d, L):
+    """The bf16 wgmma kernel around its 64-row query and key tiles (one
+    key, a tile less one, one, one more, ragged, the DiT's 768 and a long
+    2048 that streams far past shared memory), against the plain version;
+    two launches agree bit for bit."""
+    B, H = (2, 16) if L >= 768 else (2, 4)
+    q, k, v = _qkv(B, L, H, d, torch.bfloat16, cuda, seed=L + d)
+    got = fused_attention(q, k, v)
+    again = fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    _attn_close(got, attention_reference(q, k, v), torch.bfloat16)
+    assert torch.equal(got, again)
+
+
+def test_fused_attention_is_deterministic(cuda):
+    """No atomics and no split over keys: two launches on the DiT's qkv
+    thirds agree bit for bit."""
+    B, L, H, d = 2, 768, 16, 64
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn((B, L, 3 * H * d), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(B, L, H, d) for t in qkv.chunk(3, dim=-1))
+    assert torch.equal(fused_attention(q, k, v), fused_attention(q, k, v))
+
+
+def test_dit_attention_module_fused_bf16(cuda):
+    """A port ``Attention(1024, 16)`` in bf16 with ``fused=True`` runs
+    kernel 3 on the thirds of its own qkv projection; its output before
+    the out projection equals ``attention_reference`` on those q, k, v."""
+    from ln3diff_tpu_torch.models.dit import Attention
+    torch.manual_seed(0)
+    attn = Attention(1024, 16, fused=True).to(cuda, torch.bfloat16)
+    x = torch.randn((2, 768, 1024), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    seen = {}
+    attn.proj.register_forward_pre_hook(
+        lambda module, args: seen.setdefault('heads', args[0]))
+    before = FusedAttention.launches
+    with torch.no_grad():
+        attn(x)
+        q, k, v = (t.reshape(2, 768, 16, 64)
+                   for t in attn.qkv(x).chunk(3, dim=-1))
+        want = attention_reference(q, k, v).reshape(2, 768, 1024)
+    assert FusedAttention.launches == before + 1
+    _attn_close(seen['heads'], want, torch.bfloat16)
+
+
 def test_fused_attention_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 16, 2, 16, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match='head dim'):
