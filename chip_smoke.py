@@ -217,8 +217,9 @@ def osg_bound_ms(M, rows_itemsize, with_inbox):
 def kernel_check():
     """fused_osg against osg_pointwise_reference at the main path's
     shapes: a 192² × 64-sample render pass (with the bbox fold), the same
-    with a ragged M, one σ-grid chunk of 2^18 points (no fold), and f32
-    rows."""
+    with a ragged M, one σ-grid chunk of 2^18 points (no fold), f32 rows,
+    and one training-step launch (M = 64·32², bf16, with the fold); each
+    with the wrapper's host time per call (``host_us``)."""
     import torch
     from ln3diff_tpu_torch.ops.fused_render import (osg_pointwise_fused,
                                                     osg_pointwise_reference)
@@ -226,7 +227,8 @@ def kernel_check():
     cases = [('render_pass', pass_M, torch.bfloat16, True),
              ('render_pass_ragged', pass_M + 17, torch.bfloat16, True),
              ('sigma_chunk', 2**18, torch.bfloat16, False),
-             ('render_pass_f32', 2**18 + 5, torch.float32, True)]
+             ('render_pass_f32', 2**18 + 5, torch.float32, True),
+             ('training_launch', 64 * 32 * 32, torch.bfloat16, True)]
     results = []
     for i, (name, M, dt, with_inbox) in enumerate(cases):
         args, inbox = osg_inputs(M, dt, with_inbox, seed=100 + i)
@@ -248,7 +250,9 @@ def kernel_check():
                    max_abs_err_rgb=float(err_rgb.max()),
                    max_abs_err_sigma=float(err_sig.max()),
                    atol=atol, rtol=rtol, ok=ok, ms=ms, device_ms=dev_ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   host_us=host_us(
+                       lambda: osg_pointwise_fused(*args, inbox=inbox)))
         results.append(res)
         emit({'kernel_check': res})
         check(ok, f'fused_osg disagrees with its plain version on {name}')
@@ -653,6 +657,8 @@ def osg_bwd_bound_ms(M, rows_itemsize, with_inbox):
                                  else 'operations')
 
 
+# kernel 2's two launches, by a part of their names
+BWD_STAGES = {'main': 'osg_backward_kernel', 'reduce': 'reduce_partials'}
 BWD_NAMES = ('grows', 'gtx', 'gty', 'glive', 'ginbox', 'gw1', 'gb1', 'gw2',
              'gb2')
 
@@ -683,7 +689,9 @@ def osg_backward_check():
     """Kernel 2 (``osg_pointwise_backward``) against its plain version on
     all nine outputs: one training-step launch (M = 64·32² points of a
     patch-32 render, bf16 rows, bbox fold), f32 rows, lrelu without the
-    fold and a ragged M; then autograd through the kernel pair against
+    fold and a ragged M, each with its device time split between the
+    main kernel and the reduce of the weight-grad partials and the
+    wrapper's host time; then autograd through the kernel pair against
     autograd of the plain forward, in f32."""
     import torch
     from ln3diff_tpu_torch.ops.fused_render import (
@@ -722,7 +730,8 @@ def osg_backward_check():
                    activation=act, max_abs_err=errs, ok=ok,
                    deterministic=deterministic,
                    ms=cuda_time_ms(kernel), device_ms=device_ms(kernel),
-                   plain_ms=cuda_time_ms(plain),
+                   device_ms_by_stage=device_ms(kernel, stages=BWD_STAGES),
+                   host_us=host_us(kernel), plain_ms=cuda_time_ms(plain),
                    bound_ms=bound, bound_by=bound_by)
         results.append(res)
         emit({'osg_backward_check': res})
@@ -1494,7 +1503,7 @@ def main():
              max_abs_err=max(max(c['max_abs_err_rgb'],
                                  c['max_abs_err_sigma']) for c in checks),
              ms=osg_main['ms'], device_ms=osg_main['device_ms'],
-             plain_ms=osg_main['plain_ms'],
+             host_us=osg_main['host_us'], plain_ms=osg_main['plain_ms'],
              bound_ms=osg_main['bound_ms'], bound_by=osg_main['bound_by'],
              library_ms=None),
         dict(name='fused_attention', route='cuda',
@@ -1513,7 +1522,7 @@ def main():
              max_abs_err=max(e for c in bwd_checks
                              for e in c['max_abs_err'].values()),
              ms=bwd_main['ms'], device_ms=bwd_main['device_ms'],
-             plain_ms=bwd_main['plain_ms'],
+             host_us=bwd_main['host_us'], plain_ms=bwd_main['plain_ms'],
              bound_ms=bwd_main['bound_ms'], bound_by=bwd_main['bound_by'],
              library_ms=None),
         dict(name='fused_qkv_attention', route='cuda',

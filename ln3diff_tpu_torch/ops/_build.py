@@ -15,7 +15,8 @@ place, so an interrupted build leaves nothing half-written, and no lock
 file is taken that could be left behind.
 
 Nothing here runs at import time; the first call that needs a library
-builds it.
+builds it.  :func:`launch` calls a C entry point with the current CUDA
+stream.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / 'ops' / 'csrc'
@@ -158,3 +161,19 @@ class _Libraries:
 
 
 LIBRARIES = _Libraries()
+
+
+def launch(device, fn, *args):
+    """``fn(*args, stream)`` with ``device``'s current stream, for a C entry
+    point that launches on the stream it is given; enters
+    ``torch.cuda.device`` only when ``device`` is not the current one."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is not None and index != current:
+        with torch.cuda.device(index):
+            return launch(torch.device('cuda', index), fn, *args)
+    # the current stream's handle without building a Stream object
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    stream = (raw(current) if raw is not None
+              else torch.cuda.current_stream(current).cuda_stream)
+    return fn(*args, stream)

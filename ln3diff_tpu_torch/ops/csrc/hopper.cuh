@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's bf16 kernels:
-// mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, and the host-side encoding of TMA tensor
-// maps.  Everything here is plain PTX through inline asm: no CUTLASS, so a
-// source that includes it still builds in seconds.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tensor copies, 1-D bulk loads and 4-byte cp.async copies, wgmma
+// shared-memory descriptors and the wgmma instructions themselves, and the
+// host-side encoding of TMA tensor maps.  Everything here is plain PTX
+// through inline asm: no CUTLASS, so a source that includes it still builds
+// in seconds.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -142,6 +143,37 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         if (done) return;
         if (spins == (1u << 26)) __trap();
     }
+}
+
+// One contiguous copy of `bytes` from global `src` into shared `dst`
+// (both 16-byte aligned, bytes a multiple of 16), reported to `bar` by
+// complete_tx: a 1-D bulk copy, which needs no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(bar) : "memory");
+}
+
+// A 4-byte asynchronous copy from global to shared memory (no alignment
+// beyond 4 bytes).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
+                 : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival counts against the barrier's expected count (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,

@@ -29,7 +29,7 @@ import math
 import torch
 
 from ..models.layers import dot_product_attention
-from ._build import LIBRARIES
+from ._build import LIBRARIES, launch
 
 # what the CUDA kernels take (csrc/fused_attention.cu)
 KERNEL_HEAD_DIMS = (32, 64)
@@ -44,21 +44,6 @@ _ATTN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                   + [ctypes.c_float, ctypes.c_void_p])
 _QKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_void_p])
-# the current stream's handle without building a Stream object
-_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
-
-
-def _launch(device, fn, *args):
-    """``fn(*args, stream)`` on ``device``'s current stream; enters
-    ``torch.cuda.device`` only when ``device`` is not the current one."""
-    index = device.index
-    current = torch.cuda.current_device()
-    if index is not None and index != current:
-        with torch.cuda.device(index):
-            return _launch(torch.device('cuda', index), fn, *args)
-    stream = (_raw_stream(current) if _raw_stream is not None
-              else torch.cuda.current_stream(current).cuda_stream)
-    return fn(*args, stream)
 
 
 def _raise_on(err, what):
@@ -181,10 +166,10 @@ def fused_attention(q, k, v):
     fn = LIBRARIES.function('fused_attention', 'ln3diff_fused_attention',
                             _ATTN_ARGTYPES)
     # o is contiguous: (row, head, batch) byte strides H·d, d, L·H·d
-    err = _launch(device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), int(dtype == torch.bfloat16), B, L, H, d,
-                  *sq, *sk, *sv, H * d * es, d * es, L * H * d * es,
-                  1.0 / math.sqrt(d))
+    err = launch(device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), int(dtype == torch.bfloat16), B, L, H, d,
+                 *sq, *sk, *sv, H * d * es, d * es, L * H * d * es,
+                 1.0 / math.sqrt(d))
     _raise_on(err, 'fused_attention')
     FusedAttention.launches += 1
     return o
@@ -313,10 +298,10 @@ def fused_qkv_attention(x, wq, wk, wv, bq, bk, bv, num_heads: int):
     qkv = torch.empty((B, L, 3, H, d), dtype=x.dtype, device=x.device)
     fn = LIBRARIES.function('fused_qkv_attention',
                             'ln3diff_fused_qkv_attention', _QKV_ARGTYPES)
-    err = _launch(x.device, fn, *(t.data_ptr() for t in args),
-                  qkv.data_ptr(), o.data_ptr(),
-                  int(x.dtype == torch.bfloat16), B, L, H, d,
-                  1.0 / math.sqrt(d))
+    err = launch(x.device, fn, *(t.data_ptr() for t in args),
+                 qkv.data_ptr(), o.data_ptr(),
+                 int(x.dtype == torch.bfloat16), B, L, H, d,
+                 1.0 / math.sqrt(d))
     _raise_on(err, 'fused_qkv_attention')
     FusedQKVAttention.launches += 1
     return o

@@ -20,7 +20,9 @@ kernel, step by step as ``_bwd_kernel`` computes it.
 differentiates it) and for CUDA tensors runs :class:`_OSGFused`, whose
 forward launches the CUDA kernel ``csrc/fused_osg.cu`` and whose backward
 launches ``csrc/fused_osg_bwd.cu``; a CUDA tensor that the kernels do not
-take raises.
+take raises.  Both kernels run on a persistent grid of one block per SM
+(:func:`persistent_blocks`) that streams tiles of ``POINTS_PER_TILE``
+points through a ring in shared memory.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._build import LIBRARIES
+from ._build import LIBRARIES, launch
 
 _ACTIVATIONS = {'sigmoid': 0, 'lrelu': 1}
 # the shapes the CUDA kernel is compiled for (csrc/fused_osg.cu)
@@ -208,39 +210,43 @@ def _check_inputs(rows, tx, ty, live, w1, b1, w2, b2, activation, inbox,
     if rows.device.type != 'cuda':
         raise ValueError(f'fused_osg runs on CPU or CUDA tensors, got '
                          f'{rows.device}')
-    if rows.data_ptr() % 16:
-        raise ValueError('rows must be 16-byte aligned')
+    # the kernels bulk-copy rows (and kernel 2 g_rgb) tile by tile
+    aligned = [('rows', rows)] + [(n, t) for n, t, _ in extra if n == 'g_rgb']
+    for name, t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
 
 
-def _launch_forward(rows, tx, ty, live, w1, b1, w2, b2, activation, inbox):
-    """Kernel 1 on checked CUDA tensors → (rgb, sigma)."""
-    M = rows.shape[1]
-    rgb = torch.empty((M, KERNEL_OUT - 1), dtype=torch.float32,
-                      device=rows.device)
-    sigma = torch.empty((M, 1), dtype=torch.float32, device=rows.device)
-    if M == 0:
-        return rgb, sigma
-    vp = ctypes.c_void_p
-    fn = LIBRARIES.function(
-        'fused_osg', 'ln3diff_fused_osg_forward',
-        [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-         ctypes.c_longlong, ctypes.c_int, vp])
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(rows.data_ptr(), int(rows.dtype == torch.bfloat16),
-                 tx.data_ptr(), ty.data_ptr(), live.data_ptr(),
-                 None if inbox is None else inbox.data_ptr(),
-                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 rgb.data_ptr(), sigma.data_ptr(), M,
-                 _ACTIVATIONS[activation], stream)
-    if err != 0:
-        raise RuntimeError(f'fused_osg kernel launch failed: CUDA error '
-                           f'{err}')
-    FusedOSG.launches += 1
-    return rgb, sigma
+# the kernels' tiles and rings, by rows' dtype (csrc/osg_common.cuh P;
+# csrc/fused_osg.cu STAGES, csrc/fused_osg_bwd.cu GROUPS): points per tile,
+# kernel 1's tiles in flight per block, and kernel 2's groups of four warps
+# per block, each with its own stage
+POINTS_PER_TILE = 64
+FORWARD_STAGES = {torch.bfloat16: 3, torch.float32: 1}
+BACKWARD_GROUPS = {torch.bfloat16: 2, torch.float32: 1}
+# the weight grads, flat as kernel 2 writes them: gw1, gb1, gw2, gb2
+_NW = (KERNEL_C * KERNEL_HIDDEN + KERNEL_HIDDEN
+       + KERNEL_HIDDEN * KERNEL_OUT + KERNEL_OUT)
+_VP = ctypes.c_void_p
+# the C entry points' signatures, the stream last
+_FWD_ARGTYPES = ([_VP, ctypes.c_int] + [_VP] * 10
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP])
+_BWD_ARGTYPES = ([_VP, ctypes.c_int] + [_VP] * 16
+                 + [ctypes.c_int, _VP, ctypes.c_longlong, ctypes.c_int, _VP])
 
 
-_POINTS_PER_TILE = 64     # csrc/fused_osg_bwd.cu P
+def tiles(M: int) -> int:
+    """Tiles of ``POINTS_PER_TILE`` points that cover M points (the last
+    one ragged)."""
+    return -(-M // POINTS_PER_TILE)
+
+
+def persistent_blocks(M: int, sms: int) -> int:
+    """Grid of either kernel: one block per SM (each block's ring and
+    weights fill most of an SM's shared memory), at most one per tile.
+    Block b takes tiles b, b + grid, ...; kernel 2 writes one set of
+    weight-grad partials per group of consumer warps."""
+    return max(1, min(tiles(M), sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,13 +255,33 @@ def _sm_count(device_index: int) -> int:
         device_index).multi_processor_count
 
 
-def _backward_blocks(M: int, device) -> int:
-    """Grid of the backward kernel: two blocks per SM, at most one per
-    tile.  Each block writes one set of weight-grad partials."""
+def _blocks(M: int, device) -> int:
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    tiles = -(-M // _POINTS_PER_TILE)
-    return max(1, min(tiles, 2 * _sm_count(idx)))
+    return persistent_blocks(M, _sm_count(idx))
+
+
+def _launch_forward(rows, tx, ty, live, w1, b1, w2, b2, activation, inbox):
+    """Kernel 1 on checked CUDA tensors → (rgb, sigma)."""
+    M = rows.shape[1]
+    dev = rows.device
+    rgb = torch.empty((M, KERNEL_OUT - 1), dtype=torch.float32, device=dev)
+    sigma = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    if M == 0:
+        return rgb, sigma
+    fn = LIBRARIES.function('fused_osg', 'ln3diff_fused_osg_forward',
+                            _FWD_ARGTYPES)
+    err = launch(dev, fn, rows.data_ptr(), int(rows.dtype == torch.bfloat16),
+                 tx.data_ptr(), ty.data_ptr(), live.data_ptr(),
+                 None if inbox is None else inbox.data_ptr(),
+                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                 rgb.data_ptr(), sigma.data_ptr(), M,
+                 _ACTIVATIONS[activation], _blocks(M, dev))
+    if err != 0:
+        raise RuntimeError(f'fused_osg kernel launch failed: CUDA error '
+                           f'{err}')
+    FusedOSG.launches += 1
+    return rgb, sigma
 
 
 def _launch_backward(rows, tx, ty, live, w1, b1, w2, b2, g_rgb, g_sigma,
@@ -269,22 +295,17 @@ def _launch_backward(rows, tx, ty, live, w1, b1, w2, b2, g_rgb, g_sigma,
     grows = torch.empty_like(rows)
     gtx, gty, glive = (torch.empty((3, M), **f32) for _ in range(3))
     ginbox = None if inbox is None else torch.empty((M,), **f32)
-    vp = ctypes.c_void_p
-    # the weight grads, flat as the kernel writes them: gw1, gb1, gw2, gb2
-    nw = C * H + H + H * NO + NO
-    wgrad = torch.zeros((nw,), **f32)
+    # every element is written by the reduce kernel; zero without points
+    wgrad = (torch.empty if M > 0 else torch.zeros)((_NW,), **f32)
     if M > 0:
-        nblocks = _backward_blocks(M, dev)
-        partials = torch.empty((nblocks * nw,), **f32)
-        fn = LIBRARIES.function(
-            'fused_osg_bwd', 'ln3diff_fused_osg_backward',
-            [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-             vp, vp, vp, vp, vp, vp, ctypes.c_int, vp, ctypes.c_longlong,
-             ctypes.c_int, vp])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(rows.data_ptr(), int(rows.dtype == torch.bfloat16),
-                     tx.data_ptr(), ty.data_ptr(), live.data_ptr(),
+        nblocks = _blocks(M, dev)
+        partials = torch.empty(
+            (nblocks * BACKWARD_GROUPS[rows.dtype] * _NW,), **f32)
+        fn = LIBRARIES.function('fused_osg_bwd', 'ln3diff_fused_osg_backward',
+                                _BWD_ARGTYPES)
+        err = launch(dev, fn, rows.data_ptr(),
+                     int(rows.dtype == torch.bfloat16), tx.data_ptr(),
+                     ty.data_ptr(), live.data_ptr(),
                      None if inbox is None else inbox.data_ptr(),
                      w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                      b2.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(),
@@ -292,7 +313,7 @@ def _launch_backward(rows, tx, ty, live, w1, b1, w2, b2, g_rgb, g_sigma,
                      glive.data_ptr(),
                      None if ginbox is None else ginbox.data_ptr(),
                      partials.data_ptr(), nblocks, wgrad.data_ptr(), M,
-                     _ACTIVATIONS[activation], stream)
+                     _ACTIVATIONS[activation])
         if err != 0:
             raise RuntimeError(f'fused_osg backward kernel launch failed: '
                                f'CUDA error {err}')
@@ -325,10 +346,12 @@ class _OSGFused(torch.autograd.Function):
             g_rgb = torch.zeros((M, KERNEL_OUT - 1), device=rows.device)
         if g_sigma is None:
             g_sigma = torch.zeros((M, 1), device=rows.device)
+        g_rgb = g_rgb.float().contiguous()
+        if g_rgb.data_ptr() % 16:          # a view that starts mid-row
+            g_rgb = g_rgb.clone()
         grads = _launch_backward(
-            rows, tx, ty, live, w1, b1, w2, b2,
-            g_rgb.float().contiguous(), g_sigma.float().contiguous(),
-            ctx.activation, inbox)
+            rows, tx, ty, live, w1, b1, w2, b2, g_rgb,
+            g_sigma.float().contiguous(), ctx.activation, inbox)
         grows, gtx, gty, glive, ginbox, gw1, gb1, gw2, gb2 = grads
         return (grows, gtx.to(tx.dtype), gty.to(ty.dtype),
                 glive.to(live.dtype), gw1.to(w1.dtype), gb1.to(b1.dtype),

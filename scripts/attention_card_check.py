@@ -78,10 +78,10 @@ def qkv_case(B, L, D, H, dtype, seed=1):
     fn = fa.LIBRARIES.function('fused_qkv_attention',
                                'ln3diff_fused_qkv_attention',
                                fa._QKV_ARGTYPES)
-    rc = fa._launch(x.device, fn, *(t.data_ptr() for t in args),
-                    work.data_ptr(), o.data_ptr(),
-                    int(dtype == torch.bfloat16), B, L, H, d,
-                    1.0 / math.sqrt(d))
+    rc = fa.launch(x.device, fn, *(t.data_ptr() for t in args),
+                   work.data_ptr(), o.data_ptr(),
+                   int(dtype == torch.bfloat16), B, L, H, d,
+                   1.0 / math.sqrt(d))
     torch.cuda.synchronize()
     if rc:
         print(f'kernel 4 {(B, L, D, H)} {dtype}: launch returned {rc}')

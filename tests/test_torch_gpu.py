@@ -183,6 +183,95 @@ def test_fused_osg_autograd_matches_reference_autograd(cuda, with_inbox):
         _bwd_close(kind, a.grad, b.grad, torch.float32)
 
 
+# -- kernels 1 and 2 around their tiles and rings ----------------------------
+
+# point counts around the 64-point tiles, the forward's bf16 ring of three
+# tiles, one pass of a 132-block grid and the training launch; M % 4 takes
+# every value (the planes of tx, ty, live start k·M·4 bytes in)
+OSG_EDGES = [1, 15, 63, 64, 65, 66, 127, 128, 129, 191, 193, 8447, 8449,
+             65536, 65553]
+# both row types, the fold on and off and both activations, each pair of
+# values in one case (scripts/osg_card_check.py runs all eight at each M)
+OSG_VARIANTS = [(torch.bfloat16, True, 'sigmoid'),
+                (torch.bfloat16, False, 'lrelu'),
+                (torch.float32, True, 'lrelu'),
+                (torch.float32, False, 'sigmoid')]
+
+
+def _near_lrelu_kink(args):
+    """Colour pre-activations within 1e-5 of 0 in the plain forward, where
+    lrelu' jumps: the kernel sums its f32 products in another order, so
+    there it may take either side, and either derivative is right."""
+    ref = osg_pointwise_reference(*args, activation='lrelu')[0]
+    return ref.abs() <= 1e-5
+
+
+@pytest.mark.parametrize('rows_dtype,with_inbox,activation', OSG_VARIANTS)
+@pytest.mark.parametrize('M', OSG_EDGES)
+def test_fused_osg_tile_edges(cuda, rows_dtype, with_inbox, activation, M):
+    """Kernel 1 against its plain version around its tiles and ring (the
+    ragged last tile is copied and stored only up to M); two launches
+    equal bit for bit."""
+    args, inbox = _inputs(M, rows_dtype, with_inbox, cuda, seed=M)
+    got = osg_pointwise_fused(*args, activation=activation, inbox=inbox)
+    again = osg_pointwise_fused(*args, activation=activation, inbox=inbox)
+    torch.cuda.synchronize()
+    want = osg_pointwise_reference(*args, activation=activation,
+                                   inbox=inbox)
+    atol, rtol = TOL[rows_dtype]
+    for a, b, c in zip(got, want, again):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize('rows_dtype,with_inbox,activation', OSG_VARIANTS)
+@pytest.mark.parametrize('M', OSG_EDGES)
+def test_fused_osg_backward_tile_edges(cuda, rows_dtype, with_inbox,
+                                       activation, M):
+    """Kernel 2's nine outputs against its plain version around its tiles
+    and ring, and on persistent blocks that take one or several tiles;
+    two launches equal bit for bit.  With lrelu, a colour whose
+    pre-activation lies within 1e-5 of 0 gets a zero cotangent in both
+    runs (``_near_lrelu_kink``)."""
+    args, inbox = _inputs(M, rows_dtype, with_inbox, cuda, seed=M)
+    g_rgb, g_sigma = _cotangents(M, cuda, seed=M + 1)
+    if activation == 'lrelu':
+        g_rgb = g_rgb.masked_fill(_near_lrelu_kink(args), 0.0)
+    got = osg_pointwise_backward(*args, g_rgb, g_sigma,
+                                 activation=activation, inbox=inbox)
+    again = osg_pointwise_backward(*args, g_rgb, g_sigma,
+                                   activation=activation, inbox=inbox)
+    torch.cuda.synchronize()
+    want = osg_pointwise_backward_reference(*args, g_rgb, g_sigma,
+                                            activation=activation,
+                                            inbox=inbox)
+    for name, a, b, c in zip(BWD_NAMES, got, want, again):
+        if name == 'ginbox' and not with_inbox:
+            assert a is None and b is None and c is None
+            continue
+        _bwd_close(name, a, b, rows_dtype)
+        assert torch.equal(a, c), name
+
+
+def test_fused_osg_backward_takes_a_misaligned_cotangent(cuda):
+    """Kernel 2 bulk-copies g_rgb: through autograd, a cotangent view that
+    starts mid-row is copied first; the public entry raises on it."""
+    M = 1000
+    args, inbox = _inputs(M, torch.float32, True, cuda)
+    g = torch.randn((M * 32 + 1,), device=cuda)
+    g_rgb = g[1:].view(M, 32)
+    g_sigma = torch.randn((M, 1), device=cuda)
+    with pytest.raises(ValueError, match='g_rgb must be 16-byte aligned'):
+        osg_pointwise_backward(*args, g_rgb, g_sigma, inbox=inbox)
+    leaves = [a.clone().requires_grad_() for a in args]
+    rgb, sigma = osg_pointwise_fused(*leaves, inbox=inbox)
+    torch.autograd.backward((rgb, sigma), (g_rgb, g_sigma))
+    want = osg_pointwise_backward_reference(*args, g_rgb.contiguous(),
+                                            g_sigma, inbox=inbox)
+    _bwd_close('grows', leaves[0].grad, want[0], torch.float32)
+    _bwd_close('gw2', leaves[6].grad, want[7], torch.float32)
+
+
 # -- fused attention ----------------------------------------------------------
 
 # |Δ| <= atol + rtol·|plain|.  f32: the kernel and the plain version sum in
