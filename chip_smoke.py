@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives four paths of ``ln3diff_tpu_torch`` at the full width of the
+Drives six paths of ``ln3diff_tpu_torch`` at the full width of the
 released Objaverse models, with random weights drawn from a fixed seed:
 
 * ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
@@ -21,16 +21,26 @@ released Objaverse models, with random weights drawn from a fixed seed:
   at the DiT-L/2 self-attention's shapes (B=2, L=768, D=1024, H=16, bf16)
   in the chain of ``.bench_megakernel.py``, x ← 0.5·y + 0.5·x for 1000
   steps, beside the same chain through library calls and 8 steps of the
-  plain version.
+  plain version;
+* ``i23d_pipeline``: the image→3D serving call on one 224² image: CLIP
+  ViT-L/14 vision tower (f32) and DINOv2-B/14 (bf16), DiT-I23D-L/2 with
+  the DINO tokens in its self-attention (L = 1025), the 250-step
+  flow-matching ODE with CFG 4.0, then the text→3D call's decode, orbit
+  and mesh stages; with plain attention and with ``fused_attention=True``;
+* ``mv23d_pipeline``: the multi-view→3D serving call on four views:
+  DINOv2-B/14, DiT-PixArt-MV-L/2 with the views' tokens in its
+  cross-attention, the same ODE and stages, plain and fused.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
-g++, holds each kernel against its plain PyTorch version
+g++ and holds each kernel against its plain PyTorch version
 (``kernel_check``, ``attention_check``, ``qkv_attention_check``,
-``osg_backward_check``), checks
-the mesh stage on an analytic sphere (``mesh_check``), a small model card
-against CPU (``small_reference``) and a small training step card against
-CPU (``small_train_reference``).  It prints one JSON line per phase as the phase
+``osg_backward_check``).  It also checks the mesh stage on an analytic
+sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
+models card against CPU (``small_reference``, ``small_reference_i23d``) and a small training
+step card against CPU (``small_train_reference``), and profiles a
+sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
+``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
 finishes, then the ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed build, launch or check exits non-zero without the
@@ -261,6 +271,76 @@ def kernel_check():
     return results
 
 
+def _small_card_vs_cpu(build, kw, inputs, fused, variant):
+    """One small model from ``build`` (a ``build_*_pipeline``) on the CPU
+    (seed 7) and on the card (a copy of the same weights), the same
+    conditioning ``inputs`` and noise, f32: latents, planes and frames must
+    agree within ``TOL_PIPE`` of scale.  With ``fused`` the call also
+    writes a mesh, whose OBJ must parse back, and the card run must
+    launch kernel 3."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    cpu_pipe, cpu_enc, mods = build('cpu', seed=7, **kw)
+    gpu_pipe, gpu_enc, _ = build(
+        'cuda', modules={k: copy.deepcopy(m) for k, m in mods.items()}, **kw)
+    noise = torch.randn((1, 8, 8, 12),
+                        generator=torch.Generator().manual_seed(3))
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, pipe, enc in (('cpu', cpu_pipe, cpu_enc),
+                                ('cuda', gpu_pipe, gpu_enc)):
+            FusedOSG.launches = FusedAttention.launches = 0
+            cond, uncond = enc(inputs)
+            mesh_kw = (dict(mesh_path=os.path.join(tmp, f'{name}.obj'),
+                            mesh_grid=32) if fused else {})
+            outs[name] = pipe(cond, uncond, num_frames=2,
+                              render_resolution=32, x_init=noise, **mesh_kw)
+            if fused:
+                nv, nf = obj_counts(mesh_kw['mesh_path'])
+                check((nv, nf) == tuple(map(len, outs[name]['mesh'])),
+                      f'{name}: the OBJ does not parse back')
+    check(FusedOSG.launches > 0, 'the card run did not launch fused_osg')
+    if fused:
+        check(FusedAttention.launches > 0,
+              'the card run did not launch fused_attention')
+    r = dict(fused_osg_launches=FusedOSG.launches,
+             fused_attention_launches=FusedAttention.launches)
+    for key in ('latents', 'planes', 'video'):
+        ref = outs['cpu'][key]
+        got = outs['cuda'][key].cpu()
+        err = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        r[key] = dict(max_abs_err=err, tol=TOL_PIPE * scale)
+        check(bool(torch.isfinite(got).all()),
+              f'{variant} {key}: non-finite on card')
+        check(err <= TOL_PIPE * scale,
+              f'{variant} {key}: card vs CPU max|Δ| {err} > '
+              f'{TOL_PIPE * scale}')
+    if fused:
+        r['triangles'] = dict(cpu=len(outs['cpu']['mesh'][1]),
+                              cuda=len(outs['cuda']['mesh'][1]))
+    return r
+
+
+def _small_vae_kw():
+    import torch
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    f32 = torch.float32
+    return dict(
+        vae_cfg=TriplaneVAEConfig(
+            latent_size=8,
+            dit2=DiT2Config(tokens_per_plane=16, hidden_size=64, depth=2,
+                            num_heads=2, dtype=f32),
+            conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=f32),
+        render_opts=dataclasses.replace(
+            RenderOptions(), depth_resolution=16,
+            depth_resolution_importance=16, filter_out_of_bbox=True),
+        render_resolution=32, render_dtype=None)
+
+
 def small_reference():
     """A small model through the whole slice on the card and on the CPU,
     same weights and noise, f32 throughout: latents, planes and frames
@@ -269,75 +349,69 @@ def small_reference():
     the fused-attention denoiser and a mesh_path."""
     import torch
     from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
-    from ln3diff_tpu_torch.models.dit import DiT2Config, DiTConfig
-    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
-    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
-    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.models.dit import DiTConfig
     from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
-    from ln3diff_tpu_torch.render.renderer import RenderOptions
 
-    f32 = torch.float32
     res = {}
     for variant, fused in (('plain', False), ('fused_attention_mesh', True)):
         kw = dict(
+            _small_vae_kw(),
             den_cfg=DiTConfig(input_size=8, hidden_size=64, depth=2,
                               num_heads=2, context_dim=64, exact_gelu=False,
-                              fused_attention=fused, dtype=f32),
-            vae_cfg=TriplaneVAEConfig(
-                latent_size=8,
-                dit2=DiT2Config(tokens_per_plane=16, hidden_size=64, depth=2,
-                                num_heads=2, dtype=f32),
-                conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=f32),
+                              fused_attention=fused, dtype=torch.float32),
             text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2,
                                     num_heads=2, intermediate_size=128),
-            render_opts=dataclasses.replace(
-                RenderOptions(), depth_resolution=16,
-                depth_resolution_importance=16, filter_out_of_bbox=True),
-            render_resolution=32,
-            sampler=SamplerSpec(num_steps=10, latent_shape=(8, 8, 12)),
-            render_dtype=None)
-        cpu_pipe, cpu_enc, mods = build_t23d_pipeline('cpu', seed=7, **kw)
-        gpu_pipe, gpu_enc, _ = build_t23d_pipeline(
-            'cuda', modules={k: copy.deepcopy(m) for k, m in mods.items()},
-            **kw)
-        noise = torch.randn((1, 8, 8, 12),
-                            generator=torch.Generator().manual_seed(3))
-        outs = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            for name, pipe, enc in (('cpu', cpu_pipe, cpu_enc),
-                                    ('cuda', gpu_pipe, gpu_enc)):
-                FusedOSG.launches = FusedAttention.launches = 0
-                cond, uncond = enc('a small wooden chair')
-                mesh_kw = (dict(mesh_path=os.path.join(tmp, f'{name}.obj'),
-                                mesh_grid=32) if fused else {})
-                outs[name] = pipe(cond, uncond, num_frames=2,
-                                  render_resolution=32, x_init=noise,
-                                  **mesh_kw)
-                if fused:
-                    nv, nf = obj_counts(mesh_kw['mesh_path'])
-                    check((nv, nf) == tuple(map(len, outs[name]['mesh'])),
-                          f'{name}: the OBJ does not parse back')
-        check(FusedOSG.launches > 0, 'the card run did not launch fused_osg')
-        if fused:
-            check(FusedAttention.launches > 0,
-                  'the card run did not launch fused_attention')
-        r = dict(fused_osg_launches=FusedOSG.launches,
-                 fused_attention_launches=FusedAttention.launches)
-        for key in ('latents', 'planes', 'video'):
-            ref = outs['cpu'][key]
-            got = outs['cuda'][key].cpu()
-            err = float((got - ref).abs().max())
-            scale = max(1.0, float(ref.abs().max()))
-            r[key] = dict(max_abs_err=err, tol=TOL_PIPE * scale)
-            check(bool(torch.isfinite(got).all()),
-                  f'{variant} {key}: non-finite on card')
-            check(err <= TOL_PIPE * scale,
-                  f'{variant} {key}: card vs CPU max|Δ| {err} > '
-                  f'{TOL_PIPE * scale}')
-        if fused:
-            r['triangles'] = dict(cpu=len(outs['cpu']['mesh'][1]),
-                                  cuda=len(outs['cuda']['mesh'][1]))
-        res[variant] = r
+            sampler=SamplerSpec(kind='ddim', num_steps=10,
+                                latent_shape=(8, 8, 12)))
+        res[variant] = _small_card_vs_cpu(build_t23d_pipeline, kw,
+                                          'a small wooden chair', fused,
+                                          variant)
+    return res
+
+
+def small_reference_i23d():
+    """``small_reference`` for the image→3D and multi-view→3D paths: a
+    small DINOv2 tower with, for image→3D, a small CLIP vision tower and
+    an ``'image-pixelart'`` DiT (two heads of 32; the self-attention runs
+    over 48 latent and 5 DINO tokens), for multi-view→3D an
+    ``'mv-pixelart'`` DiT (RMSNorm, the four views' 20 DINO tokens in the
+    cross-attention), with the 10-step flow-matching ODE and CFG 4.0,
+    card against CPU, plain and fused-attention with a mesh."""
+    import torch
+    from ln3diff_tpu_torch.conditioning.clip import CLIPVisionConfig
+    from ln3diff_tpu_torch.models.dit import DiTConfig
+    from ln3diff_tpu_torch.models.vit import vit_registry
+    from ln3diff_tpu_torch.pipeline import (SamplerSpec, build_i23d_pipeline,
+                                            build_mv23d_pipeline)
+
+    f32 = torch.float32
+    images = torch.rand((4, 28, 28, 3),
+                        generator=torch.Generator().manual_seed(4)) * 2 - 1
+    families = {
+        'i23d': (build_i23d_pipeline, images[:1], dict(
+            variant='image-pixelart', context_dim=64, pooled_vector_dim=64,
+            dino_dim=64, t2i_final=True), dict(vision_cfg=CLIPVisionConfig(
+                image_size=28, hidden_size=64, num_layers=2, num_heads=2,
+                intermediate_size=128))),
+        'mv23d': (build_mv23d_pipeline, images, dict(
+            variant='mv-pixelart', context_dim=64), {})}
+    res = {}
+    for family, (build, inputs, den_kw, tower_kw) in families.items():
+        for variant, fused in (('plain', False),
+                               ('fused_attention_mesh', True)):
+            kw = dict(
+                _small_vae_kw(), **tower_kw,
+                den_cfg=DiTConfig(input_size=8, hidden_size=64, depth=2,
+                                  num_heads=2, exact_gelu=False,
+                                  fused_attention=fused, dtype=f32,
+                                  **den_kw),
+                dino_cfg=vit_registry('dinov2-s/14', img_size=28,
+                                      embed_dim=64, depth=2, num_heads=2,
+                                      dtype=f32),
+                sampler=SamplerSpec(kind='flow_matching', num_steps=10,
+                                    cfg_scale=4.0, latent_shape=(8, 8, 12)))
+            res[f'{family}_{variant}'] = _small_card_vs_cpu(build, kw, inputs, fused,
+                                          f'{family} {variant}')
     return res
 
 
@@ -374,19 +448,24 @@ def host_us(fn, calls=20, repeats=5):
 def attention_check():
     """fused_attention against attention_reference on the card: the DiT's
     self-attention (q, k, v read in place from one (2, 768, 3·1024) qkv
-    projection, bf16), a ragged L, d = 32 (the small model's head), a long
-    L = 2048 (the K/V ring streams far past shared memory) and f32
-    operands; each with the kernel's, the plain version's and
+    projection, bf16), the image→3D DiT's self-attention over its 768
+    latent and 257 DINO tokens (L = 1025: the last query tile holds one
+    row; q and k RMS-normalised into fresh tensors, v read in place), a
+    ragged L, d = 32 (the small model's head), a long L = 2048 (the K/V
+    ring streams far past shared memory) and f32 operands; each with the
+    kernel's, the plain version's and
     scaled_dot_product_attention's times on the same inputs (CUDA events
     around one call, ``ms``, and the profiler's device time, ``device_ms``),
     and the host time per call of the kernel's wrapper and of the
     attention the DiT runs without the switch (``dot_product_attention``)."""
     import torch
     import torch.nn.functional as F
-    from ln3diff_tpu_torch.models.layers import dot_product_attention
+    from ln3diff_tpu_torch.models.layers import (RMSNorm,
+                                                 dot_product_attention)
     from ln3diff_tpu_torch.ops.fused_attention import (attention_reference,
                                                        fused_attention)
     cases = [('dit_self_attention', 2, 768, 16, 64, torch.bfloat16),
+             ('i23d_self_attention', 2, 1025, 16, 64, torch.bfloat16),
              ('ragged_L77', 2, 77, 16, 64, torch.bfloat16),
              ('head_dim_32', 2, 192, 2, 32, torch.bfloat16),
              ('long_L2048', 2, 2048, 16, 64, torch.bfloat16),
@@ -397,6 +476,11 @@ def attention_check():
         qkv = torch.randn((B, L, 3 * H * d), generator=g,
                           device='cuda').to(dt)
         q, k, v = (t.reshape(B, L, H, d) for t in qkv.chunk(3, dim=-1))
+        if name.startswith('i23d'):
+            # the DiT's qk_norm: q and k as fresh (B, L, H, d) tensors
+            norm = RMSNorm(d).to('cuda', dt)
+            with torch.no_grad():
+                q, k = norm(q), norm(k)
         got = fused_attention(q, k, v)
         torch.cuda.synchronize()
         want = attention_reference(q, k, v)
@@ -1140,23 +1224,42 @@ def fused_denoiser(denoiser):
 
 
 def serving_pipeline(modules, prompt):
-    """The serving call at full width: ``__call__`` with a ``mesh_path``
-    and the fused-attention DiT-L/2 in ``modules['denoiser']``.  The call
-    runs twice from the same noise: once as a user runs it (its wall
-    time, ``call_seconds``), then with every stage under a synchronising
-    timer, so the seconds by phase add up without the overlap of march
-    and orbit; launches are counted per phase in the second run."""
-    import torch
-    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
-                                                       FusedQKVAttention)
-    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    """The text→3D serving call at full width (``_serving_call``) with the
+    fused-attention DiT-L/2 in ``modules['denoiser']``."""
     from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
-    from ln3diff_tpu_torch.render import mesh
-
     den_cfg = modules['denoiser'].cfg
     check(den_cfg.fused_attention, 'the serving denoiser is not fused')
     pipe, encode, _ = build_t23d_pipeline('cuda', den_cfg=den_cfg,
                                           modules=modules)
+    return _serving_call(pipe, encode, prompt, 'text_encode')
+
+
+def image_pipeline(build, modules, inputs):
+    """The image→3D or multi-view→3D call at full width
+    (``_serving_call``): ``build`` is ``build_i23d_pipeline`` or
+    ``build_mv23d_pipeline``, the denoiser in ``modules`` has plain or
+    fused attention, ``inputs`` are the image or the views."""
+    pipe, encode, _ = build('cuda', den_cfg=modules['denoiser'].cfg,
+                            modules=modules)
+    return _serving_call(pipe, encode, inputs, 'image_encode')
+
+
+def _serving_call(pipe, encode, inputs, encode_key):
+    """A serving call at full width: ``__call__`` with a ``mesh_path`` on
+    the conditioning ``encode(inputs)``.  The call runs twice from the
+    same noise: once as a user runs it (its wall time, ``call_seconds``),
+    then with every stage under a synchronising timer, so the seconds by
+    phase (``encode_key`` for the conditioning) add up without the
+    overlap of march and orbit; launches are counted per phase in the
+    second run, kernel 3 once per block and step with fused attention and
+    never without."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
+                                                       FusedQKVAttention)
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render import mesh
+
+    den_cfg = pipe.denoiser_fn.cfg
 
     def call(path):
         return pipe(cond, uncond, batch=1, num_frames=24, mesh_path=path,
@@ -1164,7 +1267,7 @@ def serving_pipeline(modules, prompt):
                     render_resolution=192,
                     generator=torch.Generator(device='cuda').manual_seed(1))
 
-    cond, uncond = encode(prompt)
+    cond, uncond = encode(inputs)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1188,7 +1291,7 @@ def serving_pipeline(modules, prompt):
             return out
         return run
 
-    encode = timed('text_encode', encode)
+    encode = timed(encode_key, encode)
     pipe.denoiser_fn = timed('dit_sample', pipe.denoiser_fn)
     pipe.decode_fn = timed('vae_decode', pipe.decode_fn)
     pipe.render_fn = timed('render', pipe.render_fn)
@@ -1200,7 +1303,7 @@ def serving_pipeline(modules, prompt):
     for n, key in stages.items():
         setattr(mesh, n, timed(key, originals[n]))
     try:
-        cond, uncond = encode(prompt)
+        cond, uncond = encode(inputs)
         FusedOSG.launches = FusedAttention.launches = 0
         FusedQKVAttention.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1238,7 +1341,8 @@ def serving_pipeline(modules, prompt):
           f'OBJ parses to {nv} vertices / {nf} faces, the call returned '
           f'{len(verts)} / {len(faces)}')
     check(qkv_launches == 0, 'the serving call launched kernel 4')
-    want_attn = den_cfg.depth * pipe.spec.num_steps
+    want_attn = (den_cfg.depth * pipe.spec.num_steps
+                 if den_cfg.fused_attention else 0)
     check(attn_launches == want_attn, f'fused_attention launched '
           f'{attn_launches} times, expected {want_attn}')
     check(osg['render'] > 0 and osg['sigma_query'] > 0,
@@ -1267,9 +1371,11 @@ def serving_pipeline(modules, prompt):
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
 
-def dit_profile(denoisers, cond, uncond, steps=10):
-    """Where a DDIM step's time goes, for each DiT-L/2 denoiser: the host
-    wall time of one CFG call (batch 2, no profiler, synchronised at the
+def dit_profile(denoisers, cond, uncond, steps=10, t_value=500):
+    """Where a sampler step's time goes, for each denoiser (at time
+    ``t_value``: a DDIM step index, or a flow-matching time in [0, 1)):
+    the host wall time of one CFG call (batch 2, no profiler, synchronised
+    at the
     end of ``steps`` calls, the two denoisers timed in turns and each
     one's two runs averaged), the device time of its kernels under
     torch.profiler (CUDA activity only), their ratio (the device's busy
@@ -1278,9 +1384,8 @@ def dit_profile(denoisers, cond, uncond, steps=10):
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device='cuda').manual_seed(5)
     x = torch.randn((2, 32, 32, 12), generator=g, device='cuda')
-    t = torch.full((2,), 500, device='cuda')
-    ctx = {'crossattn': torch.cat([cond['crossattn'],
-                                   uncond['crossattn']])}
+    t = torch.full((2,), t_value, device='cuda')
+    ctx = {k: torch.cat([cond[k], uncond[k]]) for k in cond}
     names = list(denoisers)
     walls = {name: [] for name in names}
     with torch.no_grad():
@@ -1319,6 +1424,54 @@ def dit_profile(denoisers, cond, uncond, steps=10):
                               calls_per_step=e.count / steps)
                          for e in top])
     return res
+
+
+def image_families():
+    """The image→3D and multi-view→3D serving calls at full width, each
+    family's models built once (random weights, seed 0) and freed before
+    the next family's: the call with plain attention (as ``bench.py``
+    runs it) and with ``fused_attention=True``, then one flow-matching
+    step of both denoisers under the profiler.  The inputs are drawn in
+    [-1, 1] from a seeded ``torch.Generator``: one 224² image for i23d,
+    four 224² views for mv23d."""
+    import torch
+    from ln3diff_tpu_torch.pipeline import (build_i23d_pipeline,
+                                            build_mv23d_pipeline)
+    results = {}
+    for family, build, n_images in (('i23d', build_i23d_pipeline, 1),
+                                    ('mv23d', build_mv23d_pipeline, 4)):
+        t0 = time.perf_counter()
+        _, encode, modules = build('cuda', seed=0)
+        g = torch.Generator(device='cuda').manual_seed(6)
+        inputs = torch.rand((n_images, 224, 224, 3), generator=g,
+                            device='cuda') * 2 - 1
+        cond, uncond = encode(inputs)
+        phase_done(f'{family}_pipeline_build', t0, weights=(
+            'random (torch.Generator seed 0); ' + (
+                'CLIP ViT-L/14 vision f32, DINOv2-B/14 bf16, DiT-I23D-L/2'
+                if family == 'i23d' else 'DINOv2-B/14 bf16 over 4 views, '
+                'DiT-PixArt-MV-L/2') + ' bf16 tanh-GELU, DiT2-L/2 VAE '
+            'decoder bf16; flow-matching Euler 250 steps, cfg 4.0, '
+            '24 x 192^2 orbit, 64+64 samples, bf16 planes, 192^3 sigma '
+            'grid, mesh'),
+            context={k: list(v.shape) for k, v in cond.items()})
+        res = {}
+        t0 = time.perf_counter()
+        res['plain_attention'] = image_pipeline(build, modules, inputs)
+        plain_denoiser = modules['denoiser']
+        fused_modules = dict(modules,
+                             denoiser=fused_denoiser(plain_denoiser))
+        res['fused_attention'] = image_pipeline(build, fused_modules, inputs)
+        phase_done(f'{family}_pipeline', t0, **res)
+        t0 = time.perf_counter()
+        profile = dit_profile({'plain_attention': plain_denoiser,
+                               'fused_attention': fused_modules['denoiser']},
+                              cond, uncond, t_value=0.5)
+        phase_done(f'{family}_dit_profile', t0, **profile)
+        results[family] = res
+        del modules, fused_modules, plain_denoiser, encode, cond, uncond
+        torch.cuda.empty_cache()
+    return results
 
 
 def main():
@@ -1493,13 +1646,32 @@ def main():
     chain = qkv_attention_chain()
     phase_done('qkv_attention_chain', t0, **chain)
 
+    # 11. the image→3D path: a small model card vs CPU
+    t0 = time.perf_counter()
+    small_i23d = small_reference_i23d()
+    phase_done('small_reference_i23d', t0, **small_i23d)
+
+    # 12. the image→3D and multi-view→3D calls at full width, random
+    # weights, plain and fused attention; an FM step of each denoiser
+    image_paths = image_families()
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     qkv_main = qkv_checks[0]
+    attn_i23d = attn_checks[1]
+    osg_by_path = dict(t23d_serving=sum(serving['fused_osg_launches']
+                                        .values()))
+    attn_by_path = dict(t23d_serving=serving['fused_attention_launches'])
+    for family, res in image_paths.items():
+        for attn in ('plain_attention', 'fused_attention'):
+            key = f'{family}_{attn}'
+            osg_by_path[key] = sum(res[attn]['fused_osg_launches'].values())
+            attn_by_path[key] = res[attn]['fused_attention_launches']
     emit({'kernels': [
         dict(name='fused_osg', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',
              replaces='ln3diff_tpu/ops/fused_render.py:98',
              launches=sum(serving['fused_osg_launches'].values()),
+             launches_by_path=osg_by_path,
              max_abs_err=max(max(c['max_abs_err_rgb'],
                                  c['max_abs_err_sigma']) for c in checks),
              ms=osg_main['ms'], device_ms=osg_main['device_ms'],
@@ -1510,11 +1682,16 @@ def main():
              source='ln3diff_tpu_torch/ops/csrc/fused_attention.cu',
              replaces='ln3diff_tpu/ops/fused_attention.py:39',
              launches=serving['fused_attention_launches'],
+             launches_by_path=attn_by_path,
              max_abs_err=max(c['max_abs_err'] for c in attn_checks),
              ms=attn_main['ms'], device_ms=attn_main['device_ms'],
              plain_ms=attn_main['plain_ms'],
              bound_ms=attn_main['bound_ms'], bound_by=attn_main['bound_by'],
-             library_ms=attn_main['library_ms']),
+             library_ms=attn_main['library_ms'],
+             at_i23d_shape={k: attn_i23d[k] for k in (
+                 'shape', 'ms', 'device_ms', 'host_us', 'plain_ms',
+                 'bound_ms', 'bound_by', 'library_ms',
+                 'library_device_ms')}),
         dict(name='fused_osg_bwd', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg_bwd.cu',
              replaces='ln3diff_tpu/ops/fused_render.py:219',

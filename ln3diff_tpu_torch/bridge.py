@@ -2,7 +2,7 @@
 
 The inverse of the per-layer rules of
 ``ln3diff_tpu/conditioning/convert.py:31-55``, for the modules of the
-text→3D path.  Input: the JAX package's params as nested dicts of numpy
+text→3D, image→3D and multi-view→3D paths.  Input: the JAX package's params as nested dicts of numpy
 arrays (``variables['params']`` or the whole ``variables``).  The port's
 modules keep the JAX modules' names, so each leaf maps by its path:
 
@@ -10,11 +10,14 @@ modules keep the JAX modules' names, so each leaf maps by its path:
   its scaling stays a runtime scale, as in JAX);
 * Conv ``kernel`` HWIO → OIHW, grouped convs included (Linen's
   ``(kh, kw, in/groups, out)`` becomes torch's ``(out, in/groups, kh, kw)``);
-* LayerNorm / GroupNorm ``scale`` → ``weight``; Embed ``embedding`` →
-  ``weight``; ``bias`` and free parameters keep their names;
+* LayerNorm / GroupNorm / RMSNorm ``scale`` → ``weight``; Embed
+  ``embedding`` → ``weight``; ``bias`` and free parameters (the DiT's
+  ``scale_shift_table``s, the ViT's ``gamma1``/``gamma2``) keep their
+  names;
 * ``nn.scan``-stacked trunks (leading depth axis) → one module per block:
   ``blocks/block/…`` → ``blocks.{i}.…`` for ``DiT_TriLatent`` and
-  ``dit2/blocks/{within,across}/…`` → ``dit2.blocks.{i}.{within,across}…``;
+  ``dit2/blocks/{within,across}/…`` → ``dit2.blocks.{i}.{within,across}…``
+  and ``blocks/block/…`` → ``blocks.{i}.…`` for ``VisionTransformer``;
 * CLIP's ``layers_{i}`` → ``layers.{i}``.
 
 The DiT's sin-cos ``pos_embed`` lives in the ``constants`` collection;
@@ -76,8 +79,13 @@ def _convert(params: Mapping, stacked: dict) -> dict[str, torch.Tensor]:
 
 
 def dit_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """``DiT_TriLatent`` (text variant) params → the port's state dict."""
+    """``DiT_TriLatent`` params (every variant) → the port's state dict.
+    ``VisionTransformer`` keeps its blocks in the same ``nn.scan`` layout,
+    so ``vit_state_dict`` is this function."""
     return _convert(params, {('blocks', 'block'): 'blocks'})
+
+
+vit_state_dict = dit_state_dict
 
 
 def vae_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
@@ -102,3 +110,7 @@ def clip_text_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     for key, t in _convert(params, {}).items():
         out[re.sub(r'^layers_(\d+)\.', r'layers.\1.', key)] = t
     return out
+
+
+# CLIPVisionModel's layers are named as the text tower's
+clip_vision_state_dict = clip_text_state_dict

@@ -1,12 +1,14 @@
-"""CLIP text tower (HF ``openai/clip-vit-large-patch14`` text model) and
+"""CLIP text and vision towers (HF ``openai/clip-vit-large-patch14``) and
 the CLIP byte-level BPE tokenizer.
 
-Port of the text side of ``ln3diff_tpu/conditioning/clip.py``
-(``quick_gelu`` :28, ``CLIPTextConfig`` :33, ``CLIPMLP`` …
-``CLIPTextModel`` :56-136, ``bytes_to_unicode`` … ``default_tokenizer``
-:183-347): pre-LN transformer, quick-GELU, causal mask; returns
-``last_hidden_state`` (B, 77, 768) and the EOT-pooled feature.  The vision
-tower waits for the image→3D slice.
+Port of ``ln3diff_tpu/conditioning/clip.py`` (``quick_gelu`` :28,
+``CLIPTextConfig`` :33, ``CLIPVisionConfig`` :45, ``CLIPMLP`` …
+``CLIPTextModel`` :56-136, ``CLIPVisionModel`` :137, ``bytes_to_unicode``
+… ``default_tokenizer`` :183-347): pre-LN transformers with quick-GELU.
+The text tower is causal and returns ``last_hidden_state`` (B, 77, 768)
+and the EOT-pooled feature; the vision tower returns its tokens (B, 257,
+1024), the post-LayerNormed class token and, on request, every layer's
+tokens.
 """
 
 from __future__ import annotations
@@ -33,6 +35,16 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_length: int = 77
     intermediate_size: int = 3072
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
 
 
 class CLIPMLP(nn.Module):
@@ -104,6 +116,46 @@ class CLIPTextModel(nn.Module):
         eot = torch.argmax(input_ids, dim=-1)
         pooled = x[torch.arange(B, device=x.device), eot]
         return {'last_hidden_state': x, 'pooler_output': pooled}
+
+
+class CLIPVisionModel(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig()):
+        super().__init__()
+        self.cfg = cfg
+        D, p = cfg.hidden_size, cfg.patch_size
+        self.patch_embedding = nn.Conv2d(3, D, p, stride=p, bias=False)
+        self.class_embedding = nn.Parameter(torch.randn(D) * 0.02)
+        n_pos = (cfg.image_size // p)**2 + 1
+        self.position_embedding = nn.Parameter(torch.randn(n_pos, D) * 0.02)
+        self.pre_layrnorm = nn.LayerNorm(D, eps=1e-5)
+        self.layers = nn.ModuleList([
+            CLIPLayer(D, cfg.num_heads, cfg.intermediate_size)
+            for _ in range(cfg.num_layers)])
+        self.post_layernorm = nn.LayerNorm(D, eps=1e-5)
+
+    def forward(self, pixel_values: torch.Tensor,
+                output_hidden_states: bool = False) -> dict:
+        """pixel_values (B, H, W, 3) channels-last, CLIP-normalised →
+        ``tokens`` (B, 1 + L, D) after the last layer, ``pooler_output``
+        (B, D), the post-LayerNormed class token, and with
+        ``output_hidden_states`` the tuple of every layer's tokens."""
+        B = pixel_values.shape[0]
+        dtype = self.patch_embedding.weight.dtype
+        x = self.patch_embedding(pixel_values.to(dtype).permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)
+        cls = self.class_embedding.to(x.dtype).expand(B, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        x = x + self.position_embedding[None].to(x.dtype)
+        x = self.pre_layrnorm(x)
+        hidden = []
+        for layer in self.layers:
+            x = layer(x, causal=False)
+            if output_hidden_states:
+                hidden.append(x)
+        out = {'tokens': x, 'pooler_output': self.post_layernorm(x[:, 0])}
+        if output_hidden_states:
+            out['hidden_states'] = tuple(hidden)
+        return out
 
 
 # -- byte-level BPE tokenizer ----------------------------------------------

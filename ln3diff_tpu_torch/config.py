@@ -1,12 +1,12 @@
-"""The presets of the text→3D serving path and the VAE trainer, as plain
-dataclasses.
+"""The presets of the Objaverse serving paths and the VAE trainer, as
+plain dataclasses.
 
-The port's copy of three presets of ``ln3diff_tpu/config.py`` (that
-module imports JAX and every model): the Objaverse render options
-(``RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto']`` :35),
-the Objaverse VAE (``vae_preset('objaverse')`` :167-186, encoder fields
-included) and the text→3D denoiser (``denoiser_preset('t23d-dit-l2')``
-:250-252).
+The port's copy of the presets of ``ln3diff_tpu/config.py`` (that module
+imports JAX and every model) that those paths use: the Objaverse render
+options (``RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto']``
+:35), the Objaverse VAE (``vae_preset('objaverse')`` :167-186, encoder
+fields included) and the denoisers of the text→3D, image→3D and
+multi-view→3D checkpoints (``denoiser_preset`` :250-262).
 """
 
 from __future__ import annotations
@@ -45,8 +45,13 @@ def vae_preset(name: str = 'objaverse',
 
 
 def denoiser_preset(name: str, dtype=torch.bfloat16) -> DiTConfig:
-    """Stage-2 denoiser of the released Objaverse text→3D checkpoint."""
-    if name != 't23d-dit-l2':
-        raise KeyError(name)
-    return dit_registry('DiT-L/2', input_size=32, in_channels=4,
+    """Stage-2 denoisers of the released Objaverse checkpoints."""
+    registry_names = {
+        't23d-dit-l2': 'DiT-L/2',               # text→3D, DDPM
+        'i23d-pixart-l2': 'DiT-I23D-L/2',       # image→3D, flow matching
+        # multi-view→3D, flow matching: flattened multi-view DINO tokens
+        # through the cross-attention (sample_obajverse_mv23d_dit.sh:88)
+        'mv23d-dit-l2': 'DiT-PixArt-MV-L/2',
+    }
+    return dit_registry(registry_names[name], input_size=32, in_channels=4,
                         dtype=dtype)

@@ -1,0 +1,145 @@
+"""Flow-matching / stochastic-interpolant transport (SiT): the path plans
+and the ODE sampler.
+
+Port of ``ln3diff_tpu/diffusion/transport.py``: ``PathPlan`` :27 (linear,
+gvp and vp interpolants with their velocities and the velocity→score
+map), ``TransportSpec`` :80, ``Transport.sample_ode`` :120 (fixed-step
+Euler or Heun from noise at t = 0 to data at t = 1, or back with
+``reverse``) and ``create_transport`` :189.  The denoiser gets t as JAX
+sends it: a float in [0, 1], not scaled to 1000 steps.
+
+The JAX loop is one ``lax.scan``; here it is a Python loop of eager
+steps.  The training losses, ``sample_t`` and the SDE sampler are not
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+ModelFn = Callable[..., torch.Tensor]
+
+
+def _expand(t, x):
+    return t.reshape(t.shape + (1,) * (x.ndim - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class PathPlan:
+    """Interpolant x_t = α(t)·x1 + σ(t)·x0 with velocity u = α'·x1 + σ'·x0."""
+    kind: str = 'linear'          # 'linear' | 'gvp' | 'vp'
+    sigma_min: float = 0.1        # vp only
+    sigma_max: float = 20.0
+
+    def _vp_log_mean_coeff(self, t):
+        lmc = (-0.25 * (1 - t)**2 * (self.sigma_max - self.sigma_min)
+               - 0.5 * (1 - t) * self.sigma_min)
+        dlmc = (0.5 * (1 - t) * (self.sigma_max - self.sigma_min)
+                + 0.5 * self.sigma_min)
+        return lmc, dlmc
+
+    def alpha(self, t):
+        """(α(t), α'(t))."""
+        if self.kind == 'linear':
+            return t, torch.ones_like(t)
+        if self.kind == 'gvp':
+            return (torch.sin(t * math.pi / 2),
+                    math.pi / 2 * torch.cos(t * math.pi / 2))
+        lmc, dlmc = self._vp_log_mean_coeff(t)
+        a = torch.exp(lmc)
+        return a, a * dlmc
+
+    def sigma(self, t):
+        """(σ(t), σ'(t))."""
+        if self.kind == 'linear':
+            return 1 - t, -torch.ones_like(t)
+        if self.kind == 'gvp':
+            return (torch.cos(t * math.pi / 2),
+                    -math.pi / 2 * torch.sin(t * math.pi / 2))
+        lmc, dlmc = self._vp_log_mean_coeff(t)
+        p = 2 * lmc
+        s = torch.sqrt(1 - torch.exp(p))
+        ds = torch.exp(p) * (2 * dlmc) / (-2 * s)
+        return s, ds
+
+    def plan(self, t, x0, x1):
+        """(x_t, u_t) for noise x0, data x1 and per-sample t."""
+        te = _expand(t, x1)
+        a, da = self.alpha(te)
+        s, ds = self.sigma(te)
+        return a * x1 + s * x0, da * x1 + ds * x0
+
+    def score_from_velocity(self, velocity, x, t):
+        te = _expand(t, x)
+        a, da = self.alpha(te)
+        s, ds = self.sigma(te)
+        r = a / da
+        var = s**2 - r * ds * s
+        return (r * velocity - x) / var
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportSpec:
+    """The sampling half of JAX's ``TransportSpec``: the path and the ODE's
+    start offset.  Its training fields (``prediction``, ``t_sampling``,
+    ``train_eps``) come with the trainer that reads them; the port's ODE
+    takes the model's output as a velocity, as every released path does."""
+    path: str = 'linear'
+    sample_eps: float = 0.0
+
+
+class Transport:
+    """Functional transport object (reference ``Transport``)."""
+
+    def __init__(self, spec: TransportSpec = TransportSpec()):
+        self.spec = spec
+        self.path = PathPlan(kind=spec.path)
+
+    @torch.no_grad()
+    def sample_ode(self, model_fn: ModelFn, shape, num_steps: int = 250,
+                   method: str = 'euler', model_kwargs=None,
+                   reverse: bool = False, device=None,
+                   generator: Optional[torch.Generator] = None,
+                   x_init: Optional[torch.Tensor] = None):
+        """Fixed-step probability-flow ODE from noise (t = 0) to data
+        (t = 1), or from data to noise with ``reverse``.  The start point
+        is ``x_init`` when given (the tests feed JAX's draw), else a
+        standard normal draw from ``generator``."""
+        if method not in ('euler', 'heun'):
+            raise NotImplementedError(method)
+        model_kwargs = model_kwargs or {}
+        if x_init is None:
+            x = torch.randn(shape, generator=generator, device=device)
+        else:
+            x = x_init.to(device=device, dtype=torch.float32)
+        t0, t1 = self.spec.sample_eps, 1.0
+        if reverse:
+            t0, t1 = 1.0, self.spec.sample_eps
+        dt = (t1 - t0) / num_steps
+        # f32 times, as JAX's t0 + dt·arange
+        ts = t0 + dt * torch.arange(num_steps, dtype=torch.float32,
+                                    device=x.device)
+
+        def velocity(x, t_scalar):
+            t = t_scalar.expand(shape[0])
+            return model_fn(x, t, **model_kwargs)
+
+        for t_scalar in ts:
+            v1 = velocity(x, t_scalar)
+            if method == 'euler':
+                x = x + dt * v1
+            else:
+                v2 = velocity(x + dt * v1, t_scalar + dt)
+                x = x + 0.5 * dt * (v1 + v2)
+        return x
+
+
+def create_transport(path_type: str = 'Linear') -> Transport:
+    """Factory mirroring reference ``transport/__init__.py:3-71`` for
+    sampling: its ``prediction`` and ``snr_type`` arguments set training
+    fields and come with the trainer."""
+    return Transport(TransportSpec(path=path_type.lower()))

@@ -1,14 +1,20 @@
 """DiT denoiser (stage 2) and the VAE's DiT2 decoder backbone.
 
-Port of ``ln3diff_tpu/models/dit.py`` for the block variants on the
-text→3D path: plain adaLN-zero (``'adaln'``, DiT2) and adaLN with text
-cross-attention (``'text'``, DiT-L/2).  Attention is the plain
-matmul-softmax-matmul of ``jax.nn.dot_product_attention`` (the JAX
-default); ``DiTConfig.fused_attention=True`` (the serving switch) sends the
+Port of ``ln3diff_tpu/models/dit.py`` with every block variant of the
+released Objaverse families: plain adaLN-zero (``'adaln'``, DiT2), adaLN
+with text cross-attention (``'text'``, DiT-L/2 of text→3D) and the
+PixArt variants with one shared adaLN (``'pixelart-text'``,
+``'image-pixelart'`` of image→3D, ``'image-pixelart-noclip'`` and
+``'mv-pixelart'`` of multi-view→3D): a ``scale_shift_table`` per block,
+RMSNorm or parameter-free LayerNorm, RMSNorm of q and k in the
+self-attention, DINO tokens concatenated into the self-attention, the
+pooled-vector embedding ``cap_norm``/``cap_proj`` and the T2I final
+layer.  Attention is the plain matmul-softmax-matmul of
+``jax.nn.dot_product_attention`` (the JAX default);
+``DiTConfig.fused_attention=True`` (the serving switch) sends the
 denoiser's self-attention through the fused kernel
 (``ops/fused_attention.py``), as the JAX package's ``Attention.fused``
-does.  The PixArt / image-conditioned variants and the int8 serving knob
-are not ported.
+does.  The int8 serving knob, ``learn_sigma`` and remat are not ported.
 
 Layout: latents are channels-last ``(B, H, W, C)`` with the channel axis
 decomposed as ``(c, plane)``, plane fastest, as in the JAX package.  The
@@ -31,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_attention import sdpa_auto
-from .layers import dot_product_attention, timestep_embedding
+from .layers import RMSNorm, dot_product_attention, timestep_embedding
 
 
 # ---------------------------------------------------------------------------
@@ -74,25 +80,29 @@ def _layer_norm(x):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention.  ``fused=True`` runs the fused kernel on
-    q, k and v read in place from the one qkv projection."""
+    """Multi-head self-attention.  ``qk_norm`` RMS-normalises q and k over
+    the head dim (eps 1e-5).  ``fused=True`` runs the fused kernel on q, k
+    and v: v (and q, k without ``qk_norm``) read in place from the one
+    qkv projection."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 fused: bool = False):
+                 qk_norm: bool = False, fused: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.fused = fused
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        hd = dim // num_heads
+        self.q_norm = RMSNorm(hd) if qk_norm else None
+        self.k_norm = RMSNorm(hd) if qk_norm else None
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
         B, L, D = x.shape
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        hd = D // self.num_heads
-        out = sdpa_auto(q.reshape(B, L, self.num_heads, hd),
-                        k.reshape(B, L, self.num_heads, hd),
-                        v.reshape(B, L, self.num_heads, hd),
-                        use_fused=self.fused)
+        q, k, v = (t.reshape(B, L, self.num_heads, D // self.num_heads)
+                   for t in self.qkv(x).chunk(3, dim=-1))
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        out = sdpa_auto(q, k, v, use_fused=self.fused)
         return self.proj(out.reshape(B, L, D))
 
 
@@ -163,56 +173,110 @@ class CaptionEmbedder(nn.Module):
         return self.fc2(F.gelu(self.fc1(caption), approximate='tanh'))
 
 
+PIXART_VARIANTS = ('pixelart-text', 'image-pixelart', 'image-pixelart-noclip',
+                   'mv-pixelart')
+CROSS_ATTN_VARIANTS = ('text', 'pixelart-text', 'image-pixelart',
+                       'mv-pixelart')
+
+
 class DiTBlock(nn.Module):
-    """adaLN-zero block; ``variant='text'`` adds text cross-attention.
-    ``token_modulation=True`` (DiT2) takes per-token conditioning
-    ``(B, L, D)`` instead of pooled ``(B, D)``."""
+    """The DiT block of every variant (``ln3diff_tpu/models/dit.py:193``):
+
+    * ``'adaln'``: adaLN-zero; ``'text'`` adds text cross-attention.
+      ``token_modulation=True`` (DiT2) takes per-token conditioning
+      ``(B, L, D)`` instead of pooled ``(B, D)``.
+    * the PixArt variants take ``c``, the shared adaLN output ``(B, 6D)``,
+      and add their own ``scale_shift_table`` (6, D).  ``'pixelart-text'``
+      and ``'mv-pixelart'`` use RMSNorm for ``norm1``/``norm2``, the others
+      the parameter-free LayerNorm; every image variant and
+      ``'mv-pixelart'`` RMS-normalise q and k in the self-attention;
+      ``'image-*'`` concatenate the DINO tokens into the self-attention
+      and drop them after it; ``'pixelart-text'`` RMS-normalises the
+      context (``attention_y_norm``)."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int = 4,
                  variant: str = 'adaln', context_dim: Optional[int] = None,
                  token_modulation: bool = False, exact_gelu: bool = True,
                  fused_attention: bool = False):
         super().__init__()
-        if variant not in ('adaln', 'text'):
+        if variant not in ('adaln',) + CROSS_ATTN_VARIANTS + PIXART_VARIANTS:
             raise NotImplementedError(f'DiT block variant {variant!r}')
         self.variant = variant
+        self.pixelart = variant in PIXART_VARIANTS
         self.token_modulation = token_modulation
-        self.adaLN_modulation = nn.Linear(hidden_size, 6 * hidden_size)
-        self.attn = Attention(hidden_size, num_heads, fused=fused_attention)
-        if variant == 'text':
-            self.cross_attn = CrossAttention(
-                hidden_size, num_heads, context_dim or hidden_size)
-        self.mlp = GeluMLP(hidden_size, mlp_ratio, exact_gelu=exact_gelu)
+        D = hidden_size
+        if self.pixelart:
+            self.scale_shift_table = nn.Parameter(torch.randn(6, D) / D**0.5)
+        else:
+            self.adaLN_modulation = nn.Linear(D, 6 * D)
+        if variant in ('pixelart-text', 'mv-pixelart'):
+            self.norm1, self.norm2 = RMSNorm(D), RMSNorm(D)
+        else:
+            self.norm1 = self.norm2 = _layer_norm
+        qk_norm = variant.startswith('image-') or variant == 'mv-pixelart'
+        self.attn = Attention(D, num_heads, qk_norm=qk_norm,
+                              fused=fused_attention)
+        if variant == 'pixelart-text':
+            self.attention_y_norm = RMSNorm(context_dim or D)
+        if variant in CROSS_ATTN_VARIANTS:
+            self.cross_attn = CrossAttention(D, num_heads, context_dim or D)
+        self.mlp = GeluMLP(D, mlp_ratio, exact_gelu=exact_gelu)
 
-    def forward(self, x, c, context=None):
-        mod = self.adaLN_modulation(F.silu(c))
-        if not self.token_modulation:
-            mod = mod[:, None]
-        (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
-         gate_mlp) = mod.chunk(6, dim=-1)
-        h = t2i_modulate(_layer_norm(x), shift_msa, scale_msa)
-        x = x + gate_msa * self.attn(h)
-        if self.variant == 'text':
+    def forward(self, x, c, context=None, dino_tokens=None):
+        if self.pixelart:
+            B, D = c.shape[0], self.scale_shift_table.shape[1]
+            mods = (self.scale_shift_table[None].to(c.dtype)
+                    + c.reshape(B, 6, D)).chunk(6, dim=1)
+        else:
+            mod = self.adaLN_modulation(F.silu(c))
+            if not self.token_modulation:
+                mod = mod[:, None]
+            mods = mod.chunk(6, dim=-1)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
+        h = t2i_modulate(self.norm1(x), shift_msa, scale_msa)
+        if self.variant.startswith('image-') and dino_tokens is not None:
+            h = torch.cat([h, dino_tokens.to(h.dtype)], dim=1)
+            h = self.attn(h)[:, :x.shape[1]]
+        else:
+            h = self.attn(h)
+        x = x + gate_msa * h
+        if self.variant in CROSS_ATTN_VARIANTS:
             if context is None:
-                raise ValueError("the 'text' DiT block needs a context")
+                raise ValueError(f'the {self.variant!r} DiT block needs a '
+                                 f'context')
+            if self.variant == 'pixelart-text':
+                context = self.attention_y_norm(context)
             x = x + self.cross_attn(x, context)
-        h = t2i_modulate(_layer_norm(x), shift_mlp, scale_mlp)
+        h = t2i_modulate(self.norm2(x), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h)
 
 
 class FinalLayer(nn.Module):
-    def __init__(self, hidden_size: int, out_dim: int,
+    """adaLN final projection; ``t2i=True`` uses the PixArt (2, D)
+    ``scale_shift_table`` added to ``c`` (the timestep embedding) in place
+    of the adaLN projection."""
+
+    def __init__(self, hidden_size: int, out_dim: int, t2i: bool = False,
                  token_modulation: bool = False):
         super().__init__()
+        self.t2i = t2i
         self.token_modulation = token_modulation
-        self.adaLN_modulation = nn.Linear(hidden_size, 2 * hidden_size)
+        if t2i:
+            self.scale_shift_table = nn.Parameter(
+                torch.randn(2, hidden_size) / hidden_size**0.5)
+        else:
+            self.adaLN_modulation = nn.Linear(hidden_size, 2 * hidden_size)
         self.linear = nn.Linear(hidden_size, out_dim)
 
     def forward(self, x, c):
-        mod = self.adaLN_modulation(F.silu(c))
-        if not self.token_modulation:
-            mod = mod[:, None]
-        shift, scale = mod.chunk(2, dim=-1)
+        if self.t2i:
+            shift, scale = (self.scale_shift_table[None].to(c.dtype)
+                            + c[:, None]).chunk(2, dim=1)
+        else:
+            mod = self.adaLN_modulation(F.silu(c))
+            if not self.token_modulation:
+                mod = mod[:, None]
+            shift, scale = mod.chunk(2, dim=-1)
         return self.linear(t2i_modulate(_layer_norm(x), shift, scale))
 
 
@@ -245,7 +309,10 @@ class DiTConfig:
     mlp_ratio: int = 4
     plane_n: int = 3
     context_dim: int = 768
-    variant: str = 'text'
+    dino_dim: int = 768           # raw DINO token width (image variants)
+    variant: str = 'text'         # DiTBlock variant
+    pooled_vector_dim: int = 0    # > 0: add cap_proj(cap_norm(vector)) to t
+    t2i_final: bool = False
     # serving mode: tanh-approximate MLP GELU
     exact_gelu: bool = True
     # serving mode: self-attention through the fused kernel
@@ -254,32 +321,70 @@ class DiTConfig:
 
 
 class DiT_TriLatent(nn.Module):
-    """Triplane DiT denoiser (reference ``dit/dit_trilatent.py``).
+    """Triplane DiT denoiser (reference ``dit/dit_trilatent.py``,
+    ``dit/dit_i23d.py``).
 
     ``x``: ``(B, H, W, plane_n*in_channels)`` channels-last, (c, plane)
-    channel layout; ``context``: ``{'crossattn': (B, L, context_dim)}``.
-    Returns the prediction in the same layout, f32.
+    channel layout; ``context``: a dict with ``'crossattn'`` (B, L,
+    context_dim) — for ``'mv-pixelart'`` ``'concat'`` or ``'crossattn'``,
+    (B, V, L, C) flattened to (B, V·L, C) — ``'vector'`` (B,
+    pooled_vector_dim) when ``pooled_vector_dim`` > 0, and ``'dino'`` (B,
+    L2, dino_dim) for the image variants.  Returns the prediction in x's
+    layout, f32.
     """
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        if cfg.variant != 'text':
+        if cfg.variant not in CROSS_ATTN_VARIANTS + PIXART_VARIANTS:
             raise NotImplementedError(f'DiT variant {cfg.variant!r}')
         self.cfg = cfg
         D = cfg.hidden_size
         self.t_embedder = TimestepEmbedder(D)
+        if cfg.pooled_vector_dim:
+            self.cap_norm = nn.LayerNorm(cfg.pooled_vector_dim, eps=1e-6)
+            self.cap_proj = nn.Linear(cfg.pooled_vector_dim, D)
         self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
-        self.clip_text_proj = CaptionEmbedder(D, context_dim=cfg.context_dim)
+        if cfg.variant == 'text':
+            self.clip_text_proj = CaptionEmbedder(
+                D, context_dim=cfg.context_dim)
+        if cfg.variant.startswith('image-'):
+            self.dino_proj = CaptionEmbedder(D, context_dim=cfg.dino_dim)
+        if cfg.variant in PIXART_VARIANTS:
+            self.adaLN_modulation = nn.Linear(D, 6 * D)
+        # the text variant's cross-attention reads the projected captions
+        block_ctx = D if cfg.variant == 'text' else cfg.context_dim
         self.blocks = nn.ModuleList([
             DiTBlock(D, cfg.num_heads, cfg.mlp_ratio, variant=cfg.variant,
-                     context_dim=D, exact_gelu=cfg.exact_gelu,
+                     context_dim=block_ctx, exact_gelu=cfg.exact_gelu,
                      fused_attention=cfg.fused_attention)
             for _ in range(cfg.depth)])
-        self.final_layer = FinalLayer(D, cfg.patch_size**2 * cfg.in_channels)
+        self.final_layer = FinalLayer(D, cfg.patch_size**2 * cfg.in_channels,
+                                      t2i=cfg.t2i_final)
         L = (cfg.input_size // cfg.patch_size)**2
         self.register_buffer('pos_embed', torch.from_numpy(
             get_2d_sincos_pos_embed(D, (cfg.plane_n, L))[None]),
             persistent=False)
+
+    def _context(self, context, dtype):
+        """(crossattn, dino) as the blocks take them."""
+        cfg = self.cfg
+        crossattn = context.get('crossattn')
+        dino = context.get('dino')
+        if cfg.variant == 'mv-pixelart':
+            # multi-view DINO features (B, V, L, C) → one cross-attention
+            # context (B, V·L, C), raw: the K/V projections embed them
+            crossattn = context.get('concat', crossattn)
+            if crossattn.ndim == 4:
+                crossattn = crossattn.reshape(crossattn.shape[0], -1,
+                                              crossattn.shape[-1])
+            crossattn = crossattn.to(dtype)
+        elif crossattn is not None and cfg.variant == 'text':
+            crossattn = self.clip_text_proj(crossattn.to(dtype))
+        elif crossattn is not None:
+            crossattn = crossattn.to(dtype)
+        if dino is not None and cfg.variant.startswith('image-'):
+            dino = self.dino_proj(dino.to(dtype))
+        return crossattn, dino
 
     def forward(self, x, timesteps, context):
         cfg = self.cfg
@@ -288,6 +393,8 @@ class DiT_TriLatent(nn.Module):
         dtype = self.x_embedder.proj.weight.dtype
 
         t = self.t_embedder(timesteps)
+        if cfg.pooled_vector_dim:
+            t = t + self.cap_proj(self.cap_norm(context['vector'].to(dtype)))
         # roll-out: fold planes into the batch for the patch conv
         x = x.reshape(B, H, W, cfg.in_channels, n).permute(0, 4, 1, 2, 3)
         x = x.reshape(B * n, H, W, cfg.in_channels)
@@ -296,9 +403,12 @@ class DiT_TriLatent(nn.Module):
         x = x.reshape(B, n * L, cfg.hidden_size)
         x = x + self.pos_embed.to(dtype)
 
-        crossattn = self.clip_text_proj(context['crossattn'].to(dtype))
+        crossattn, dino = self._context(context or {}, dtype)
+        # PixArt: one adaLN for all blocks
+        c = (self.adaLN_modulation(F.silu(t))
+             if cfg.variant in PIXART_VARIANTS else t)
         for block in self.blocks:
-            x = block(x, t, context=crossattn)
+            x = block(x, c, context=crossattn, dino_tokens=dino)
 
         x = self.final_layer(x, t)
         p = cfg.patch_size
@@ -309,13 +419,36 @@ class DiT_TriLatent(nn.Module):
 
 
 def dit_registry(name: str, **overrides) -> DiTConfig:
-    """Named configs of the reference registry
-    (``dit/dit_trilatent.py:320``); the port has the released text→3D one."""
+    """Named configs of the reference registries
+    (``dit/dit_trilatent.py:320``, ``dit/dit_i23d.py``): the released
+    text→3D, PixArt, image→3D and multi-view→3D ones."""
     presets = {
         'DiT-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
-                        num_heads=16),
+                        num_heads=16, variant='text'),
+        'DiT-PixelArt-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
+                                 num_heads=16, variant='pixelart-text',
+                                 pooled_vector_dim=768, t2i_final=True),
+        'DiT-PixelArt-B/2': dict(depth=12, hidden_size=768, patch_size=2,
+                                 num_heads=12, variant='pixelart-text',
+                                 pooled_vector_dim=768, t2i_final=True),
+        # i23d: CLIP-image spatial crossattn (1024) + DINO tokens
+        'DiT-I23D-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
+                             num_heads=16, variant='image-pixelart',
+                             context_dim=1024, pooled_vector_dim=768,
+                             t2i_final=True),
+        'DiT-I23D-B/2': dict(depth=12, hidden_size=768, patch_size=2,
+                             num_heads=12, variant='image-pixelart',
+                             context_dim=1024, pooled_vector_dim=768,
+                             t2i_final=True),
+        # mv23d: multi-view DINO tokens through the cross-attention
+        'DiT-PixArt-MV-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
+                                  num_heads=16, variant='mv-pixelart',
+                                  context_dim=768),
+        'DiT-PixArt-MV-B/2': dict(depth=12, hidden_size=768, patch_size=2,
+                                  num_heads=12, variant='mv-pixelart',
+                                  context_dim=768),
     }
-    kw = dict(presets[name], variant='text')
+    kw = dict(presets[name])
     kw.update(overrides)
     return DiTConfig(**kw)
 

@@ -2,8 +2,8 @@
 
 Port of ``ln3diff_tpu/models/layers.py`` (``EqualDense``,
 ``timestep_embedding``), plus the attention core that the JAX package
-takes from ``jax.nn.dot_product_attention`` and a seeded random init for
-runs without released weights.
+takes from ``jax.nn.dot_product_attention``, the Linen ``RMSNorm`` and a
+seeded random init for runs without released weights.
 """
 
 from __future__ import annotations
@@ -50,6 +50,21 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+class RMSNorm(nn.Module):
+    """Linen's ``RMSNorm`` over the last axis: x·(rsqrt(mean(x²) + eps)·w)
+    with the statistics and the product in f32, cast back to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mul = torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (xf * (mul * self.weight.float())).to(x.dtype)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           is_causal: bool = False) -> torch.Tensor:
     """softmax(q kᵀ/√d) v on ``(B, L, H, d)`` operands, with the numerics
@@ -85,7 +100,7 @@ def random_init_(module: nn.Module,
     with torch.no_grad():
         for mod in module.modules():
             for name, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+                if isinstance(mod, (nn.GroupNorm, nn.LayerNorm, RMSNorm)):
                     p.fill_(1.0 if name == 'weight' else 0.0)
                 elif name == 'bias':
                     p.zero_()

@@ -1,4 +1,4 @@
-"""End-to-end text→3D sampling pipeline.
+"""End-to-end text/image/multi-view→3D sampling pipeline.
 
 Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
 ``TextTo3DPipeline`` :55, ``_sample_impl`` / ``_make_cfg_fn`` /
@@ -6,20 +6,24 @@ Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
 ``dispatch_mesh_sigma`` :315, ``export_mesh`` :347, ``__call__`` :363,
 ``save_video_frames`` :447):
 
-  1. (cond, uncond) text context;
-  2. DDIM over ``(B, 32, 32, 12)`` latents with doubled-batch
-     classifier-free guidance (cfg 1.0 runs the conditional half only);
+  1. (cond, uncond) context from the family's conditioning towers;
+  2. the flow-matching ODE (``diffusion/transport.py``) or DDIM over
+     ``(B, 32, 32, 12)`` latents with doubled-batch classifier-free
+     guidance (cfg 1.0 runs the conditional half only);
   3. latent × triplane_scaling_divider → VAE decode → planes;
   4. orbit render, frames folded into the batch in memory-budgeted chunks;
   5. with a ``mesh_path``: σ-grid query, marching tetrahedra on the host,
      per-vertex colours and the OBJ/PLY export, interleaved with the orbit.
 
-The JAX version's explicit ``cameras`` and its multi-chip sharding are not
+The JAX version's explicit ``cameras``, flat-ray renderer, LSGM mixing
+logit, PLMS and DPM-Solver samplers and multi-chip sharding are not
 ported.
 
 The pipeline takes callables over tensors (the JAX version takes
-param-explicit ones); :func:`build_t23d_pipeline` assembles the released
-Objaverse text→3D model from the port's modules.
+param-explicit ones); :func:`build_t23d_pipeline`,
+:func:`build_i23d_pipeline` and :func:`build_mv23d_pipeline` assemble the
+released Objaverse text→3D, image→3D and multi-view→3D models from the
+port's modules, as ``bench.py``'s families configure them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .diffusion.transport import Transport
 from .render.camera import orbit_cameras
 
 
@@ -50,9 +55,11 @@ def frames_to_uint8(v: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class SamplerSpec:
-    """DDIM sampling (the JAX ``kind='ddim'``; the port has no other
-    sampler yet) over ``num_steps`` respaced steps of the 1000-step
-    schedule."""
+    """``kind``: ``'flow_matching'`` (the JAX default: ``num_steps`` Euler
+    steps of the transport's ODE) or ``'ddim'`` (``num_steps`` respaced
+    steps of the 1000-step schedule).  JAX's ``'plms'`` and ``'dpm'`` are
+    not ported and raise."""
+    kind: str = 'flow_matching'
     num_steps: int = 250
     cfg_scale: float = 6.5
     triplane_scaling_divider: float = 0.96806
@@ -70,6 +77,7 @@ class TextTo3DPipeline:
 
     def __init__(self, denoiser_fn, decode_fn, render_fn, point_decoder_fn,
                  sampler: SamplerSpec = SamplerSpec(), diffusion=None,
+                 transport: Optional[Transport] = None,
                  render_dtype: Optional[torch.dtype] = None,
                  device='cuda'):
         self.denoiser_fn = denoiser_fn
@@ -78,6 +86,7 @@ class TextTo3DPipeline:
         self.point_decoder_fn = point_decoder_fn
         self.spec = sampler
         self.diffusion = diffusion
+        self.transport = transport or Transport()
         # cast decoded planes to this dtype before render / σ queries
         # (bf16 serving: half the gather table, bf16 lerp in the kernel)
         self.render_dtype = render_dtype
@@ -105,9 +114,10 @@ class TextTo3DPipeline:
     def sample_latents(self, batch: int, cond, uncond,
                        generator: Optional[torch.Generator] = None,
                        x_init: Optional[torch.Tensor] = None):
-        """DDIM with guidance → decoder-space latents (B, h, w, C), i.e.
-        already multiplied by ``triplane_scaling_divider``.  The start noise
-        is ``x_init`` or a draw from ``generator``."""
+        """The sampler of ``spec.kind`` with guidance → decoder-space
+        latents (B, h, w, C), i.e. already multiplied by
+        ``triplane_scaling_divider``.  The start noise is ``x_init`` or a
+        draw from ``generator``."""
         spec = self.spec
         shape = (batch,) + tuple(spec.latent_shape)
         if spec.cfg_scale == 1.0:
@@ -118,9 +128,19 @@ class TextTo3DPipeline:
                 return self.denoiser_fn(x, t, ctx)
         else:
             cfg_fn = self._make_cfg_fn(cond, uncond, batch)
-        x = self.diffusion.ddim_sample_loop(cfg_fn, shape, device=self.device,
-                                            generator=generator,
-                                            x_init=x_init)
+        if spec.kind == 'flow_matching':
+            x = self.transport.sample_ode(cfg_fn, shape,
+                                          num_steps=spec.num_steps,
+                                          device=self.device,
+                                          generator=generator, x_init=x_init)
+        elif spec.kind == 'ddim':
+            if self.diffusion is None:
+                raise ValueError("kind='ddim' needs a diffusion")
+            x = self.diffusion.ddim_sample_loop(
+                cfg_fn, shape, device=self.device, generator=generator,
+                x_init=x_init)
+        else:
+            raise NotImplementedError(f'sampler kind {spec.kind!r}')
         return x * spec.triplane_scaling_divider
 
     # -- render ------------------------------------------------------------
@@ -286,6 +306,34 @@ def save_video_frames(frames, path_prefix: str):
     return paths
 
 
+def _objaverse_pipeline(denoiser, vae, opts, render_resolution, sampler,
+                        render_dtype, device, diffusion=None, transport=None):
+    """The pipeline over the port's modules: the denoiser, the VAE's
+    decode, its render and point queries through the fused point kernel."""
+    return TextTo3DPipeline(
+        denoiser,
+        vae.decode_latent,
+        lambda planes, cam: vae.render(
+            planes, cam, opts, render_resolution,
+            use_fused_osg=True)['image_raw'],
+        lambda planes, coords: vae.query_points(
+            planes, coords, opts.box_warp, use_fused_osg=True),
+        sampler=sampler, diffusion=diffusion, transport=transport,
+        render_dtype=render_dtype, device=device)
+
+
+def _random_modules(device, seed, constructors):
+    """``{name: module}`` built on ``device``, every parameter drawn from
+    one ``torch.Generator`` seeded with ``seed``."""
+    from .models.layers import random_init_
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        modules = {k: make() for k, make in constructors.items()}
+    for m in modules.values():
+        random_init_(m, gen)
+    return modules
+
+
 def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
                         vae_cfg=None, text_cfg=None, render_opts=None,
                         render_resolution: int = 192,
@@ -297,7 +345,8 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     Defaults are the serving configuration: DiT-L/2 with tanh GELU stored
     and run in bf16, the DiT2-L/2 VAE decoder in bf16, the f32 CLIP text
     tower, 250-step DDIM with CFG 6.5, 192² renders with 64+64 samples
-    through the fused point kernel, bf16 planes.  Weights are random,
+    through the fused point kernel, bf16 planes.  The checkpoint is a DDPM
+    model: ``sampler.kind`` must be ``'ddim'``.  Weights are random,
     drawn from a ``torch.Generator`` seeded with ``seed`` — unless
     ``modules`` supplies ``{'denoiser', 'vae', 'text_model'}`` (for
     example loaded through ``bridge.py``).
@@ -310,7 +359,6 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     from .config import RENDER_PRESETS, denoiser_preset, vae_preset
     from .diffusion.gaussian import make_diffusion
     from .models.dit import DiT_TriLatent
-    from .models.layers import random_init_
     from .models.vae import TriplaneVAE
 
     device = resolve_device(device)
@@ -321,33 +369,25 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     text_cfg = text_cfg or CLIPTextConfig()
     opts = render_opts or RENDER_PRESETS[
         'objverse_tuneray_aug_resolution_64_64_auto']
-    sampler = sampler or SamplerSpec()
+    sampler = sampler or SamplerSpec(kind='ddim')
+    if sampler.kind != 'ddim':
+        raise ValueError(f'the text→3D checkpoint samples with DDIM, got '
+                         f'sampler kind {sampler.kind!r}')
 
     if modules is None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        with torch.device(device):
-            modules = dict(denoiser=DiT_TriLatent(den_cfg),
-                           vae=TriplaneVAE(vae_cfg),
-                           text_model=CLIPTextModel(text_cfg))
-        for m in modules.values():
-            random_init_(m, gen)
+        modules = _random_modules(device, seed, dict(
+            denoiser=lambda: DiT_TriLatent(den_cfg),
+            vae=lambda: TriplaneVAE(vae_cfg),
+            text_model=lambda: CLIPTextModel(text_cfg)))
     denoiser = modules['denoiser'].to(device).to(den_cfg.dtype).eval()
     vae = modules['vae'].to(device).cast_decoder().eval()
     text_model = modules['text_model'].to(device).eval()
     tokenizer = default_tokenizer(max_length=text_cfg.max_length)
 
-    pipeline = TextTo3DPipeline(
-        denoiser,
-        vae.decode_latent,
-        lambda planes, cam: vae.render(
-            planes, cam, opts, render_resolution,
-            use_fused_osg=True)['image_raw'],
-        lambda planes, coords: vae.query_points(
-            planes, coords, opts.box_warp, use_fused_osg=True),
-        sampler=sampler,
-        diffusion=make_diffusion(
-            steps=1000, timestep_respacing=f'ddim{sampler.num_steps}'),
-        render_dtype=render_dtype, device=device)
+    pipeline = _objaverse_pipeline(
+        denoiser, vae, opts, render_resolution, sampler, render_dtype,
+        device, diffusion=make_diffusion(
+            steps=1000, timestep_respacing=f'ddim{sampler.num_steps}'))
 
     @torch.no_grad()
     def encode(prompt: str):
@@ -357,3 +397,139 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
 
     return pipeline, encode, dict(denoiser=denoiser, vae=vae,
                                   text_model=text_model)
+
+
+def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
+                        seed, den_cfg, vae_cfg, render_opts,
+                        render_resolution, sampler, transport, render_dtype,
+                        modules):
+    """The body that the image→3D and multi-view→3D builders share: the
+    ``preset`` denoiser with tanh GELU, the Objaverse VAE and render
+    options, DINOv2-B/14 in bf16, with ``clip_cfg`` the f32 CLIP vision
+    tower, CFG 4.0 on the flow-matching ODE.  ``make_encode(modules)``
+    gives the family's ``encode``."""
+    from .conditioning.clip import CLIPVisionModel
+    from .config import RENDER_PRESETS, denoiser_preset, vae_preset
+    from .models.dit import DiT_TriLatent
+    from .models.vae import TriplaneVAE
+    from .models.vit import VisionTransformer, vit_registry
+
+    device = resolve_device(device)
+    if den_cfg is None:
+        den_cfg = dataclasses.replace(denoiser_preset(preset),
+                                      exact_gelu=False)
+    vae_cfg = vae_cfg or vae_preset('objaverse')
+    dino_cfg = dino_cfg or vit_registry('dinov2-b/14', img_size=224,
+                                        dtype=torch.bfloat16)
+    opts = render_opts or RENDER_PRESETS[
+        'objverse_tuneray_aug_resolution_64_64_auto']
+    sampler = sampler or SamplerSpec(cfg_scale=4.0)
+
+    if modules is None:
+        towers = dict(denoiser=lambda: DiT_TriLatent(den_cfg),
+                      vae=lambda: TriplaneVAE(vae_cfg))
+        if clip_cfg is not None:
+            towers['vision_model'] = lambda: CLIPVisionModel(clip_cfg)
+        towers['dino'] = lambda: VisionTransformer(dino_cfg)
+        modules = _random_modules(device, seed, towers)
+    out = dict(denoiser=modules['denoiser'].to(device).to(den_cfg.dtype),
+               vae=modules['vae'].to(device).cast_decoder())
+    if clip_cfg is not None:
+        out['vision_model'] = modules['vision_model'].to(device)
+    out['dino'] = modules['dino'].to(device).to(dino_cfg.dtype)
+    for m in out.values():
+        m.eval()
+
+    pipeline = _objaverse_pipeline(out['denoiser'], out['vae'], opts,
+                                   render_resolution, sampler, render_dtype,
+                                   device, transport=transport)
+    return pipeline, make_encode(out), out
+
+
+def build_i23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
+                        vae_cfg=None, vision_cfg=None, dino_cfg=None,
+                        render_opts=None, render_resolution: int = 192,
+                        sampler: Optional[SamplerSpec] = None,
+                        transport: Optional[Transport] = None,
+                        render_dtype: Optional[torch.dtype] = torch.bfloat16,
+                        modules: Optional[dict] = None):
+    """The released Objaverse image→3D model on ``device``, as
+    ``bench.py`` ``_build_i23d_family`` configures it.
+
+    Defaults: the f32 CLIP ViT-L/14 vision tower and DINOv2-B/14 in bf16
+    over one 224² image; DiT-I23D-L/2 (``'image-pixelart'`` blocks with
+    the DINO tokens in the self-attention, CLIP tokens in the
+    cross-attention, the pooled vector added to t) with tanh GELU in
+    bf16; the 250-step Euler ODE of the linear flow-matching path with
+    CFG 4.0; then the text→3D path's VAE decode, render and mesh stages.
+    Weights are random, drawn from a ``torch.Generator`` seeded with
+    ``seed``, unless ``modules`` supplies ``{'denoiser', 'vae',
+    'vision_model', 'dino'}``.
+
+    Returns ``(pipeline, encode, modules)``; ``encode(image)``, image (1,
+    H, W, 3) in [-1, 1], gives the (cond, uncond) pair through the
+    conditioner's CLIP-image and DINO embedders: the CLIP tokens' first
+    1024 channels as 'crossattn', the pooled feature's first 768 as
+    'vector', DINO's first 257 tokens in f32 as 'dino' (no CLIP or
+    ImageNet normalisation, as in the bench), and zeros for uncond.
+    """
+    from .conditioning.clip import CLIPVisionConfig
+    from .conditioning.conditioner import (make_clip_image_embedder,
+                                           make_dino_embedder)
+
+    def make_encode(m):
+        clip = make_clip_image_embedder(m['vision_model']).encode
+        dino = make_dino_embedder(m['dino']).encode
+
+        def encode(image):
+            enc = clip(image)
+            cond = {'crossattn': enc['crossattn'][:, :, :1024],
+                    'vector': enc['vector'][:, :768],
+                    'dino': dino(image)['dino'][:, :257].float()}
+            return cond, {k: torch.zeros_like(v) for k, v in cond.items()}
+        return encode
+
+    return _build_image_family(
+        'i23d-pixart-l2', vision_cfg or CLIPVisionConfig(), dino_cfg,
+        make_encode, device, seed, den_cfg, vae_cfg, render_opts,
+        render_resolution, sampler, transport, render_dtype, modules)
+
+
+def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
+                         vae_cfg=None, dino_cfg=None, render_opts=None,
+                         render_resolution: int = 192,
+                         sampler: Optional[SamplerSpec] = None,
+                         transport: Optional[Transport] = None,
+                         render_dtype: Optional[torch.dtype] = torch.bfloat16,
+                         modules: Optional[dict] = None):
+    """The released Objaverse multi-view→3D model on ``device``, as
+    ``bench.py`` ``_build_mv23d_family`` configures it.
+
+    Defaults: DINOv2-B/14 in bf16 over the views; DiT-PixArt-MV-L/2
+    (``'mv-pixelart'`` blocks: RMSNorm, q/k RMSNorm, the flattened views'
+    DINO tokens in the cross-attention) with tanh GELU in bf16; the
+    250-step flow-matching ODE with CFG 4.0; then the VAE decode, render
+    and mesh stages.  Weights are random from ``seed`` unless ``modules``
+    supplies ``{'denoiser', 'vae', 'dino'}``.
+
+    Returns ``(pipeline, encode, modules)``; ``encode(views)``, views (V,
+    H, W, 3) in [-1, 1], gives the (cond, uncond) pair through the
+    conditioner's DINO embedder: each view's first 257 DINO tokens
+    flattened to (1, V·257, D) in f32 as 'crossattn', and zeros for
+    uncond.
+    """
+    from .conditioning.conditioner import make_dino_embedder
+
+    def make_encode(m):
+        dino = make_dino_embedder(m['dino']).encode
+
+        def encode(views):
+            tok = dino(views)['dino'][:, :257]
+            flat = tok.reshape(1, -1, tok.shape[-1]).float()
+            return {'crossattn': flat}, {'crossattn': torch.zeros_like(flat)}
+        return encode
+
+    return _build_image_family(
+        'mv23d-dit-l2', None, dino_cfg, make_encode, device, seed, den_cfg,
+        vae_cfg, render_opts, render_resolution, sampler, transport,
+        render_dtype, modules)

@@ -327,12 +327,14 @@ def test_fused_attention_strided_views(cuda, dtype):
 
 
 @pytest.mark.parametrize('d', [32, 64])
-@pytest.mark.parametrize('L', [1, 63, 64, 65, 77, 128, 129, 768, 2048])
+@pytest.mark.parametrize('L', [1, 63, 64, 65, 77, 128, 129, 768, 1024, 1025,
+                               2048])
 def test_fused_attention_bf16_tile_edges(cuda, d, L):
     """The bf16 wgmma kernel around its 64-row query and key tiles (one
-    key, a tile less one, one, one more, ragged, the DiT's 768 and a long
-    2048 that streams far past shared memory), against the plain version;
-    two launches agree bit for bit."""
+    key, a tile less one, one, one more, ragged, the DiT's 768, 1024 and
+    the image→3D DiT's 1025 = 768 + 257, whose last query tile holds one
+    row, and a long 2048 that streams far past shared memory), against
+    the plain version; two launches agree bit for bit."""
     B, H = (2, 16) if L >= 768 else (2, 4)
     q, k, v = _qkv(B, L, H, d, torch.bfloat16, cuda, seed=L + d)
     got = fused_attention(q, k, v)
@@ -373,6 +375,41 @@ def test_dit_attention_module_fused_bf16(cuda):
         want = attention_reference(q, k, v).reshape(2, 768, 1024)
     assert FusedAttention.launches == before + 1
     _attn_close(seen['heads'], want, torch.bfloat16)
+
+
+def test_dit_attention_qk_norm_dino_concat_fused_bf16(cuda):
+    """The image→3D DiT's self-attention in bf16: ``Attention(1024, 16,
+    qk_norm=True)`` over 768 latent tokens and 257 DINO tokens (L = 1025),
+    with ``fused=True`` against the same weights with ``fused=False``;
+    kernel 3 runs once, on the RMS-normalised q and k and on v read in
+    place from the qkv projection, and equals the plain version on those
+    q, k, v."""
+    from ln3diff_tpu_torch.models.dit import Attention
+    torch.manual_seed(0)
+    fused = Attention(1024, 16, qk_norm=True, fused=True).to(
+        cuda, torch.bfloat16)
+    plain = Attention(1024, 16, qk_norm=True).to(cuda, torch.bfloat16)
+    plain.load_state_dict(fused.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 768, 1024), generator=g, device=cuda)
+    dino = torch.randn((2, 257, 1024), generator=g, device=cuda)
+    h = torch.cat([x, dino], dim=1).to(torch.bfloat16)
+    seen = {}
+    fused.proj.register_forward_pre_hook(
+        lambda module, args: seen.setdefault('heads', args[0]))
+    before = FusedAttention.launches
+    with torch.no_grad():
+        got = fused(h)[:, :768]
+        want = plain(h)[:, :768]
+        q, k, v = (t.reshape(2, 1025, 16, 64)
+                   for t in fused.qkv(h).chunk(3, dim=-1))
+        heads = attention_reference(fused.q_norm(q), fused.k_norm(k), v)
+    assert FusedAttention.launches == before + 1
+    _attn_close(seen['heads'], heads.reshape(2, 1025, 1024), torch.bfloat16)
+    # the plain module's dot_product_attention rounds p as the kernel does;
+    # the out projection adds bf16 rounding of sums of 1024 products
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_fused_attention_rejects_what_it_does_not_take(cuda):

@@ -131,8 +131,8 @@ def _pipelines(cfg_scale=6.5, steps=10, **model_kw):
     tpipe, tencode, _ = build_t23d_pipeline(
         'cpu', modules=m['tmods'], render_opts=RenderOptions(**OPTS),
         render_resolution=RES,
-        sampler=SamplerSpec(num_steps=steps, cfg_scale=cfg_scale,
-                            latent_shape=(8, 8, 12)),
+        sampler=SamplerSpec(kind='ddim', num_steps=steps,
+                            cfg_scale=cfg_scale, latent_shape=(8, 8, 12)),
         render_dtype=None,
         **m['tcfgs'])
     return jpipe, tpipe, tencode
