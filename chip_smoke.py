@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives six paths of ``ln3diff_tpu_torch`` at the full width of the
+Drives these paths of ``ln3diff_tpu_torch`` at the full width of the
 released Objaverse models, with random weights drawn from a fixed seed:
 
 * ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
@@ -29,7 +29,18 @@ released Objaverse models, with random weights drawn from a fixed seed:
   and mesh stages; with plain attention and with ``fused_attention=True``;
 * ``mv23d_pipeline``: the multi-view→3D serving call on four views:
   DINOv2-B/14, DiT-PixArt-MV-L/2 with the views' tokens in its
-  cross-attention, the same ODE and stages, plain and fused.
+  cross-attention, the same ODE and stages, plain and fused;
+* ``t23d_samplers``: the text→3D serving call with 25 DPM-Solver++(2M)
+  steps over the unspaced schedule (``bench.py``'s ``dpm25``) and with 25
+  PLMS steps over ``ddim25``;
+* ``t23d_int8``: the text→3D serving call with the W8A8 int8 DiT-L/2
+  (``quantize_dit``), plain and fused attention, DDIM 250, and a DDIM
+  step of the int8 and bf16 denoisers under the profiler;
+* ``i23d_int8``: the image→3D serving call with the int8 DiT-I23D-L/2;
+* ``orbit_options``: ``__call__(cameras=...)`` on a pose file written
+  with ``torch.save`` and read back with ``load_pose_asset``, and the
+  orbit with the frames folded into the ray axis (``render_rays_fn`` with
+  ``TriplaneVAE.render_rays_flat``) against the per-frame orbit.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -37,7 +48,8 @@ g++ and holds each kernel against its plain PyTorch version
 (``kernel_check``, ``attention_check``, ``qkv_attention_check``,
 ``osg_backward_check``).  It also checks the mesh stage on an analytic
 sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
-models card against CPU (``small_reference``, ``small_reference_i23d``) and a small training
+models card against CPU (``small_reference``, ``small_reference_i23d``;
+``small_reference_samplers``: DPM, PLMS and the int8 DiT) and a small training
 step card against CPU (``small_train_reference``), and profiles a
 sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
 ``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
@@ -92,6 +104,12 @@ TOL_QKV = TOL_ATTN
 TOL_CHAIN = (1e-2, 2e-2)
 # small-size pipeline, card vs CPU, both in f32: |Δ| <= TOL_PIPE·max(1,|ref|)
 TOL_PIPE = 2e-3
+# the small int8 model's latents, card vs CPU: |Δ| <= TOL_INT8·max(1,|ref|).
+# The int8 products are exact int32 on both, but an activation within an f32
+# ulp of a rounding midpoint quantizes one int8 step apart, and the ten CFG
+# steps carry the flip on: on the CPU, 30 relative perturbations of 1e-7 of
+# the start noise moved the latents by 1.4e-4 to 7.0e-3 of their scale.
+TOL_INT8 = 2e-2
 # the backward kernel against its plain version: |Δ| <= atol·max|plain| +
 # rtol·|plain|.  Per-point f32 outputs: the f32 MLP sums run in another
 # order.  bf16 row grads: w_k·round(g_f) rounds to bf16 on both sides and a
@@ -158,6 +176,23 @@ def cuda_time_ms(fn, warmup=2, iters=10):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def events_ms(fn, calls=50):
+    """ms per call from CUDA events around ``calls`` back-to-back calls
+    after two warm-up calls: the device's time per call wherever the
+    host enqueues faster than the device runs."""
+    import torch
+    for _ in range(2):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def device_ms(fn, calls=10, stages=None):
@@ -271,13 +306,17 @@ def kernel_check():
     return results
 
 
-def _small_card_vs_cpu(build, kw, inputs, fused, variant):
+def _small_card_vs_cpu(build, kw, inputs, fused, variant, shared=False,
+                       tol_latents=TOL_PIPE):
     """One small model from ``build`` (a ``build_*_pipeline``) on the CPU
     (seed 7) and on the card (a copy of the same weights), the same
-    conditioning ``inputs`` and noise, f32: latents, planes and frames must
-    agree within ``TOL_PIPE`` of scale.  With ``fused`` the call also
-    writes a mesh, whose OBJ must parse back, and the card run must
-    launch kernel 3."""
+    conditioning ``inputs`` and noise, f32: latents within ``tol_latents``
+    of scale, planes and frames within ``TOL_PIPE``.  With ``shared`` the
+    card's planes and frames are its decode and render of the CPU's
+    latents (the toy model's latents reach a scale of several hundred,
+    where the decoder turns their f32 differences into percent-level
+    plane differences).  With ``fused`` the call also writes a mesh,
+    whose OBJ must parse back, and the card run must launch kernel 3."""
     import torch
     from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
@@ -306,17 +345,24 @@ def _small_card_vs_cpu(build, kw, inputs, fused, variant):
               'the card run did not launch fused_attention')
     r = dict(fused_osg_launches=FusedOSG.launches,
              fused_attention_launches=FusedAttention.launches)
+    if shared:
+        with torch.no_grad():
+            planes = gpu_pipe.decode_fn(outs['cpu']['latents'].cuda())
+            outs['cuda'] = dict(
+                outs['cuda'], planes=planes,
+                video=gpu_pipe.render_orbit(planes, 2,
+                                            render_resolution=32))
     for key in ('latents', 'planes', 'video'):
         ref = outs['cpu'][key]
         got = outs['cuda'][key].cpu()
         err = float((got - ref).abs().max())
         scale = max(1.0, float(ref.abs().max()))
-        r[key] = dict(max_abs_err=err, tol=TOL_PIPE * scale)
+        tol = (tol_latents if key == 'latents' else TOL_PIPE) * scale
+        r[key] = dict(max_abs_err=err, tol=tol)
         check(bool(torch.isfinite(got).all()),
               f'{variant} {key}: non-finite on card')
-        check(err <= TOL_PIPE * scale,
-              f'{variant} {key}: card vs CPU max|Δ| {err} > '
-              f'{TOL_PIPE * scale}')
+        check(err <= tol,
+              f'{variant} {key}: card vs CPU max|Δ| {err} > {tol}')
     if fused:
         r['triangles'] = dict(cpu=len(outs['cpu']['mesh'][1]),
                               cuda=len(outs['cuda']['mesh'][1]))
@@ -366,6 +412,37 @@ def small_reference():
         res[variant] = _small_card_vs_cpu(build_t23d_pipeline, kw,
                                           'a small wooden chair', fused,
                                           variant)
+    return res
+
+
+def small_reference_samplers():
+    """``small_reference``'s model under the samplers and the int8 DiT of
+    this slice: 10 DPM-Solver++(2M) steps over the unspaced schedule, 10
+    PLMS steps over ``ddim10``, and DDIM 10 with ``quantized=True`` (the
+    int8 GEMMs through ``torch._int_mm`` on the card and on the CPU).  The
+    latents are held end to end (``TOL_PIPE``; ``TOL_INT8`` for int8), the
+    planes and frames from one shared latent, the CPU's."""
+    import torch
+    from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
+    from ln3diff_tpu_torch.models.dit import DiTConfig
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
+
+    res = {}
+    for variant, kind, quantized in (('dpm', 'dpm', False),
+                                     ('plms', 'plms', False),
+                                     ('int8', 'ddim', True)):
+        kw = dict(
+            _small_vae_kw(),
+            den_cfg=DiTConfig(input_size=8, hidden_size=64, depth=2,
+                              num_heads=2, context_dim=64, exact_gelu=False,
+                              quantized=quantized, dtype=torch.float32),
+            text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2,
+                                    num_heads=2, intermediate_size=128),
+            sampler=SamplerSpec(kind=kind, num_steps=10,
+                                latent_shape=(8, 8, 12)))
+        res[variant] = _small_card_vs_cpu(
+            build_t23d_pipeline, kw, 'a small wooden chair', False, variant,
+            shared=True, tol_latents=TOL_INT8 if quantized else TOL_PIPE)
     return res
 
 
@@ -1241,7 +1318,165 @@ def image_pipeline(build, modules, inputs):
     fused attention, ``inputs`` are the image or the views."""
     pipe, encode, _ = build('cuda', den_cfg=modules['denoiser'].cfg,
                             modules=modules)
-    return _serving_call(pipe, encode, inputs, 'image_encode')
+    return _serving_call(pipe, encode, inputs, 'image_encode')[0]
+
+
+def t23d_samplers(modules, prompt):
+    """The text→3D serving call at full width (``_serving_call``, the
+    DiT-L/2 of ``modules``) with ``kind='dpm'``, 25 DPM-Solver++(2M) steps
+    over the unspaced 1000-step schedule (``bench.py``'s ``dpm25``), and
+    with ``kind='plms'``, 25 PLMS steps over ``ddim25``: 26 denoiser
+    calls each."""
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
+    res = {}
+    for kind in ('dpm', 'plms'):
+        pipe, encode, _ = build_t23d_pipeline(
+            'cuda', den_cfg=modules['denoiser'].cfg, modules=modules,
+            sampler=SamplerSpec(kind=kind, num_steps=25))
+        check(pipe.diffusion.num_timesteps == (1000 if kind == 'dpm'
+                                               else 25),
+              f'{kind}: schedule of {pipe.diffusion.num_timesteps} steps')
+        res[f'{kind}25'] = r = _serving_call(pipe, encode, prompt,
+                                             'text_encode')[0]
+        check(r['denoiser_calls'] == 26, f'{kind}25 called the denoiser '
+              f'{r["denoiser_calls"]} times')
+    return res
+
+
+def int8_gemm_ms(M=1536, K=1024, N=3072):
+    """The DiT-L/2 qkv projection's GEMM at a CFG step's shape (B·L rows
+    of the doubled batch), ms per call from CUDA events around 50
+    back-to-back calls: ``torch._int_mm`` with the weight operand
+    column-major (``Int8Linear``'s stored layout) and row-major, against
+    the bf16 ``F.linear`` of the same shape, and the int8 path's whole
+    ``int8_dense`` (row quantization, GEMM, rescale)."""
+    import torch
+    import torch.nn.functional as F
+    from ln3diff_tpu_torch.ops.int8 import int8_dense, quantize_weight
+    g = torch.Generator(device='cuda').manual_seed(11)
+    x = torch.randn((M, K), generator=g, device='cuda').to(torch.bfloat16)
+    w = torch.randn((N, K), generator=g, device='cuda') / K**0.5
+    wq, scale = quantize_weight(w.t())
+    kq = wq.t().contiguous()                       # (N, K): kq.t() col-major
+    xq = torch.randint(-127, 128, (M, K), generator=g, device='cuda',
+                       dtype=torch.int8)
+    kq_rows = kq.t().contiguous()                  # (K, N) row-major
+    wb = w.to(torch.bfloat16)
+    return dict(
+        shape=[M, K, N],
+        int_mm_col_major_ms=events_ms(lambda: torch._int_mm(xq, kq.t())),
+        int_mm_row_major_ms=events_ms(lambda: torch._int_mm(xq, kq_rows)),
+        int8_dense_ms=events_ms(lambda: int8_dense(x, kq, scale)),
+        bf16_linear_ms=events_ms(lambda: F.linear(x, wb)),
+        gemm_ops=2 * M * K * N)
+
+
+def t23d_int8(modules, fused_modules, cond, uncond, prompt, bf16_latents):
+    """The text→3D serving call at full width with the W8A8 int8 DiT-L/2:
+    ``quantize_dit`` of the plain and of the fused-attention denoiser
+    (``bench.py``'s ``LN3DIFF_BENCH_INT8``), DDIM 250; kernel 3 runs on
+    the int8 qkv projection of the fused one.  Then a DDIM step of the
+    four denoisers (bf16 and int8, plain and fused) under the profiler,
+    and the qkv GEMM alone.  ``latents_rel_to_bf16``: the int8 call's
+    latents against ``bf16_latents[attn]``, the bf16 call's from the same
+    noise."""
+    from ln3diff_tpu_torch.ops.int8 import Int8Linear, quantize_dit
+    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+    res, dens = {}, {}
+    for attn, mods in (('plain_attention', modules),
+                       ('fused_attention', fused_modules)):
+        t0 = time.perf_counter()
+        q = quantize_dit(mods['denoiser'])
+        quant_s = time.perf_counter() - t0
+        n_int8 = sum(isinstance(m, Int8Linear) for m in q.modules())
+        check(q.cfg.quantized and n_int8 == 24 * 8,
+              f'quantize_dit gave {n_int8} int8 layers')
+        pipe, encode, _ = build_t23d_pipeline(
+            'cuda', den_cfg=q.cfg, modules=dict(mods, denoiser=q))
+        r, lat = _serving_call(pipe, encode, prompt, 'text_encode')
+        ref = bf16_latents[attn]
+        r['latents_rel_to_bf16'] = float((lat - ref).norm() / ref.norm())
+        r['quantize_seconds'] = round(quant_s, 3)
+        r['int8_layers'] = n_int8
+        res[attn] = r
+        dens[f'bf16_{attn}'] = mods['denoiser']
+        dens[f'int8_{attn}'] = q
+    res['step_profile'] = dit_profile(dens, cond, uncond)
+    res['qkv_gemm'] = int8_gemm_ms()
+    return res
+
+
+def orbit_options(modules, cond, uncond):
+    """The serving call's orbit options at full width on a DPM-25 call:
+    ``__call__(cameras=...)`` with the 24-view orbit at pitch 13.73°,
+    radius 1.772 (the release asset's first rows) written with
+    ``torch.save`` and read back by ``load_pose_asset``, its frames held to
+    the analytic ring of the same poses; then the same call with
+    ``render_rays_fn`` (``TriplaneVAE.render_rays_flat``, frames folded
+    into the ray axis), its frames held to the per-frame orbit within
+    ``TOL_PIPE`` and kernel 1's launches counted."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.config import RENDER_PRESETS
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
+    from ln3diff_tpu_torch.render.camera import (load_pose_asset,
+                                                 orbit_cameras)
+    pipe, _, _ = build_t23d_pipeline(
+        'cuda', den_cfg=modules['denoiser'].cfg, modules=modules,
+        sampler=SamplerSpec(kind='dpm', num_steps=25))
+    cams = orbit_cameras(24, 1.772, 30.0, 13.73)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'objv_eval_pose.pt')
+        torch.save(torch.from_numpy(cams), path)
+        loaded = load_pose_asset(path)
+    check(loaded.shape == (24, 25) and np.array_equal(loaded, cams),
+          'load_pose_asset did not read the poses back')
+    res = {}
+
+    def call(key):
+        FusedOSG.launches = FusedAttention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(cond, uncond, cameras=loaded, render_resolution=192,
+                   generator=torch.Generator(device='cuda').manual_seed(1))
+        torch.cuda.synchronize()
+        video = out['video']
+        check(tuple(video.shape) == (1, 24, 192, 192, 3),
+              f'{key}: video shape {tuple(video.shape)}')
+        check(bool(torch.isfinite(video).all()), f'{key}: frames not finite')
+        vmin, vmax = float(video.min()), float(video.max())
+        check(-1.01 <= vmin and vmax <= 1.01,
+              f'{key}: frames out of range [{vmin}, {vmax}]')
+        res[key] = dict(call_seconds=round(time.perf_counter() - t0, 3),
+                        fused_osg_launches=FusedOSG.launches,
+                        fused_attention_launches=FusedAttention.launches,
+                        frames_range=[vmin, vmax])
+        check(FusedOSG.launches > 0, f'{key}: fused_osg not launched')
+        return out
+
+    out = call('cameras')
+    planes = out['planes'].to(pipe.render_dtype)
+    with torch.no_grad():
+        ring = pipe.render_orbit(planes, 24, radius=1.772, pitch_deg=13.73,
+                                 render_resolution=192)
+    err = float((ring - out['video']).abs().max())
+    res['cameras']['max_abs_err_vs_ring'] = err
+    check(err <= TOL_PIPE, f'cameras: frames {err} from the analytic ring')
+    vae = modules['vae']
+    opts = RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto']
+    pipe.render_rays_fn = lambda planes, o, d: vae.render_rays_flat(
+        planes, o, d, opts, use_fused_osg=True)
+    flat = call('flat_rays')
+    check(bool(torch.equal(flat['latents'], out['latents'])),
+          'flat_rays: the call sampled other latents')
+    err = float((flat['video'] - out['video']).abs().max())
+    res['flat_rays']['max_abs_err_vs_per_frame'] = err
+    res['flat_rays']['tol'] = TOL_PIPE
+    check(err <= TOL_PIPE, f'flat rays: frames {err} from the per-frame '
+          f'orbit')
+    return res
 
 
 def _serving_call(pipe, encode, inputs, encode_key):
@@ -1251,8 +1486,10 @@ def _serving_call(pipe, encode, inputs, encode_key):
     then with every stage under a synchronising timer, so the seconds by
     phase (``encode_key`` for the conditioning) add up without the
     overlap of march and orbit; launches are counted per phase in the
-    second run, kernel 3 once per block and step with fused attention and
-    never without."""
+    second run, kernel 3 once per block and denoiser call with fused
+    attention and never without, and the denoiser calls: one per step,
+    plus one for DPM-Solver's last x0 and PLMS's warm-up.  Returns the
+    phase's fields and the sampled latents."""
     import torch
     from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
                                                        FusedQKVAttention)
@@ -1275,7 +1512,7 @@ def _serving_call(pipe, encode, inputs, encode_key):
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
 
-    secs, osg, last = {}, {}, {}
+    secs, osg, last, calls = {}, {}, {}, {}
 
     def timed(key, fn):
         secs[key] = 0.0
@@ -1287,6 +1524,7 @@ def _serving_call(pipe, encode, inputs, encode_key):
             torch.cuda.synchronize()
             secs[key] += time.perf_counter() - t0
             osg[key] = osg.get(key, 0) + FusedOSG.launches - n0
+            calls[key] = calls.get(key, 0) + 1
             last[key] = out
             return out
         return run
@@ -1306,6 +1544,7 @@ def _serving_call(pipe, encode, inputs, encode_key):
         cond, uncond = encode(inputs)
         FusedOSG.launches = FusedAttention.launches = 0
         FusedQKVAttention.launches = 0
+        calls.clear()
         torch.cuda.reset_peak_memory_stats()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, 'out.obj')
@@ -1341,7 +1580,11 @@ def _serving_call(pipe, encode, inputs, encode_key):
           f'OBJ parses to {nv} vertices / {nf} faces, the call returned '
           f'{len(verts)} / {len(faces)}')
     check(qkv_launches == 0, 'the serving call launched kernel 4')
-    want_attn = (den_cfg.depth * pipe.spec.num_steps
+    den_calls = calls['dit_sample']
+    want_calls = pipe.spec.num_steps + (pipe.spec.kind in ('dpm', 'plms'))
+    check(den_calls == want_calls, f'{den_calls} denoiser calls, expected '
+          f'{want_calls} for {pipe.spec.num_steps} {pipe.spec.kind} steps')
+    want_attn = (den_cfg.depth * den_calls
                  if den_cfg.fused_attention else 0)
     check(attn_launches == want_attn, f'fused_attention launched '
           f'{attn_launches} times, expected {want_attn}')
@@ -1358,6 +1601,8 @@ def _serving_call(pipe, encode, inputs, encode_key):
     return dict(
         seconds_by_phase={k: round(v, 3) for k, v in secs.items()},
         call_seconds=round(call_s, 3), timed_call_seconds=round(timed_s, 3),
+        sampler=f'{pipe.spec.kind}{pipe.spec.num_steps}',
+        denoiser_calls=den_calls, quantized=den_cfg.quantized,
         fused_attention_launches=attn_launches,
         fused_osg_launches=dict(render=osg['render'],
                                 sigma_query=osg['sigma_query'],
@@ -1368,7 +1613,8 @@ def _serving_call(pipe, encode, inputs, encode_key):
         frames_range=[vmin, vmax],
         sigma_range=[float(last['sigma_query'].min()),
                      float(last['sigma_query'].max())],
-        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    ), latents
 
 
 def dit_profile(denoisers, cond, uncond, steps=10, t_value=500):
@@ -1426,6 +1672,21 @@ def dit_profile(denoisers, cond, uncond, steps=10, t_value=500):
     return res
 
 
+def i23d_int8(build, modules, inputs, cond, uncond):
+    """The image→3D serving call at full width (250 FM steps, no cut) with
+    ``quantize_dit`` of the plain-attention DiT-I23D-L/2 (``bench.py``'s
+    ``LN3DIFF_BENCH_INT8`` for i23d), and an FM step of it and of the bf16
+    denoiser under the profiler."""
+    from ln3diff_tpu_torch.ops.int8 import quantize_dit
+    q = quantize_dit(modules['denoiser'])
+    res = image_pipeline(build, dict(modules, denoiser=q), inputs)
+    res['step_profile'] = dit_profile(
+        {'bf16_plain_attention': modules['denoiser'],
+         'int8_plain_attention': q}, cond, uncond, t_value=0.5)
+    del q
+    return res
+
+
 def image_families():
     """The image→3D and multi-view→3D serving calls at full width, each
     family's models built once (random weights, seed 0) and freed before
@@ -1468,6 +1729,10 @@ def image_families():
                                'fused_attention': fused_modules['denoiser']},
                               cond, uncond, t_value=0.5)
         phase_done(f'{family}_dit_profile', t0, **profile)
+        if family == 'i23d':
+            t0 = time.perf_counter()
+            res['int8'] = i23d_int8(build, modules, inputs, cond, uncond)
+            phase_done('i23d_int8', t0, **res['int8'])
         results[family] = res
         del modules, fused_modules, plain_denoiser, encode, cond, uncond
         torch.cuda.empty_cache()
@@ -1528,6 +1793,9 @@ def main():
     small = small_reference()
     phase_done('small_reference', t0, **small)
     t0 = time.perf_counter()
+    small_samplers = small_reference_samplers()
+    phase_done('small_reference_samplers', t0, **small_samplers)
+    t0 = time.perf_counter()
     small_train = small_train_reference()
     phase_done('small_train_reference', t0, **small_train)
 
@@ -1586,6 +1854,7 @@ def main():
     main_s = time.perf_counter() - t_main
 
     video, latents = out['video'], out['latents']
+    bf16_latents = {'plain_attention': latents}
     check(tuple(latents.shape) == (1, 32, 32, 12), 'latent shape')
     check(tuple(out['planes'].shape) == (1, 3, 128, 128, 32), 'plane shape')
     check(tuple(video.shape) == (1, 24, 192, 192, 3), 'video shape')
@@ -1624,7 +1893,8 @@ def main():
     t0 = time.perf_counter()
     plain_denoiser = modules['denoiser']
     modules = dict(modules, denoiser=fused_denoiser(plain_denoiser))
-    serving = serving_pipeline(modules, prompt)
+    serving, bf16_latents['fused_attention'] = serving_pipeline(modules,
+                                                               prompt)
     phase_done('serving_pipeline', t0, **serving)
 
     # 8. a DDIM step of each denoiser under the profiler
@@ -1633,39 +1903,61 @@ def main():
                            'fused_attention': modules['denoiser']},
                           cond, uncond)
     phase_done('dit_profile', t0, **profile)
-    del modules, plain_denoiser, cond, uncond
+
+    # 9. the text→3D call with DPM-Solver++ and PLMS, with the int8 DiT,
+    # with explicit cameras and with the frames folded into the ray axis
+    t0 = time.perf_counter()
+    samplers = t23d_samplers(modules, prompt)
+    phase_done('t23d_samplers', t0, **samplers)
+    t0 = time.perf_counter()
+    int8 = t23d_int8(dict(modules, denoiser=plain_denoiser), modules, cond,
+                     uncond, prompt, bf16_latents)
+    phase_done('t23d_int8', t0, **int8)
+    t0 = time.perf_counter()
+    orbit = orbit_options(modules, cond, uncond)
+    phase_done('orbit_options', t0, **orbit)
+    del modules, plain_denoiser, cond, uncond, bf16_latents
     torch.cuda.empty_cache()
 
-    # 9. the stage-1 VAE training step at full width, both routes
+    # 10. the stage-1 VAE training step at full width, both routes
     t0 = time.perf_counter()
     train = vae_train()
     phase_done('vae_train', t0, **train)
 
-    # 10. kernel 4's chain at the DiT-L/2 self-attention's shapes
+    # 11. kernel 4's chain at the DiT-L/2 self-attention's shapes
     t0 = time.perf_counter()
     chain = qkv_attention_chain()
     phase_done('qkv_attention_chain', t0, **chain)
 
-    # 11. the image→3D path: a small model card vs CPU
+    # 12. the image→3D path: a small model card vs CPU
     t0 = time.perf_counter()
     small_i23d = small_reference_i23d()
     phase_done('small_reference_i23d', t0, **small_i23d)
 
-    # 12. the image→3D and multi-view→3D calls at full width, random
-    # weights, plain and fused attention; an FM step of each denoiser
+    # 13. the image→3D and multi-view→3D calls at full width, random
+    # weights, plain and fused attention; an FM step of each denoiser;
+    # the image→3D call with the int8 DiT
     image_paths = image_families()
 
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     qkv_main = qkv_checks[0]
     attn_i23d = attn_checks[1]
-    osg_by_path = dict(t23d_serving=sum(serving['fused_osg_launches']
-                                        .values()))
-    attn_by_path = dict(t23d_serving=serving['fused_attention_launches'])
+    calls = {'t23d_serving': serving,
+             't23d_dpm25': samplers['dpm25'],
+             't23d_plms25': samplers['plms25'],
+             't23d_int8_plain_attention': int8['plain_attention'],
+             't23d_int8_fused_attention': int8['fused_attention']}
     for family, res in image_paths.items():
         for attn in ('plain_attention', 'fused_attention'):
-            key = f'{family}_{attn}'
-            osg_by_path[key] = sum(res[attn]['fused_osg_launches'].values())
-            attn_by_path[key] = res[attn]['fused_attention_launches']
+            calls[f'{family}_{attn}'] = res[attn]
+    calls['i23d_int8_plain_attention'] = image_paths['i23d']['int8']
+    osg_by_path = {k: sum(r['fused_osg_launches'].values())
+                   for k, r in calls.items()}
+    attn_by_path = {k: r['fused_attention_launches']
+                    for k, r in calls.items()}
+    for key in ('cameras', 'flat_rays'):
+        osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
+        attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
     emit({'kernels': [
         dict(name='fused_osg', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg.cu',

@@ -14,6 +14,9 @@ modules keep the JAX modules' names, so each leaf maps by its path:
   ``embedding`` → ``weight``; ``bias`` and free parameters (the DiT's
   ``scale_shift_table``s, the ViT's ``gamma1``/``gamma2``) keep their
   names;
+* a quantized DiT's ``Int8Dense`` (``ops/int8.py``): int8 ``kernel_q (in,
+  out)`` → ``Int8Linear`` ``kernel_q (out, in)``, still int8; its sibling
+  ``scale (out,)`` keeps its name and stays f32;
 * ``nn.scan``-stacked trunks (leading depth axis) → one module per block:
   ``blocks/block/…`` → ``blocks.{i}.…`` for ``DiT_TriLatent`` and
   ``dit2/blocks/{within,across}/…`` → ``dit2.blocks.{i}.{within,across}…``
@@ -41,8 +44,13 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _leaf(path: tuple, arr: np.ndarray):
+def _leaf(path: tuple, arr: np.ndarray, int8_dense: bool = False):
+    """One leaf → (torch key, tensor).  ``int8_dense``: the leaf's module
+    is an ``Int8Dense`` (its ``scale`` is the weight scale, not a norm's)."""
     name = path[-1]
+    if name == 'kernel_q':
+        return '.'.join(path), torch.from_numpy(np.ascontiguousarray(
+            np.asarray(arr, np.int8).T))
     if name == 'kernel':
         if arr.ndim == 2:
             arr = arr.T
@@ -51,7 +59,7 @@ def _leaf(path: tuple, arr: np.ndarray):
         else:
             raise ValueError(f'{"/".join(path)}: kernel of rank {arr.ndim}')
         name = 'weight'
-    elif name in ('scale', 'embedding'):
+    elif name == 'embedding' or (name == 'scale' and not int8_dense):
         name = 'weight'
     key = '.'.join(path[:-1] + (name,))
     return key, torch.from_numpy(np.array(arr, np.float32, order='C'))
@@ -62,24 +70,30 @@ def _convert(params: Mapping, stacked: dict) -> dict[str, torch.Tensor]:
     the per-block modules that its leading axis splits into."""
     if 'params' in params:
         params = params['params']
+    leaves = list(_flatten(params))
+    int8_modules = {path[:-1] for path, _ in leaves if path[-1] == 'kernel_q'}
     out = {}
-    for path, value in _flatten(params):
-        arr = np.asarray(value, dtype=np.float32)
+    for path, value in leaves:
+        int8 = path[:-1] in int8_modules
+        arr = np.asarray(value)
+        if path[-1] != 'kernel_q':
+            arr = arr.astype(np.float32)
         for prefix, torch_prefix in stacked.items():
             if path[:len(prefix)] == prefix:
                 rest = path[len(prefix):]
                 for i in range(arr.shape[0]):
-                    key, t = _leaf(rest, arr[i])
+                    key, t = _leaf(rest, arr[i], int8)
                     out[f'{torch_prefix}.{i}.{key}'] = t
                 break
         else:
-            key, t = _leaf(path, arr)
+            key, t = _leaf(path, arr, int8)
             out[key] = t
     return out
 
 
 def dit_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """``DiT_TriLatent`` params (every variant) → the port's state dict.
+    """``DiT_TriLatent`` params (every variant, quantized or not) → the
+    port's state dict.
     ``VisionTransformer`` keeps its blocks in the same ``nn.scan`` layout,
     so ``vit_state_dict`` is this function."""
     return _convert(params, {('blocks', 'block'): 'blocks'})

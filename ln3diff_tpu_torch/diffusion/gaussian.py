@@ -1,14 +1,16 @@
-"""Discrete-time Gaussian diffusion: schedules, respacing and DDIM with
-classifier-free guidance.
+"""Discrete-time Gaussian diffusion: schedules, respacing, the DDPM,
+DDIM, PLMS and reverse-DDIM samplers and classifier-free guidance.
 
 Port of the sampling side of ``ln3diff_tpu/diffusion/gaussian.py``
 (``get_named_beta_schedule`` :33, ``space_timesteps`` :53,
-``GaussianDiffusion`` :132 with ``p_mean_variance`` and
-``ddim_sample_loop`` :447, ``make_cfg_model_fn`` :568,
+``DiffusionSpec`` :87, ``GaussianDiffusion`` :132 with ``scale_t`` :188,
+the LSGM mixing ``_apply_mixing`` :244, ``p_mean_variance`` :264,
+``p_sample_loop`` :419, ``ddim_sample_loop`` :444, ``plms_sample_loop``
+:481, ``ddim_reverse_sample_loop`` :542, ``make_cfg_model_fn`` :568,
 ``make_diffusion`` :598).  The schedule tables are computed in float64
-with numpy and kept as f32 tensors; the JAX scan over steps is a Python
-loop.  Training losses, the VLB and the other samplers wait for later
-slices, as do the learned-variance and LSGM mixing options.
+with numpy and kept as f32 tensors; each JAX scan over steps is a Python
+loop.  The training losses and the VLB (and ``DiffusionSpec.loss_type``)
+come with the diffusion trainer.
 """
 
 from __future__ import annotations
@@ -79,25 +81,48 @@ class DiffusionSpec:
     schedule: str = 'linear'
     steps: int = 1000
     mean_type: str = 'eps'            # 'eps' | 'x0' | 'v'
-    var_type: str = 'fixed_small'     # 'fixed_small' | 'fixed_large'
+    # 'fixed_small' | 'fixed_large' | 'learned_range'
+    var_type: str = 'fixed_small'
+    mixed_prediction: bool = False    # LSGM mixing-logit prediction
+    clip_denoised: bool = False
+    rescale_timesteps: bool = False
 
 
 _TABLES = ('betas', 'alphas_cumprod', 'alphas_cumprod_prev',
-           'sqrt_alphas_cumprod', 'sqrt_one_minus_alphas_cumprod',
-           'sqrt_recip_alphas_cumprod', 'sqrt_recipm1_alphas_cumprod',
-           'posterior_variance', 'posterior_log_variance_clipped',
-           'posterior_mean_coef1', 'posterior_mean_coef2')
+           'alphas_cumprod_next', 'sqrt_alphas_cumprod',
+           'sqrt_one_minus_alphas_cumprod', 'sqrt_recip_alphas_cumprod',
+           'sqrt_recipm1_alphas_cumprod', 'posterior_variance',
+           'posterior_log_variance_clipped', 'posterior_mean_coef1',
+           'posterior_mean_coef2')
+
+
+def _start_noise(shape, device, generator, x_init):
+    """``x_init`` (the tests feed JAX's draw) or a standard normal draw
+    from ``generator``."""
+    if x_init is None:
+        return torch.randn(shape, generator=generator, device=device)
+    return x_init.to(device=device, dtype=torch.float32)
+
+
+def _step_noise(noise, i, x, generator):
+    """Step ``i``'s draw: ``noise[i]`` of a given (steps, *shape) stack, or
+    a standard normal draw from ``generator``."""
+    if noise is not None:
+        return noise[i].to(device=x.device, dtype=x.dtype)
+    return torch.randn(x.shape, generator=generator, device=x.device)
 
 
 class GaussianDiffusion:
-    """Schedule tables and the q/p math used by DDIM sampling."""
+    """Schedule tables and the q/p math of the samplers."""
 
     def __init__(self, spec: DiffusionSpec,
                  use_timesteps: Optional[list[int]] = None):
-        if spec.var_type not in ('fixed_small', 'fixed_large'):
+        if spec.var_type not in ('fixed_small', 'fixed_large',
+                                 'learned_range'):
             raise NotImplementedError(f'var_type {spec.var_type!r}')
         self.spec = spec
         betas = get_named_beta_schedule(spec.schedule, spec.steps)
+        self.original_num_steps = spec.steps
 
         if use_timesteps is not None:
             # respacing: recompute betas over the kept subsequence
@@ -120,6 +145,7 @@ class GaussianDiffusion:
         post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
         tables = dict(
             betas=betas, alphas_cumprod=acp, alphas_cumprod_prev=acp_prev,
+            alphas_cumprod_next=np.append(acp[1:], 0.0),
             sqrt_alphas_cumprod=np.sqrt(acp),
             sqrt_one_minus_alphas_cumprod=np.sqrt(1 - acp),
             sqrt_recip_alphas_cumprod=np.sqrt(1.0 / acp),
@@ -147,9 +173,18 @@ class GaussianDiffusion:
         out = self.table(name, t.device)[t]
         return out.reshape(t.shape + (1,) * (ndim - 1))
 
+    def _t(self, value: int, batch: int, device) -> torch.Tensor:
+        return torch.full((batch,), value, dtype=torch.int64, device=device)
+
     def scale_t(self, t: torch.Tensor) -> torch.Tensor:
-        """Model-facing timestep: the respaced index's original step."""
-        return self.table('timestep_map', t.device)[t]
+        """Model-facing timestep: the respaced index's original step, as an
+        f32 ``step·1000/original steps`` with ``rescale_timesteps``."""
+        mapped = self.table('timestep_map', t.device)[t]
+        if self.spec.rescale_timesteps:
+            return mapped.float() * (1000.0 / self.original_num_steps)
+        return mapped
+
+    # -- prediction conversions --------------------------------------------
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         mean = (self._extract('posterior_mean_coef1', t, x_t.ndim) * x_start
@@ -173,10 +208,42 @@ class GaussianDiffusion:
                 - self._extract('sqrt_one_minus_alphas_cumprod', t, x_t.ndim)
                 * v)
 
-    def p_mean_variance(self, model_output, x, t):
+    def predict_eps_from_v(self, x_t, t, v):
+        return (self._extract('sqrt_alphas_cumprod', t, x_t.ndim) * v
+                + self._extract('sqrt_one_minus_alphas_cumprod', t, x_t.ndim)
+                * x_t)
+
+    def _apply_mixing(self, model_output, x_t, t, mixing_logit,
+                      space: str = 'eps'):
+        """LSGM mixed prediction: (1 − σ(logit))·component +
+        σ(logit)·model_output, where the component is the analytic
+        denoiser of the N(0, I) prior, √(1−ᾱ_t)·x_t in ``'eps'`` space
+        (model_output must already be eps) and √ᾱ_t·x_t in ``'x0'``."""
+        m = torch.sigmoid(mixing_logit)
+        table = ('sqrt_one_minus_alphas_cumprod' if space == 'eps'
+                 else 'sqrt_alphas_cumprod')
+        mixing_component = self._extract(table, t, x_t.ndim) * x_t
+        return (1 - m) * mixing_component + m * model_output
+
+    def p_mean_variance(self, model_output, x, t,
+                        mixing_logit: Optional[torch.Tensor] = None):
         """→ (mean, variance, log variance, x0) (reference
-        ``p_mean_variance:273-349``, fixed variances)."""
-        if self.spec.var_type == 'fixed_large':
+        ``p_mean_variance:273-349``).  ``learned_range`` splits the output's
+        channels in halves, the second interpolating the log variance
+        between the clipped posterior's and log β; with
+        ``mixed_prediction`` and a logit, v outputs turn into eps first,
+        then mix."""
+        spec = self.spec
+        if spec.var_type == 'learned_range':
+            model_output, var_values = model_output.chunk(2, dim=-1)
+            min_log = self._extract('posterior_log_variance_clipped', t,
+                                    x.ndim)
+            max_log = torch.log(self.table('betas', x.device))[t].reshape(
+                t.shape + (1,) * (x.ndim - 1))
+            frac = (var_values + 1) / 2
+            model_log_variance = frac * max_log + (1 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif spec.var_type == 'fixed_large':
             var = torch.cat([self.table('posterior_variance', x.device)[1:2],
                              self.table('betas', x.device)[1:]])
             model_variance = var[t].reshape(t.shape + (1,) * (x.ndim - 1))
@@ -185,44 +252,156 @@ class GaussianDiffusion:
             model_variance = self._extract('posterior_variance', t, x.ndim)
             model_log_variance = self._extract(
                 'posterior_log_variance_clipped', t, x.ndim)
-        if self.spec.mean_type == 'eps':
+
+        mean_type = spec.mean_type
+        if spec.mixed_prediction and mixing_logit is not None:
+            if mean_type == 'v':
+                model_output = self.predict_eps_from_v(x, t, model_output)
+                mean_type = 'eps'
+            space = 'x0' if mean_type == 'x0' else 'eps'
+            model_output = self._apply_mixing(model_output, x, t,
+                                              mixing_logit, space=space)
+        if mean_type == 'eps':
             x0 = self.predict_xstart_from_eps(x, t, model_output)
-        elif self.spec.mean_type == 'v':
+        elif mean_type == 'v':
             x0 = self.predict_xstart_from_v(x, t, model_output)
         else:
             x0 = model_output
+        if spec.clip_denoised:
+            x0 = torch.clamp(x0, -1.0, 1.0)
         mean, _, _ = self.q_posterior_mean_variance(x0, x, t)
         return mean, model_variance, model_log_variance, x0
+
+    def _eps(self, model_fn, x, t, model_kwargs, mixing_logit):
+        """The eps that the model's x0 implies at (x, t), and that x0."""
+        out = model_fn(x, self.scale_t(t), **model_kwargs)
+        _, _, _, x0 = self.p_mean_variance(out, x, t, mixing_logit)
+        return self.predict_eps_from_xstart(x, t, x0), x0
+
+    # -- samplers ------------------------------------------------------------
+    #
+    # Each loop is JAX's ``lax.scan`` as a Python loop.  Start noise is
+    # ``x_init`` when given, the per-step draws ``noise[i]`` of a (steps,
+    # *shape) stack when given (the tests feed JAX's draws), else both
+    # come from ``generator``.
+
+    @torch.no_grad()
+    def p_sample_loop(self, model_fn: ModelFn, shape, device=None,
+                      generator: Optional[torch.Generator] = None,
+                      model_kwargs=None,
+                      mixing_logit: Optional[torch.Tensor] = None,
+                      x_init: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None):
+        """Ancestral DDPM sampling (reference ``p_sample_loop:627``)."""
+        model_kwargs = model_kwargs or {}
+        x = _start_noise(shape, device, generator, x_init)
+        for i in range(self.num_timesteps):
+            t = self._t(self.num_timesteps - 1 - i, shape[0], x.device)
+            out = model_fn(x, self.scale_t(t), **model_kwargs)
+            mean, _, log_var, _ = self.p_mean_variance(out, x, t,
+                                                       mixing_logit)
+            z = _step_noise(noise, i, x, generator)
+            nonzero = (t > 0).to(x.dtype).reshape(
+                (-1,) + (1,) * (x.ndim - 1))
+            x = mean + nonzero * torch.exp(0.5 * log_var) * z
+        return x
 
     @torch.no_grad()
     def ddim_sample_loop(self, model_fn: ModelFn, shape, device=None,
                          generator: Optional[torch.Generator] = None,
-                         model_kwargs=None,
-                         x_init: Optional[torch.Tensor] = None):
-        """Deterministic DDIM (eta 0, reference ``ddim_sample_loop``).  The
-        start noise is ``x_init`` when given (the tests feed JAX's draw),
-        else drawn from ``generator``."""
+                         model_kwargs=None, eta: float = 0.0,
+                         mixing_logit: Optional[torch.Tensor] = None,
+                         x_init: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None):
+        """DDIM (reference ``ddim_sample_loop:908``); ``eta`` > 0 adds
+        σ_t-scaled noise per step.  At η = 0 nothing is drawn after the
+        start (JAX draws and multiplies by 0)."""
         model_kwargs = model_kwargs or {}
-        if x_init is None:
-            x = torch.randn(shape, generator=generator, device=device)
-        else:
-            x = x_init.to(device=device, dtype=torch.float32)
+        x = _start_noise(shape, device, generator, x_init)
         for i in range(self.num_timesteps):
-            t = torch.full((shape[0],), self.num_timesteps - 1 - i,
-                           dtype=torch.int64, device=x.device)
-            out = model_fn(x, self.scale_t(t), **model_kwargs)
-            _, _, _, x0 = self.p_mean_variance(out, x, t)
-            eps = self.predict_eps_from_xstart(x, t, x0)
+            t = self._t(self.num_timesteps - 1 - i, shape[0], x.device)
+            eps, x0 = self._eps(model_fn, x, t, model_kwargs, mixing_logit)
             alpha_bar_prev = self._extract('alphas_cumprod_prev', t, x.ndim)
-            x = (x0 * torch.sqrt(alpha_bar_prev)
-                 + torch.sqrt(1 - alpha_bar_prev) * eps)
+            if eta == 0:
+                x = (x0 * torch.sqrt(alpha_bar_prev)
+                     + torch.sqrt(1 - alpha_bar_prev) * eps)
+                continue
+            alpha_bar = self._extract('alphas_cumprod', t, x.ndim)
+            sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                     * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+            z = _step_noise(noise, i, x, generator)
+            mean_pred = (x0 * torch.sqrt(alpha_bar_prev)
+                         + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps)
+            nonzero = (t > 0).to(x.dtype).reshape(
+                (-1,) + (1,) * (x.ndim - 1))
+            x = mean_pred + nonzero * sigma * z
+        return x
+
+    @torch.no_grad()
+    def plms_sample_loop(self, model_fn: ModelFn, shape, device=None,
+                         generator: Optional[torch.Generator] = None,
+                         model_kwargs=None,
+                         mixing_logit: Optional[torch.Tensor] = None,
+                         x_init: Optional[torch.Tensor] = None):
+        """PLMS (reference ``ldm/models/diffusion/plms.py:144-242``): the
+        deterministic DDIM transfer applied to an Adams–Bashforth
+        extrapolation of the last ≤ 4 eps, orders 2, 3 and 4 as the
+        history fills; the first step (t = T−1) averages eps at T−1 and at
+        T−2, Heun-style.  T + 1 model calls."""
+        model_kwargs = model_kwargs or {}
+        x = _start_noise(shape, device, generator, x_init)
+
+        def eps_at(x, t):
+            return self._eps(model_fn, x, t, model_kwargs, mixing_logit)[0]
+
+        def transfer(x, t, eps):
+            x0 = self.predict_xstart_from_eps(x, t, eps)
+            alpha_bar_prev = self._extract('alphas_cumprod_prev', t, x.ndim)
+            return (x0 * torch.sqrt(alpha_bar_prev)
+                    + torch.sqrt(1 - alpha_bar_prev) * eps)
+
+        T = self.num_timesteps
+        t0 = self._t(T - 1, shape[0], x.device)
+        e0 = eps_at(x, t0)
+        e0_next = eps_at(transfer(x, t0, e0), torch.clamp(t0 - 1, min=0))
+        x = transfer(x, t0, (e0 + e0_next) / 2)
+        hist = [e0]                     # newest first, at most 3
+        for i in range(1, T):
+            t = self._t(T - 1 - i, shape[0], x.device)
+            e_t = eps_at(x, t)
+            if len(hist) == 1:
+                eps_prime = (3 * e_t - hist[0]) / 2
+            elif len(hist) == 2:
+                eps_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12
+            else:
+                eps_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1]
+                             - 9 * hist[2]) / 24
+            x = transfer(x, t, eps_prime)
+            hist = [e_t] + hist[:2]
+        return x
+
+    @torch.no_grad()
+    def ddim_reverse_sample_loop(self, model_fn: ModelFn, x,
+                                 model_kwargs=None,
+                                 mixing_logit: Optional[torch.Tensor] = None):
+        """Deterministic encoding x0 → x_T (reference
+        ``ddim_reverse_sample:872``)."""
+        model_kwargs = model_kwargs or {}
+        for i in range(self.num_timesteps):
+            t = self._t(i, x.shape[0], x.device)
+            eps, x0 = self._eps(model_fn, x, t, model_kwargs, mixing_logit)
+            alpha_bar_next = self._extract('alphas_cumprod_next', t, x.ndim)
+            x = x0 * torch.sqrt(alpha_bar_next) \
+                + torch.sqrt(1 - alpha_bar_next) * eps
         return x
 
 
 def make_cfg_model_fn(model_fn: ModelFn, cfg_scale: float,
-                      uncond_kwargs: dict):
+                      uncond_kwargs: dict, guided_channels: int = -1):
     """Classifier-free guidance by batch doubling: the returned model_fn
-    runs cond and uncond in one doubled batch."""
+    runs cond and uncond in one doubled batch.  ``guided_channels`` > 0
+    guides only the first channels and passes the rest (a learned
+    variance half, say) through from the conditional half."""
 
     def guided(x, t, **cond_kwargs):
         xx = torch.cat([x, x], dim=0)
@@ -235,17 +414,23 @@ def make_cfg_model_fn(model_fn: ModelFn, cfg_scale: float,
             else:
                 kwargs[k] = torch.cat([c, u], dim=0)
         cond, uncond = model_fn(xx, tt, **kwargs).chunk(2, dim=0)
-        return uncond + cfg_scale * (cond - uncond)
+        if guided_channels == -1:
+            return uncond + cfg_scale * (cond - uncond)
+        g = uncond[..., :guided_channels] + cfg_scale * (
+            cond[..., :guided_channels] - uncond[..., :guided_channels])
+        return torch.cat([g, cond[..., guided_channels:]], dim=-1)
 
     return guided
 
 
 def make_diffusion(schedule: str = 'linear', steps: int = 1000,
                    mean_type: str = 'eps', var_type: str = 'fixed_small',
-                   timestep_respacing: str | None = None
-                   ) -> GaussianDiffusion:
+                   timestep_respacing: str | None = None,
+                   mixed_prediction: bool = False,
+                   rescale_timesteps: bool = False) -> GaussianDiffusion:
     spec = DiffusionSpec(schedule=schedule, steps=steps, mean_type=mean_type,
-                         var_type=var_type)
+                         var_type=var_type, mixed_prediction=mixed_prediction,
+                         rescale_timesteps=rescale_timesteps)
     use = None
     if timestep_respacing:
         use = space_timesteps(steps, timestep_respacing)

@@ -5,12 +5,12 @@ Port of ``ln3diff_tpu/diffusion/transport.py``: ``PathPlan`` :27 (linear,
 gvp and vp interpolants with their velocities and the velocity→score
 map), ``TransportSpec`` :80, ``Transport.sample_ode`` :120 (fixed-step
 Euler or Heun from noise at t = 0 to data at t = 1, or back with
-``reverse``) and ``create_transport`` :189.  The denoiser gets t as JAX
-sends it: a float in [0, 1], not scaled to 1000 steps.
+``reverse``), ``Transport.sample_sde`` :151 (Euler–Maruyama with the
+score-augmented drift) and ``create_transport`` :189.  The denoiser gets
+t as JAX sends it: a float in [0, 1], not scaled to 1000 steps.
 
 The JAX loop is one ``lax.scan``; here it is a Python loop of eager
-steps.  The training losses, ``sample_t`` and the SDE sampler are not
-ported.
+steps.  The training losses and ``sample_t`` come with the trainer.
 """
 
 from __future__ import annotations
@@ -136,6 +136,45 @@ class Transport:
                 v2 = velocity(x + dt * v1, t_scalar + dt)
                 x = x + 0.5 * dt * (v1 + v2)
         return x
+
+    @torch.no_grad()
+    def sample_sde(self, model_fn: ModelFn, shape, num_steps: int = 250,
+                   diffusion_norm: float = 1.0, model_kwargs=None,
+                   last_step_size: float = 0.04, device=None,
+                   generator: Optional[torch.Generator] = None,
+                   x_init: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None):
+        """Euler–Maruyama from noise at t = ``sample_eps`` to t = 1 −
+        ``last_step_size``: dx = (v + g²/2 · score)·dt + g·dW with g² =
+        ``diffusion_norm`` and the score from the velocity, then one
+        deterministic Euler step of ``last_step_size``.  The start is
+        ``x_init`` and the step draws ``noise[i]`` of a (num_steps,
+        *shape) stack when given (the tests feed JAX's draws), else both
+        come from ``generator``."""
+        model_kwargs = model_kwargs or {}
+        if x_init is None:
+            x = torch.randn(shape, generator=generator, device=device)
+        else:
+            x = x_init.to(device=device, dtype=torch.float32)
+        t0 = self.spec.sample_eps
+        t1 = 1.0 - last_step_size
+        dt = (t1 - t0) / num_steps
+        ts = t0 + dt * torch.arange(num_steps, dtype=torch.float32,
+                                    device=x.device)
+        g2 = diffusion_norm
+        # √(g²·dt) in f32, as JAX takes it
+        g_sqrt_dt = torch.sqrt(torch.tensor(g2 * dt, dtype=torch.float32,
+                                            device=x.device))
+        for i, t_scalar in enumerate(ts):
+            t = t_scalar.expand(shape[0])
+            v = model_fn(x, t, **model_kwargs)
+            s = self.path.score_from_velocity(v, x, t)
+            z = (noise[i].to(device=x.device, dtype=x.dtype)
+                 if noise is not None else
+                 torch.randn(shape, generator=generator, device=x.device))
+            x = x + (v + 0.5 * g2 * s) * dt + g_sqrt_dt * z
+        t = torch.full((shape[0],), t1, dtype=torch.float32, device=x.device)
+        return x + last_step_size * model_fn(x, t, **model_kwargs)
 
 
 def create_transport(path_type: str = 'Linear') -> Transport:

@@ -14,7 +14,11 @@ layer.  Attention is the plain matmul-softmax-matmul of
 ``DiTConfig.fused_attention=True`` (the serving switch) sends the
 denoiser's self-attention through the fused kernel
 (``ops/fused_attention.py``), as the JAX package's ``Attention.fused``
-does.  The int8 serving knob, ``learn_sigma`` and remat are not ported.
+does.  ``DiTConfig.quantized=True`` (the W8A8 serving knob) makes every
+block's ``qkv``/``proj``, ``to_q``/``to_k``/``to_v``/``to_out`` and
+``fc1``/``fc2`` an ``ops.int8.Int8Linear``, as the JAX package's
+``_dense_cls`` does; the adaLN, the norms and the embedders stay in the
+model's dtype.  ``learn_sigma`` and remat come with the trainer.
 
 Layout: latents are channels-last ``(B, H, W, C)`` with the channel axis
 decomposed as ``(c, plane)``, plane fastest, as in the JAX package.  The
@@ -37,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_attention import sdpa_auto
+from ..ops.int8 import Int8Linear
 from .layers import RMSNorm, dot_product_attention, timestep_embedding
 
 
@@ -70,6 +75,11 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size) -> np.ndarray:
 # building blocks
 # ---------------------------------------------------------------------------
 
+def _dense_cls(quantized: bool):
+    """``nn.Linear``, or its W8A8 int8 drop-in for quantized serving."""
+    return Int8Linear if quantized else nn.Linear
+
+
 def t2i_modulate(x, shift, scale):
     return x * (1 + scale) + shift
 
@@ -83,18 +93,20 @@ class Attention(nn.Module):
     """Multi-head self-attention.  ``qk_norm`` RMS-normalises q and k over
     the head dim (eps 1e-5).  ``fused=True`` runs the fused kernel on q, k
     and v: v (and q, k without ``qk_norm``) read in place from the one
-    qkv projection."""
+    qkv projection (int8 with ``quantized``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 qk_norm: bool = False, fused: bool = False):
+                 qk_norm: bool = False, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.fused = fused
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        dense = _dense_cls(quantized)
+        self.qkv = dense(dim, 3 * dim, bias=qkv_bias)
         hd = dim // num_heads
         self.q_norm = RMSNorm(hd) if qk_norm else None
         self.k_norm = RMSNorm(hd) if qk_norm else None
-        self.proj = nn.Linear(dim, dim)
+        self.proj = dense(dim, dim)
 
     def forward(self, x):
         B, L, D = x.shape
@@ -111,15 +123,16 @@ class CrossAttention(nn.Module):
     ``dim_head=64`` inner width (projections map to heads·64)."""
 
     def __init__(self, dim: int, num_heads: int, context_dim: int,
-                 dim_head: int = 64):
+                 dim_head: int = 64, quantized: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dim_head = dim_head
         inner = num_heads * dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        dense = _dense_cls(quantized)
+        self.to_q = dense(dim, inner, bias=False)
+        self.to_k = dense(context_dim, inner, bias=False)
+        self.to_v = dense(context_dim, inner, bias=False)
+        self.to_out = dense(inner, dim)
 
     def forward(self, x, context):
         B, L, _ = x.shape
@@ -135,11 +148,12 @@ class CrossAttention(nn.Module):
 
 class GeluMLP(nn.Module):
     def __init__(self, dim: int, hidden_mult: int = 4,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, quantized: bool = False):
         super().__init__()
         self.approximate = 'none' if exact_gelu else 'tanh'
-        self.fc1 = nn.Linear(dim, dim * hidden_mult)
-        self.fc2 = nn.Linear(dim * hidden_mult, dim)
+        dense = _dense_cls(quantized)
+        self.fc1 = dense(dim, dim * hidden_mult)
+        self.fc2 = dense(dim * hidden_mult, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
@@ -192,12 +206,13 @@ class DiTBlock(nn.Module):
       ``'mv-pixelart'`` RMS-normalise q and k in the self-attention;
       ``'image-*'`` concatenate the DINO tokens into the self-attention
       and drop them after it; ``'pixelart-text'`` RMS-normalises the
-      context (``attention_y_norm``)."""
+      context (``attention_y_norm``).  ``quantized`` makes the
+      attention projections and the MLP W8A8 int8."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int = 4,
                  variant: str = 'adaln', context_dim: Optional[int] = None,
                  token_modulation: bool = False, exact_gelu: bool = True,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, quantized: bool = False):
         super().__init__()
         if variant not in ('adaln',) + CROSS_ATTN_VARIANTS + PIXART_VARIANTS:
             raise NotImplementedError(f'DiT block variant {variant!r}')
@@ -215,12 +230,14 @@ class DiTBlock(nn.Module):
             self.norm1 = self.norm2 = _layer_norm
         qk_norm = variant.startswith('image-') or variant == 'mv-pixelart'
         self.attn = Attention(D, num_heads, qk_norm=qk_norm,
-                              fused=fused_attention)
+                              fused=fused_attention, quantized=quantized)
         if variant == 'pixelart-text':
             self.attention_y_norm = RMSNorm(context_dim or D)
         if variant in CROSS_ATTN_VARIANTS:
-            self.cross_attn = CrossAttention(D, num_heads, context_dim or D)
-        self.mlp = GeluMLP(D, mlp_ratio, exact_gelu=exact_gelu)
+            self.cross_attn = CrossAttention(D, num_heads, context_dim or D,
+                                             quantized=quantized)
+        self.mlp = GeluMLP(D, mlp_ratio, exact_gelu=exact_gelu,
+                           quantized=quantized)
 
     def forward(self, x, c, context=None, dino_tokens=None):
         if self.pixelart:
@@ -317,6 +334,8 @@ class DiTConfig:
     exact_gelu: bool = True
     # serving mode: self-attention through the fused kernel
     fused_attention: bool = False
+    # serving mode: W8A8 int8 block projections and MLPs (ops/int8.py)
+    quantized: bool = False
     dtype: Any = torch.bfloat16
 
 
@@ -356,7 +375,8 @@ class DiT_TriLatent(nn.Module):
         self.blocks = nn.ModuleList([
             DiTBlock(D, cfg.num_heads, cfg.mlp_ratio, variant=cfg.variant,
                      context_dim=block_ctx, exact_gelu=cfg.exact_gelu,
-                     fused_attention=cfg.fused_attention)
+                     fused_attention=cfg.fused_attention,
+                     quantized=cfg.quantized)
             for _ in range(cfg.depth)])
         self.final_layer = FinalLayer(D, cfg.patch_size**2 * cfg.in_channels,
                                       t2i=cfg.t2i_final)

@@ -91,14 +91,27 @@ def random_init_(module: nn.Module,
     """Fill every parameter from ``generator`` (for runs with no released
     weights): Linear and Conv weights ~ N(0, 1/fan_in), :class:`EqualDense`
     weights ~ N(0, 1) (they are scaled at run time), normalisation scales
-    1, biases 0, embeddings and other tables ~ N(0, 0.02²)."""
+    1, biases 0, embeddings and other tables ~ N(0, 0.02²).  An
+    ``Int8Linear`` quantizes the draw a Linear of its shape would get, so
+    a quantized model holds the int8 form of its float twin's weights."""
+    from ..ops.int8 import Int8Linear
+
+    def draw(shape, std, device):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32) * std
 
     def normal(p, std):
-        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32) * std)
+        p.copy_(draw(p.shape, std, p.device))
 
     with torch.no_grad():
         for mod in module.modules():
+            if isinstance(mod, Int8Linear):
+                mod.load_weight(draw(mod.kernel_q.shape,
+                                     1.0 / math.sqrt(mod.in_features),
+                                     mod.kernel_q.device))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+                continue
             for name, p in mod.named_parameters(recurse=False):
                 if isinstance(mod, (nn.GroupNorm, nn.LayerNorm, RMSNorm)):
                     p.fill_(1.0 if name == 'weight' else 0.0)

@@ -3,7 +3,8 @@
 
 Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
 :194, ``decode_latent`` :213-238, ``_fused_osg`` :245-251, ``render``
-:253-306, ``__call__`` :328, ``query_points`` :359-378) for the SD
+:253-306, ``render_rays_flat`` :307, ``__call__`` :328, ``query_points``
+:359-378) for the SD
 encoders (``encoder_type='sd'``).  The ``'lgm'`` encoder, the render-space
 SR heads and the background planes wait for later slices.
 
@@ -225,6 +226,21 @@ class TriplaneVAE(nn.Module):
                     image_raw=feature_image[..., :3],
                     image_depth=depth_image,
                     image_mask=weights * 1.002 - 0.001)
+
+    def render_rays_flat(self, planes: torch.Tensor,
+                         ray_origins: torch.Tensor,
+                         ray_directions: torch.Tensor,
+                         render_opts: RenderOptions,
+                         use_fused_osg: bool = False) -> torch.Tensor:
+        """Render any (B, R) ray bundle → flat features (B, R, C), R not
+        necessarily square: no image reshape, so an orbit's frames can
+        fold into the ray axis over one set of planes
+        (``TextTo3DPipeline.render_orbit`` with ``render_rays_fn``).
+        Foreground only, deterministic sampling."""
+        return render_rays(planes, self.osg_decoder, ray_origins,
+                           ray_directions, render_opts,
+                           fused_osg=self.fused_osg() if use_fused_osg
+                           else None).feature_samples
 
     # -- end to end -------------------------------------------------------
 

@@ -7,17 +7,20 @@ Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
 ``save_video_frames`` :447):
 
   1. (cond, uncond) context from the family's conditioning towers;
-  2. the flow-matching ODE (``diffusion/transport.py``) or DDIM over
+  2. the flow-matching ODE (``diffusion/transport.py``), DDIM, PLMS or
+     DPM-Solver++(2M) (``diffusion/gaussian.py``, ``dpm_solver.py``) over
      ``(B, 32, 32, 12)`` latents with doubled-batch classifier-free
-     guidance (cfg 1.0 runs the conditional half only);
+     guidance (cfg 1.0 runs the conditional half only) and an optional
+     LSGM mixing logit;
   3. latent × triplane_scaling_divider → VAE decode → planes;
-  4. orbit render, frames folded into the batch in memory-budgeted chunks;
+  4. the orbit render — the analytic ring or explicit ``(F, 25)``
+     ``cameras`` — with frames folded into the batch in memory-budgeted
+     chunks, or, with a flat-ray renderer ``render_rays_fn`` and batch 1,
+     into the ray axis over one set of planes;
   5. with a ``mesh_path``: σ-grid query, marching tetrahedra on the host,
      per-vertex colours and the OBJ/PLY export, interleaved with the orbit.
 
-The JAX version's explicit ``cameras``, flat-ray renderer, LSGM mixing
-logit, PLMS and DPM-Solver samplers and multi-chip sharding are not
-ported.
+The JAX version's multi-chip sharding (``serving_mesh``) is not ported.
 
 The pipeline takes callables over tensors (the JAX version takes
 param-explicit ones); :func:`build_t23d_pipeline`,
@@ -56,9 +59,10 @@ def frames_to_uint8(v: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class SamplerSpec:
     """``kind``: ``'flow_matching'`` (the JAX default: ``num_steps`` Euler
-    steps of the transport's ODE) or ``'ddim'`` (``num_steps`` respaced
-    steps of the 1000-step schedule).  JAX's ``'plms'`` and ``'dpm'`` are
-    not ported and raise."""
+    steps of the transport's ODE), ``'ddim'`` or ``'plms'`` (over the
+    pipeline's diffusion, which the builders respace to
+    ``ddim{num_steps}``), or ``'dpm'`` (``num_steps`` DPM-Solver++(2M)
+    steps over the full, unspaced schedule)."""
     kind: str = 'flow_matching'
     num_steps: int = 250
     cfg_scale: float = 6.5
@@ -73,17 +77,29 @@ class TextTo3DPipeline:
       decode_fn(latents) -> planes (B, 3, H, W, C)
       render_fn(planes, cam25) -> images (B, H, W, 3)
       point_decoder_fn(planes, coords) -> (rgb, sigma)
+      render_rays_fn(planes, ray_o, ray_d) -> features (B, R, C), optional
+
+    ``render_rays_fn`` (``TriplaneVAE.render_rays_flat``) lets a batch-1
+    orbit fold its frames into the ray axis: one set of planes and one
+    corner-packed table per chunk, no per-frame copy of the planes.
+    ``mixing_logit`` is the LSGM learned logit that ``p_mean_variance``
+    blends the prediction with (DDPM-family samplers of a diffusion with
+    ``mixed_prediction``).
     """
 
     def __init__(self, denoiser_fn, decode_fn, render_fn, point_decoder_fn,
                  sampler: SamplerSpec = SamplerSpec(), diffusion=None,
                  transport: Optional[Transport] = None,
+                 render_rays_fn=None,
+                 mixing_logit: Optional[torch.Tensor] = None,
                  render_dtype: Optional[torch.dtype] = None,
                  device='cuda'):
         self.denoiser_fn = denoiser_fn
         self.decode_fn = decode_fn
         self.render_fn = render_fn
         self.point_decoder_fn = point_decoder_fn
+        self.render_rays_fn = render_rays_fn
+        self.mixing_logit = mixing_logit
         self.spec = sampler
         self.diffusion = diffusion
         self.transport = transport or Transport()
@@ -128,19 +144,23 @@ class TextTo3DPipeline:
                 return self.denoiser_fn(x, t, ctx)
         else:
             cfg_fn = self._make_cfg_fn(cond, uncond, batch)
+        draw = dict(device=self.device, generator=generator, x_init=x_init)
         if spec.kind == 'flow_matching':
             x = self.transport.sample_ode(cfg_fn, shape,
-                                          num_steps=spec.num_steps,
-                                          device=self.device,
-                                          generator=generator, x_init=x_init)
-        elif spec.kind == 'ddim':
-            if self.diffusion is None:
-                raise ValueError("kind='ddim' needs a diffusion")
-            x = self.diffusion.ddim_sample_loop(
-                cfg_fn, shape, device=self.device, generator=generator,
-                x_init=x_init)
-        else:
+                                          num_steps=spec.num_steps, **draw)
+        elif spec.kind not in ('ddim', 'plms', 'dpm'):
             raise NotImplementedError(f'sampler kind {spec.kind!r}')
+        elif self.diffusion is None:
+            raise ValueError(f'kind={spec.kind!r} needs a diffusion')
+        elif spec.kind == 'dpm':
+            from .diffusion.dpm_solver import dpm_solver_sample_loop
+            x = dpm_solver_sample_loop(self.diffusion, cfg_fn, shape,
+                                       num_steps=spec.num_steps,
+                                       mixing_logit=self.mixing_logit, **draw)
+        else:
+            loop = (self.diffusion.ddim_sample_loop if spec.kind == 'ddim'
+                    else self.diffusion.plms_sample_loop)
+            x = loop(cfg_fn, shape, mixing_logit=self.mixing_logit, **draw)
         return x * spec.triplane_scaling_divider
 
     # -- render ------------------------------------------------------------
@@ -149,25 +169,37 @@ class TextTo3DPipeline:
     def render_orbit(self, planes, num_frames: int = 24,
                      radius: float = 1.8, fov: float = 30.0,
                      pitch_deg: float = 20.0,
+                     frames_per_call: Optional[int] = None,
                      render_resolution: Optional[int] = None,
+                     samples_per_ray: int = 128,
                      hbm_budget_bytes: float = 4e9,
-                     frame_slice: Optional[tuple] = None):
+                     frame_slice: Optional[tuple] = None,
+                     cameras=None):
         """Render the evaluation orbit → (B, F, H, W, 3) in [-1, 1].
 
-        Frames fold into the batch in chunks small enough that the
-        gathered-corner tensor (frames·3·rays·128 samples·4C·itemsize)
-        stays within ``hbm_budget_bytes``: one 192² frame per call with
-        bf16 planes and the 4 GB default.  ``frame_slice=(a, b)`` renders
-        only frames [a, b) of the same ring of cameras."""
-        C = planes.shape[-1]
+        ``cameras``: explicit packed ``(F, 25)`` labels (for example
+        ``render.camera.load_pose_asset('assets/objv_eval_pose.pt')``, the
+        release's evaluation cameras) in place of the analytic ring and
+        ``num_frames``.  Frames fold into the batch in chunks of
+        ``frames_per_call``, by default as many as keep the
+        gathered-corner tensor (frames·3·rays·``samples_per_ray``·4C·
+        itemsize) within ``hbm_budget_bytes``: one 192² frame per call
+        with bf16 planes and the 4 GB default.  ``frame_slice=(a, b)``
+        renders only frames [a, b) of the same cameras."""
+        if cameras is not None:
+            num_frames = len(cameras)
         res = render_resolution or 128
-        bytes_per_frame = 3 * res * res * 128 * 4 * C * planes.element_size()
-        frames_per_call = min(num_frames,
-                              max(1, int(hbm_budget_bytes // bytes_per_frame)))
+        if frames_per_call is None:
+            C = planes.shape[-1]
+            bytes_per_frame = (3 * res * res * samples_per_ray * 4 * C
+                               * planes.element_size())
+            frames_per_call = max(1, int(hbm_budget_bytes // bytes_per_frame))
+        frames_per_call = min(frames_per_call, num_frames)
         while num_frames % frames_per_call:
             frames_per_call -= 1
-        cams = torch.as_tensor(orbit_cameras(num_frames, radius, fov,
-                                             pitch_deg),
+        if cameras is None:
+            cameras = orbit_cameras(num_frames, radius, fov, pitch_deg)
+        cams = torch.as_tensor(cameras, dtype=torch.float32,
                                device=planes.device)
         if frame_slice is not None:
             a, b = frame_slice
@@ -177,6 +209,9 @@ class TextTo3DPipeline:
             while num_frames % frames_per_call:
                 frames_per_call -= 1
         B = planes.shape[0]
+        if self.render_rays_fn is not None and B == 1:
+            return self._render_frames_flat(planes, cams, frames_per_call,
+                                            res)
         chunks = []
         for f0 in range(0, num_frames, frames_per_call):
             cam_chunk = cams[f0:f0 + frames_per_call]
@@ -185,6 +220,20 @@ class TextTo3DPipeline:
             imgs = self.render_fn(planes_f, cams_f)
             chunks.append(imgs.reshape(B, frames_per_call, *imgs.shape[1:]))
         return torch.cat(chunks, dim=1)
+
+    def _render_frames_flat(self, planes, cams, frames_per_call, res):
+        """Batch-1 orbit with the frames folded into the ray axis: the rays
+        of ``frames_per_call`` frames per ``render_rays_fn`` call, against
+        the one set of planes → (1, F, res, res, 3)."""
+        from .render.ray_sampler import sample_full_rays, unpack_25d_camera
+        c2w, intr = unpack_25d_camera(cams)
+        ray_o, ray_d = sample_full_rays(c2w, intr, res)      # (F, R, 3)
+        ray_o, ray_d = ray_o.reshape(1, -1, 3), ray_d.reshape(1, -1, 3)
+        step = frames_per_call * res * res
+        chunks = [self.render_rays_fn(planes, ray_o[:, r0:r0 + step],
+                                      ray_d[:, r0:r0 + step])[..., :3]
+                  for r0 in range(0, ray_o.shape[1], step)]
+        return torch.cat(chunks, dim=1).reshape(1, len(cams), res, res, 3)
 
     def _mesh_decoder(self, planes):
         def decoder(coords):
@@ -228,9 +277,10 @@ class TextTo3DPipeline:
                  video_uint8: bool = False,
                  generator: Optional[torch.Generator] = None,
                  x_init: Optional[torch.Tensor] = None,
-                 mesh_smooth: bool = True):
+                 cameras=None, mesh_smooth: bool = True):
         """Full run → {'latents', 'planes', 'video'} and, with a
         ``mesh_path``, 'mesh' = (verts, faces) of the file written there.
+        ``cameras`` (F, 25) replace the analytic orbit and ``num_frames``.
         ``video_uint8`` returns the orbit as host uint8 frames.
         ``mesh_smooth`` (serving default) runs the 3³ σ denoise before
         marching; False marches the reference's raw field."""
@@ -240,20 +290,23 @@ class TextTo3DPipeline:
         out = {'latents': latents, 'planes': planes}
         if self.render_dtype is not None:
             planes = planes.to(self.render_dtype)
+        if cameras is not None:
+            num_frames = len(cameras)
         if mesh_path:
             video, out['mesh'] = self._orbit_and_mesh(
                 planes, num_frames, render_resolution, mesh_path, mesh_grid,
-                mesh_smooth)
+                mesh_smooth, cameras)
         else:
             video = self.render_orbit(planes, num_frames,
-                                      render_resolution=render_resolution)
+                                      render_resolution=render_resolution,
+                                      cameras=cameras)
         if video_uint8:
             video = frames_to_uint8(video).cpu().numpy()
         out['video'] = video
         return out
 
     def _orbit_and_mesh(self, planes, num_frames, render_resolution,
-                        mesh_path, mesh_grid, mesh_smooth):
+                        mesh_path, mesh_grid, mesh_smooth, cameras):
         """The orbit and the mesh, interleaved as in the JAX pipeline
         (``pipeline.py:401-444``): σ query, crossing count and the head
         quarter of the orbit are queued; the σ grid comes to the host only
@@ -270,13 +323,14 @@ class TextTo3DPipeline:
         head = min(max(num_frames // 4, 1), num_frames)
         v1 = self.render_orbit(planes, num_frames,
                                render_resolution=render_resolution,
-                               frame_slice=(0, head))
+                               frame_slice=(0, head), cameras=cameras)
         sigma_np = sigma_grid.cpu().numpy() if int(n_cross) else None
         v2 = None
         if head < num_frames:
             v2 = self.render_orbit(planes, num_frames,
                                    render_resolution=render_resolution,
-                                   frame_slice=(head, num_frames))
+                                   frame_slice=(head, num_frames),
+                                   cameras=cameras)
         if sigma_np is not None:
             verts, faces = march_grid(sigma_np, mesh_grid)
         else:
@@ -322,6 +376,22 @@ def _objaverse_pipeline(denoiser, vae, opts, render_resolution, sampler,
         render_dtype=render_dtype, device=device)
 
 
+def _sampler_diffusion(sampler: SamplerSpec):
+    """The 1000-step linear schedule that a DDPM-family ``sampler`` runs
+    over: respaced to ``ddim{num_steps}`` for ``'ddim'`` and ``'plms'``,
+    unspaced for ``'dpm'`` (its own solver grid, as ``bench.py``'s
+    ``dpm25`` builds it); None for flow matching."""
+    from .diffusion.gaussian import make_diffusion
+    if sampler.kind == 'flow_matching':
+        return None
+    if sampler.kind == 'dpm':
+        return make_diffusion(steps=1000)
+    if sampler.kind in ('ddim', 'plms'):
+        return make_diffusion(steps=1000,
+                              timestep_respacing=f'ddim{sampler.num_steps}')
+    raise ValueError(f'sampler kind {sampler.kind!r}')
+
+
 def _random_modules(device, seed, constructors):
     """``{name: module}`` built on ``device``, every parameter drawn from
     one ``torch.Generator`` seeded with ``seed``."""
@@ -346,10 +416,12 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     and run in bf16, the DiT2-L/2 VAE decoder in bf16, the f32 CLIP text
     tower, 250-step DDIM with CFG 6.5, 192² renders with 64+64 samples
     through the fused point kernel, bf16 planes.  The checkpoint is a DDPM
-    model: ``sampler.kind`` must be ``'ddim'``.  Weights are random,
-    drawn from a ``torch.Generator`` seeded with ``seed`` — unless
-    ``modules`` supplies ``{'denoiser', 'vae', 'text_model'}`` (for
-    example loaded through ``bridge.py``).
+    model: ``sampler.kind`` is ``'ddim'``, ``'plms'`` or ``'dpm'``.
+    ``den_cfg.quantized`` gives the W8A8 int8 DiT (``ops/int8.py``).
+    Weights are random, drawn from a ``torch.Generator`` seeded with
+    ``seed`` — unless ``modules`` supplies ``{'denoiser', 'vae',
+    'text_model'}`` (for example loaded through ``bridge.py``, or a
+    denoiser through ``ops.int8.quantize_dit``).
 
     Returns ``(pipeline, encode, modules)``; ``encode(prompt)`` gives the
     (cond, uncond) context pair.
@@ -357,7 +429,6 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     from .conditioning.clip import (CLIPTextConfig, CLIPTextModel,
                                     default_tokenizer)
     from .config import RENDER_PRESETS, denoiser_preset, vae_preset
-    from .diffusion.gaussian import make_diffusion
     from .models.dit import DiT_TriLatent
     from .models.vae import TriplaneVAE
 
@@ -370,8 +441,9 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     opts = render_opts or RENDER_PRESETS[
         'objverse_tuneray_aug_resolution_64_64_auto']
     sampler = sampler or SamplerSpec(kind='ddim')
-    if sampler.kind != 'ddim':
-        raise ValueError(f'the text→3D checkpoint samples with DDIM, got '
+    if sampler.kind not in ('ddim', 'plms', 'dpm'):
+        raise ValueError(f'the text→3D checkpoint is a DDPM model: it '
+                         f'samples with DDIM, PLMS or DPM-Solver, got '
                          f'sampler kind {sampler.kind!r}')
 
     if modules is None:
@@ -386,8 +458,7 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
 
     pipeline = _objaverse_pipeline(
         denoiser, vae, opts, render_resolution, sampler, render_dtype,
-        device, diffusion=make_diffusion(
-            steps=1000, timestep_respacing=f'ddim{sampler.num_steps}'))
+        device, diffusion=_sampler_diffusion(sampler))
 
     @torch.no_grad()
     def encode(prompt: str):
@@ -406,7 +477,8 @@ def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
     """The body that the image→3D and multi-view→3D builders share: the
     ``preset`` denoiser with tanh GELU, the Objaverse VAE and render
     options, DINOv2-B/14 in bf16, with ``clip_cfg`` the f32 CLIP vision
-    tower, CFG 4.0 on the flow-matching ODE.  ``make_encode(modules)``
+    tower, CFG 4.0 on the flow-matching ODE (or a DDPM-family
+    ``sampler.kind`` over ``_sampler_diffusion``).  ``make_encode(modules)``
     gives the family's ``encode``."""
     from .conditioning.clip import CLIPVisionModel
     from .config import RENDER_PRESETS, denoiser_preset, vae_preset
@@ -442,7 +514,8 @@ def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
 
     pipeline = _objaverse_pipeline(out['denoiser'], out['vae'], opts,
                                    render_resolution, sampler, render_dtype,
-                                   device, transport=transport)
+                                   device, transport=transport,
+                                   diffusion=_sampler_diffusion(sampler))
     return pipeline, make_encode(out), out
 
 

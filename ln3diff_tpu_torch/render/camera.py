@@ -3,7 +3,8 @@
 The port's own copy of the functions of ``ln3diff_tpu/render/camera.py``
 that it needs (reference ``nsr/camera_utils.py``): G-Objaverse z-up
 pitch/yaw cameras packed as 25-dim labels for the orbit render
-(``generate_input_camera`` :84, reference :221-263), and the look-at
+(``generate_input_camera`` :84, reference :221-263), the loader of the
+release's pose assets (``load_pose_asset`` :112), and the look-at
 poses and FOV intrinsics of the synthetic training scene
 (``create_cam2world_matrix`` :20, ``lookat_pose`` :46,
 ``fov_to_intrinsics`` :77; reference :23-219).
@@ -88,6 +89,21 @@ def generate_input_camera(radius: float, poses_deg, fov: float = 30.0):
 
     fx = 0.5 / math.tan(math.radians(fov / 2))
     return cam2world, np.array([fx, fx, 0.5, 0.5], np.float32)
+
+
+def load_pose_asset(path: str) -> np.ndarray:
+    """A release pose asset (``assets/objv_eval_pose.pt``, ...): a
+    ``torch.save``d ``(N, 25)`` tensor of packed [c2w (16), normalised
+    intrinsics (9)] labels, as ``(N, 25)`` f32 numpy.  The objv asset's
+    first 24 rows are the orbit at pitch 13.73°, radius 1.772, which
+    :func:`generate_input_camera` reproduces."""
+    import torch
+    cam = torch.load(path, map_location='cpu', weights_only=True)
+    cam = np.asarray(torch.as_tensor(cam).float().numpy(), np.float32)
+    if cam.ndim != 2 or cam.shape[1] != 25:
+        raise ValueError(f'{path}: pose asset of shape {cam.shape}, '
+                         f'expected (N, 25)')
+    return cam
 
 
 def orbit_cameras(num: int = 24, radius: float = 1.8, fov: float = 30.0,

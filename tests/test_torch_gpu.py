@@ -637,3 +637,66 @@ def test_native_march_and_obj_write(cuda, tmp_path):
     np.testing.assert_allclose(data[:, :3], mesh.rotate_x(verts), atol=1e-6)
     n_faces = sum(ln.startswith('f ') for ln in path.read_text().splitlines())
     assert n_faces == len(faces)
+
+
+# -- int8 W8A8 serving (torch._int_mm, no kernel of the port) ----------------
+
+@pytest.mark.parametrize('K', [768, 1024])
+@pytest.mark.parametrize('M', [1, 16, 17, 154])
+def test_int8_dense_card_matches_cpu(cuda, M, K):
+    """``int8_dense`` on the card against the CPU at the row counts around
+    ``_int_mm``'s rule (more than 16 rows: 1 and 16 are zero-padded) and
+    the DiT's inner dims: the same int8 operands, the same exact int32
+    sums, the same f32 rescale."""
+    from ln3diff_tpu_torch.ops.int8 import (_quantize_rows, int8_dense,
+                                            quantize_weight)
+    g = torch.Generator().manual_seed(M * K)
+    x = torch.randn((M, K), generator=g) * 2
+    w = torch.randn((1024, K), generator=g) / K**0.5
+    b = torch.randn((1024,), generator=g)
+    wq, s = quantize_weight(w.t())
+    kq = wq.t().contiguous()
+    want = int8_dense(x, kq, s, b)
+    assert torch.equal(_quantize_rows(x.to(cuda))[0].cpu(),
+                       _quantize_rows(x)[0])
+    got = int8_dense(x.to(cuda), kq.to(cuda), s.to(cuda), b.to(cuda))
+    assert got.shape == (M, 1024) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)
+
+
+def test_int8_dense_refuses_what_int_mm_refuses(cuda):
+    """No float fallback: an inner dim that is not a multiple of 8
+    raises on the card."""
+    from ln3diff_tpu_torch.ops.int8 import int8_dense, quantize_weight
+    wq, s = quantize_weight(torch.randn(36, 64))
+    with pytest.raises(ValueError, match='multiples of 8'):
+        int8_dense(torch.randn(20, 36, device=cuda),
+                   wq.t().contiguous().to(cuda), s.to(cuda))
+
+
+def test_int8_attention_feeds_kernel_3(cuda):
+    """A quantized ``Attention(1024, 16, fused=True)`` in bf16: kernel 3
+    runs once, on the thirds of the int8 qkv projection, and equals the
+    plain version on those q, k, v."""
+    from ln3diff_tpu_torch.models.dit import Attention
+    torch.manual_seed(0)
+    src = Attention(1024, 16)
+    attn = Attention(1024, 16, fused=True, quantized=True)
+    attn.qkv.load_weight(src.qkv.weight)
+    attn.proj.load_weight(src.proj.weight)
+    attn.to(cuda, torch.bfloat16)
+    assert attn.qkv.kernel_q.dtype == torch.int8
+    assert attn.qkv.scale.dtype == torch.float32
+    x = torch.randn((2, 768, 1024), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda).to(torch.bfloat16)
+    seen = {}
+    attn.proj.register_forward_pre_hook(
+        lambda module, args: seen.setdefault('heads', args[0]))
+    before = FusedAttention.launches
+    with torch.no_grad():
+        attn(x)
+        q, k, v = (t.reshape(2, 768, 16, 64)
+                   for t in attn.qkv(x).chunk(3, dim=-1))
+        want = attention_reference(q, k, v).reshape(2, 768, 1024)
+    assert FusedAttention.launches == before + 1
+    _attn_close(seen['heads'], want, torch.bfloat16)

@@ -284,9 +284,10 @@ def test_cfg_one_runs_conditional_half_only():
 
 
 def test_sampler_kinds():
-    """The default kind is JAX's flow matching; DDIM needs a diffusion;
-    the samplers that are not ported raise; ``build_t23d_pipeline`` takes
-    DDIM only, so no caller of it changes sampler by default."""
+    """The default kind is JAX's flow matching; DDIM, PLMS and DPM need a
+    diffusion; an unknown kind raises; ``build_t23d_pipeline`` takes the
+    DDPM-family kinds only, so no caller of it changes sampler by
+    default."""
     assert SamplerSpec().kind == JSamplerSpec().kind == 'flow_matching'
     with pytest.raises(ValueError, match='DDIM'):
         build_t23d_pipeline('cpu', sampler=SamplerSpec())
@@ -294,8 +295,9 @@ def test_sampler_kinds():
     tc, tu = tencode(torch.from_numpy(_images(4, seed=7)))
     spec = tpipe.spec
     try:
-        for kind, err in (('ddim', ValueError), ('dpm', NotImplementedError),
-                          ('plms', NotImplementedError)):
+        for kind, err in (('ddim', ValueError), ('dpm', ValueError),
+                          ('plms', ValueError),
+                          ('edm', NotImplementedError)):
             tpipe.spec = dataclasses.replace(spec, kind=kind)
             with pytest.raises(err):
                 tpipe.sample_latents(1, tc, tu)
