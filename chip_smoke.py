@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives these paths of ``ln3diff_tpu_torch`` at the full width of the
-released Objaverse models, with random weights drawn from a fixed seed:
+released Objaverse, ShapeNet and FFHQ models, with random weights drawn
+from a fixed seed:
 
 * ``pipeline``: CLIP text tower, DiT-L/2 with 250-step DDIM and CFG 6.5,
   triplane VAE decode, a 24-frame 192² orbit and the 192³ σ-grid query;
@@ -40,7 +41,17 @@ released Objaverse models, with random weights drawn from a fixed seed:
 * ``orbit_options``: ``__call__(cameras=...)`` on a pose file written
   with ``torch.save`` and read back with ``load_pose_asset``, and the
   orbit with the frames folded into the ray axis (``render_rays_fn`` with
-  ``TriplaneVAE.render_rays_flat``) against the per-frame orbit.
+  ``TriplaneVAE.render_rays_flat``) against the per-frame orbit;
+* ``shapenet_pipeline``: the ShapeNet text→3D call (pooled CLIP-L text
+  × 18.4, U-Net-320 LSGM with v-prediction and the mixing logit, DDIM 250
+  at CFG 1.0, the fusionv5 VAE decode to 256² planes, a 24-frame orbit of
+  64² rays with 64+64 samples and ``NearestConvSR`` to 128², the 192³ σ
+  grid and the mesh);
+* ``ffhq_pipeline``: the FFHQ call (pooled text × 1.0, the same U-Net at
+  CFG 6.5, the 4XC_final VAE, 128² rays with 48+48 samples and
+  ``SuperresolutionHybrid8XDC`` to 512², no mesh);
+* ``unet_profile``: a DDIM step of the U-Net (batch 1 at CFG 1.0, batch 2
+  CFG-doubled) under the profiler.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -49,7 +60,8 @@ g++ and holds each kernel against its plain PyTorch version
 ``osg_backward_check``).  It also checks the mesh stage on an analytic
 sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
 models card against CPU (``small_reference``, ``small_reference_i23d``;
-``small_reference_samplers``: DPM, PLMS and the int8 DiT) and a small training
+``small_reference_samplers``: DPM, PLMS and the int8 DiT;
+``small_reference_unet``: the ShapeNet and FFHQ paths) and a small training
 step card against CPU (``small_train_reference``), and profiles a
 sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
 ``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
@@ -264,7 +276,9 @@ def kernel_check():
     shapes: a 192² × 64-sample render pass (with the bbox fold), the same
     with a ragged M, one σ-grid chunk of 2^18 points (no fold), f32 rows,
     and one training-step launch (M = 64·32², bf16, with the fold); each
-    with the wrapper's host time per call (``host_us``)."""
+    with the wrapper's host time per call (``host_us``); and one frame of
+    the FFHQ orbit's pass (128² rays × 48 samples over 256² planes, no
+    fold)."""
     import torch
     from ln3diff_tpu_torch.ops.fused_render import (osg_pointwise_fused,
                                                     osg_pointwise_reference)
@@ -273,7 +287,8 @@ def kernel_check():
              ('render_pass_ragged', pass_M + 17, torch.bfloat16, True),
              ('sigma_chunk', 2**18, torch.bfloat16, False),
              ('render_pass_f32', 2**18 + 5, torch.float32, True),
-             ('training_launch', 64 * 32 * 32, torch.bfloat16, True)]
+             ('training_launch', 64 * 32 * 32, torch.bfloat16, True),
+             ('ffhq_frame', 128 * 128 * 48, torch.bfloat16, False)]
     results = []
     for i, (name, M, dt, with_inbox) in enumerate(cases):
         args, inbox = osg_inputs(M, dt, with_inbox, seed=100 + i)
@@ -307,7 +322,7 @@ def kernel_check():
 
 
 def _small_card_vs_cpu(build, kw, inputs, fused, variant, shared=False,
-                       tol_latents=TOL_PIPE):
+                       tol_latents=TOL_PIPE, call_kw=None):
     """One small model from ``build`` (a ``build_*_pipeline``) on the CPU
     (seed 7) and on the card (a copy of the same weights), the same
     conditioning ``inputs`` and noise, f32: latents within ``tol_latents``
@@ -316,15 +331,18 @@ def _small_card_vs_cpu(build, kw, inputs, fused, variant, shared=False,
     latents (the toy model's latents reach a scale of several hundred,
     where the decoder turns their f32 differences into percent-level
     plane differences).  With ``fused`` the call also writes a mesh,
-    whose OBJ must parse back, and the card run must launch kernel 3."""
+    whose OBJ must parse back, and the card run must launch kernel 3.
+    ``call_kw``: the call's frames (default 2 frames of 32² rays); the
+    noise has the shape of ``kw['sampler'].latent_shape``."""
     import torch
     from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     cpu_pipe, cpu_enc, mods = build('cpu', seed=7, **kw)
     gpu_pipe, gpu_enc, _ = build(
         'cuda', modules={k: copy.deepcopy(m) for k, m in mods.items()}, **kw)
-    noise = torch.randn((1, 8, 8, 12),
+    noise = torch.randn((1,) + tuple(kw['sampler'].latent_shape),
                         generator=torch.Generator().manual_seed(3))
+    call_kw = call_kw or dict(num_frames=2, render_resolution=32)
     outs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, pipe, enc in (('cpu', cpu_pipe, cpu_enc),
@@ -333,8 +351,8 @@ def _small_card_vs_cpu(build, kw, inputs, fused, variant, shared=False,
             cond, uncond = enc(inputs)
             mesh_kw = (dict(mesh_path=os.path.join(tmp, f'{name}.obj'),
                             mesh_grid=32) if fused else {})
-            outs[name] = pipe(cond, uncond, num_frames=2,
-                              render_resolution=32, x_init=noise, **mesh_kw)
+            outs[name] = pipe(cond, uncond, x_init=noise, **call_kw,
+                              **mesh_kw)
             if fused:
                 nv, nf = obj_counts(mesh_kw['mesh_path'])
                 check((nv, nf) == tuple(map(len, outs[name]['mesh'])),
@@ -489,6 +507,64 @@ def small_reference_i23d():
                                     cfg_scale=4.0, latent_shape=(8, 8, 12)))
             res[f'{family}_{variant}'] = _small_card_vs_cpu(build, kw, inputs, fused,
                                           f'{family} {variant}')
+    return res
+
+
+def small_reference_unet():
+    """``small_reference`` for the ShapeNet and FFHQ paths: a small U-Net
+    (roll-out, spatial transformer, mixing logit) under 4 DDIM steps of
+    v-prediction, CFG 1.0 and 6.5, a small CLIP text tower with
+    ``text_projection``, a small fusion-decoder VAE of each family (32
+    plane channels, as kernel 1 takes them), 16² rays with 16+16 samples
+    and the family's SR head: ``NearestConvSR`` over 2 frames, the
+    full-width ``SuperresolutionHybrid8XDC`` (fixed widths, to 512²) over
+    one.  Card against CPU, same weights and noise, f32."""
+    import torch
+    from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
+    from ln3diff_tpu_torch.config import CAMERA_PRESETS, RENDER_PRESETS
+    from ln3diff_tpu_torch.models.unet import UNetConfig
+    from ln3diff_tpu_torch.models.vae_shapenet import (FFHQVAEConfig,
+                                                       ShapeNetVAEConfig)
+    from ln3diff_tpu_torch.models.vit import vit_registry
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_unet_pipeline
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+
+    f32 = torch.float32
+    vae_kw = dict(encoder_vit=vit_registry('dinov2-s/14', img_size=28,
+                                           embed_dim=64, depth=1,
+                                           num_heads=2),
+                  decoder_embed_dim=64, decoder_fusion_depth=2,
+                  decoder_num_heads=2, channel_multiplier=1,
+                  triplane_resolution=64, dtype=f32)
+    families = {
+        'shapenet': (ShapeNetVAEConfig(token_size=4, vae_p=2, **vae_kw),
+                     'shapenet_tuneray_aug_resolution_64_64_nearestSR',
+                     1.0, 2),
+        'ffhq': (FFHQVAEConfig(token_size=8, **vae_kw), 'ffhq', 6.5, 1)}
+    res = {}
+    for family, (vae_cfg, preset, cfg_scale, frames) in families.items():
+        kw = dict(
+            den_cfg=UNetConfig(model_channels=32, num_res_blocks=1,
+                               attention_resolutions=(2,),
+                               channel_mult=(1, 2), num_heads=2,
+                               context_dim=64, dtype=f32),
+            vae_cfg=vae_cfg,
+            text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2,
+                                    num_heads=2, intermediate_size=128,
+                                    with_projection=True),
+            render_opts=dataclasses.replace(
+                RENDER_PRESETS[preset], depth_resolution=16,
+                depth_resolution_importance=16),
+            render_resolution=16, render_dtype=None,
+            sampler=SamplerSpec(kind='ddim', num_steps=4,
+                                cfg_scale=cfg_scale,
+                                triplane_scaling_divider=1.0,
+                                latent_shape=(8, 8, 12)))
+        cams = orbit_cameras(frames, **CAMERA_PRESETS[family])
+        res[family] = _small_card_vs_cpu(
+            lambda *a, **k: build_unet_pipeline(family, *a, **k), kw,
+            'a red sports car', False, family,
+            call_kw=dict(cameras=cams, render_resolution=16))
     return res
 
 
@@ -1479,36 +1555,54 @@ def orbit_options(modules, cond, uncond):
     return res
 
 
-def _serving_call(pipe, encode, inputs, encode_key):
-    """A serving call at full width: ``__call__`` with a ``mesh_path`` on
-    the conditioning ``encode(inputs)``.  The call runs twice from the
-    same noise: once as a user runs it (its wall time, ``call_seconds``),
-    then with every stage under a synchronising timer, so the seconds by
-    phase (``encode_key`` for the conditioning) add up without the
-    overlap of march and orbit; launches are counted per phase in the
-    second run, kernel 3 once per block and denoiser call with fused
-    attention and never without, and the denoiser calls: one per step,
-    plus one for DPM-Solver's last x0 and PLMS's warm-up.  Returns the
-    phase's fields and the sampled latents."""
+def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
+                  call_kw=None, shapes=None, mesh=True, sr_head=None):
+    """A serving call at full width: ``__call__`` (with a ``mesh_path``
+    unless ``mesh`` is False) on the conditioning ``encode(inputs)``.  The
+    call runs twice from the same noise: once as a user runs it (its wall
+    time, ``call_seconds``), then with every stage under a synchronising
+    timer, so the seconds by phase (``encode_key`` for the conditioning,
+    ``sample_key`` for the denoiser) add up without the overlap of march
+    and orbit; launches are counted per phase in the second run, kernel 3
+    once per block and denoiser call with fused attention and never
+    without, and the denoiser calls: one per step, plus one for
+    DPM-Solver's last x0 and PLMS's warm-up.  ``call_kw``: the call's
+    orbit (default 24 frames of 192² rays); ``shapes``: the expected
+    latents, planes and video shapes.  With ``sr_head`` (a render-space SR
+    module) the render's time is split into ``render_rays`` (rays and
+    kernel 1) and ``sr_head``; the first call returns uint8 frames
+    (``video_uint8``), which must be within one level of the second
+    call's float frames converted (the SR frames are unbounded, so no
+    range check).  Returns
+    the phase's fields and the sampled latents."""
+    import numpy as np
     import torch
     from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
                                                        FusedQKVAttention)
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
-    from ln3diff_tpu_torch.render import mesh
+    from ln3diff_tpu_torch.pipeline import frames_to_uint8
+    from ln3diff_tpu_torch.render import mesh as mesh_mod
 
     den_cfg = pipe.denoiser_fn.cfg
+    fused_attention = getattr(den_cfg, 'fused_attention', False)
+    call_kw = call_kw or dict(num_frames=24, render_resolution=192)
+    shapes = shapes or dict(latents=(1, 32, 32, 12),
+                            planes=(1, 3, 128, 128, 32),
+                            video=(1, 24, 192, 192, 3))
 
-    def call(path):
-        return pipe(cond, uncond, batch=1, num_frames=24, mesh_path=path,
-                    mesh_grid=MESH_GRID, mesh_smooth=True,
-                    render_resolution=192,
-                    generator=torch.Generator(device='cuda').manual_seed(1))
+    def call(path, **kw):
+        mesh_kw = dict(mesh_path=path, mesh_grid=MESH_GRID,
+                       mesh_smooth=True) if mesh else {}
+        return pipe(cond, uncond, batch=1, **call_kw, **mesh_kw,
+                    generator=torch.Generator(device='cuda').manual_seed(1),
+                    **kw)
 
     cond, uncond = encode(inputs)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        untimed = call(os.path.join(tmp, 'untimed.obj'))
+        untimed = call(os.path.join(tmp, 'untimed.obj'),
+                       video_uint8=sr_head is not None)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
 
@@ -1530,16 +1624,18 @@ def _serving_call(pipe, encode, inputs, encode_key):
         return run
 
     encode = timed(encode_key, encode)
-    pipe.denoiser_fn = timed('dit_sample', pipe.denoiser_fn)
+    pipe.denoiser_fn = timed(sample_key, pipe.denoiser_fn)
     pipe.decode_fn = timed('vae_decode', pipe.decode_fn)
     pipe.render_fn = timed('render', pipe.render_fn)
+    if sr_head is not None:
+        sr_head.forward = timed('sr_head', sr_head.forward)
     pipe.dispatch_mesh_sigma = timed('sigma_query', pipe.dispatch_mesh_sigma)
     stages = dict(count_crossing_cells='crossing_count', march_grid='march',
                   dispatch_vertex_colors='vertex_colors',
                   export_obj='export')
-    originals = {n: getattr(mesh, n) for n in stages}
+    originals = {n: getattr(mesh_mod, n) for n in stages}
     for n, key in stages.items():
-        setattr(mesh, n, timed(key, originals[n]))
+        setattr(mesh_mod, n, timed(key, originals[n]))
     try:
         cond, uncond = encode(inputs)
         FusedOSG.launches = FusedAttention.launches = 0
@@ -1555,83 +1651,112 @@ def _serving_call(pipe, encode, inputs, encode_key):
             attn_launches = FusedAttention.launches
             osg_launches = FusedOSG.launches
             qkv_launches = FusedQKVAttention.launches
-            nv, nf = obj_counts(path)
-            obj_bytes = os.path.getsize(path)
+            nv, nf = obj_counts(path) if mesh else (0, 0)
+            obj_bytes = os.path.getsize(path) if mesh else 0
     finally:
         for n, fn in originals.items():
-            setattr(mesh, n, fn)
+            setattr(mesh_mod, n, fn)
+        if sr_head is not None:
+            del sr_head.forward
 
     video, latents, planes = out['video'], out['latents'], out['planes']
-    verts, faces = out['mesh']
+    verts, faces = out['mesh'] if mesh else ((), ())
     check(bool(torch.equal(untimed['latents'], latents)),
           'the timed and the untimed call sample different latents')
-    check(tuple(latents.shape) == (1, 32, 32, 12), 'latent shape')
-    check(tuple(planes.shape) == (1, 3, 128, 128, 32), 'plane shape')
-    check(tuple(video.shape) == (1, 24, 192, 192, 3), 'video shape')
     for key, t in (('latents', latents), ('planes', planes),
-                   ('frames', video)):
+                   ('video', video)):
+        check(tuple(t.shape) == shapes[key],
+              f'{key} shape {tuple(t.shape)}, expected {shapes[key]}')
         check(bool(torch.isfinite(t).all()), f'{key} not finite')
     vmin, vmax = float(video.min()), float(video.max())
-    check(-1.01 <= vmin and vmax <= 1.01,
-          f'frames out of range [{vmin}, {vmax}]')
-    check(bool(torch.isfinite(last['sigma_query']).all()),
-          'sigma grid not finite')
-    check((nv, nf) == (len(verts), len(faces)),
-          f'OBJ parses to {nv} vertices / {nf} faces, the call returned '
-          f'{len(verts)} / {len(faces)}')
+    if sr_head is None:
+        check(-1.01 <= vmin and vmax <= 1.01,
+              f'frames out of range [{vmin}, {vmax}]')
+    else:
+        # cuDNN's conv sums may run in another order in the other call,
+        # which moves a frame value across a uint8 level now and then
+        got_u8 = untimed['video']
+        check(isinstance(got_u8, np.ndarray) and got_u8.dtype == np.uint8
+              and got_u8.shape == shapes['video'],
+              'video_uint8 did not return uint8 frames of the video shape')
+        off = np.abs(got_u8.astype(np.int16)
+                     - frames_to_uint8(video).cpu().numpy())
+        check(int(off.max()) <= 1, f'the video_uint8 frames are up to '
+              f'{int(off.max())} levels from the float frames converted')
+        uint8_off = dict(max_levels=int(off.max()),
+                         share_off=float((off > 0).mean()))
     check(qkv_launches == 0, 'the serving call launched kernel 4')
-    den_calls = calls['dit_sample']
+    den_calls = calls[sample_key]
     want_calls = pipe.spec.num_steps + (pipe.spec.kind in ('dpm', 'plms'))
     check(den_calls == want_calls, f'{den_calls} denoiser calls, expected '
           f'{want_calls} for {pipe.spec.num_steps} {pipe.spec.kind} steps')
-    want_attn = (den_cfg.depth * den_calls
-                 if den_cfg.fused_attention else 0)
+    want_attn = den_cfg.depth * den_calls if fused_attention else 0
     check(attn_launches == want_attn, f'fused_attention launched '
           f'{attn_launches} times, expected {want_attn}')
-    check(osg['render'] > 0 and osg['sigma_query'] > 0,
-          'render or sigma query did not launch fused_osg')
-    check(len(verts) == 0 or osg['vertex_colors'] > 0,
-          'vertex colours did not launch fused_osg')
-    check(osg_launches == osg['render'] + osg['sigma_query']
-          + osg['vertex_colors'], 'fused_osg launched outside the phases')
-    n_cross = int(last['crossing_count'])
-    cells = (MESH_GRID - 1)**3
-    field = ('empty' if n_cross == 0 else
-             'noise-like' if n_cross > 0.05 * cells else 'surface')
+    check(osg['render'] > 0, 'render did not launch fused_osg')
+    launches = dict(render=osg['render'])
+    res = {} if sr_head is None else dict(video_uint8_vs_float=uint8_off)
+    if mesh:
+        check(bool(torch.isfinite(last['sigma_query']).all()),
+              'sigma grid not finite')
+        check(tuple(last['sigma_query'].shape) == (MESH_GRID**3,),
+              'sigma grid shape')
+        check((nv, nf) == (len(verts), len(faces)),
+              f'OBJ parses to {nv} vertices / {nf} faces, the call '
+              f'returned {len(verts)} / {len(faces)}')
+        check(osg['sigma_query'] > 0, 'sigma query did not launch fused_osg')
+        check(len(verts) == 0 or osg['vertex_colors'] > 0,
+              'vertex colours did not launch fused_osg')
+        launches.update(sigma_query=osg['sigma_query'],
+                        vertex_colors=osg['vertex_colors'])
+        n_cross = int(last['crossing_count'])
+        cells = (MESH_GRID - 1)**3
+        res.update(
+            crossing_cells=n_cross,
+            sigma_field=('empty' if n_cross == 0 else 'noise-like'
+                         if n_cross > 0.05 * cells else 'surface'),
+            triangles=len(faces), vertices=len(verts),
+            max_tris_cap_hit=len(faces) >= 20_000_000, obj_bytes=obj_bytes,
+            sigma_range=[float(last['sigma_query'].min()),
+                         float(last['sigma_query'].max())])
+    check(osg_launches == sum(launches.values()),
+          'fused_osg launched outside the phases')
+    by_phase = {k: round(v, 3) for k, v in secs.items()
+                if k in calls or k == encode_key}
+    if sr_head is not None:
+        by_phase['render_rays'] = round(secs['render'] - secs['sr_head'], 3)
     return dict(
-        seconds_by_phase={k: round(v, 3) for k, v in secs.items()},
+        seconds_by_phase=by_phase,
         call_seconds=round(call_s, 3), timed_call_seconds=round(timed_s, 3),
         sampler=f'{pipe.spec.kind}{pipe.spec.num_steps}',
-        denoiser_calls=den_calls, quantized=den_cfg.quantized,
+        denoiser_calls=den_calls,
+        quantized=getattr(den_cfg, 'quantized', False),
         fused_attention_launches=attn_launches,
-        fused_osg_launches=dict(render=osg['render'],
-                                sigma_query=osg['sigma_query'],
-                                vertex_colors=osg['vertex_colors']),
-        crossing_cells=n_cross, sigma_field=field,
-        triangles=len(faces), vertices=len(verts),
-        max_tris_cap_hit=len(faces) >= 20_000_000, obj_bytes=obj_bytes,
-        frames_range=[vmin, vmax],
-        sigma_range=[float(last['sigma_query'].min()),
-                     float(last['sigma_query'].max())],
-        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3)
-    ), latents
+        fused_osg_launches=launches, frames_range=[vmin, vmax],
+        frames_dtype=str(video.dtype),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        **res), latents
 
 
-def dit_profile(denoisers, cond, uncond, steps=10, t_value=500):
+def dit_profile(denoisers, cond, uncond, steps=10, t_value=500,
+                latent_shape=(32, 32, 12), doubled=True):
     """Where a sampler step's time goes, for each denoiser (at time
     ``t_value``: a DDIM step index, or a flow-matching time in [0, 1)):
-    the host wall time of one CFG call (batch 2, no profiler, synchronised
-    at the
-    end of ``steps`` calls, the two denoisers timed in turns and each
-    one's two runs averaged), the device time of its kernels under
-    torch.profiler (CUDA activity only), their ratio (the device's busy
-    share of the step) and the kernels that take the most device time."""
+    the host wall time of one CFG call (batch 2 over [cond; uncond], or
+    with ``doubled=False`` batch 1 over cond, as CFG 1.0 runs; no
+    profiler, synchronised at the end of ``steps`` calls, the denoisers
+    timed in turns and each one's two runs averaged), the device time of
+    its kernels under torch.profiler (CUDA activity only), their ratio
+    (the device's busy share of the step) and the kernels that take the
+    most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device='cuda').manual_seed(5)
-    x = torch.randn((2, 32, 32, 12), generator=g, device='cuda')
-    t = torch.full((2,), t_value, device='cuda')
-    ctx = {k: torch.cat([cond[k], uncond[k]]) for k in cond}
+    B = 2 if doubled else 1
+    x = torch.randn((B,) + tuple(latent_shape), generator=g, device='cuda')
+    t = torch.full((B,), t_value, device='cuda')
+    ctx = ({k: torch.cat([cond[k], uncond[k]]) for k in cond} if doubled
+           else cond)
     names = list(denoisers)
     walls = {name: [] for name in names}
     with torch.no_grad():
@@ -1736,6 +1861,68 @@ def image_families():
         results[family] = res
         del modules, fused_modules, plain_denoiser, encode, cond, uncond
         torch.cuda.empty_cache()
+    return results
+
+
+UNET_FAMILIES = {
+    # family: (latent side, ray resolution, SR frame side, mesh)
+    'shapenet': (32, 64, 128, True),
+    'ffhq': (16, 128, 512, False),
+}
+
+
+def unet_families():
+    """The ShapeNet and FFHQ text→3D calls at full width
+    (``build_unet_pipeline``, random weights from seed 0, each family's
+    models freed before the next's): the call as the bench configures it
+    (``_serving_call`` on the family's 24-frame orbit from
+    ``CAMERA_PRESETS``, ShapeNet with a mesh), then one DDIM step of the
+    U-Net under the profiler: batch 1 over the conditional half
+    (ShapeNet, CFG 1.0), batch 2 CFG-doubled (FFHQ, CFG 6.5)."""
+    import torch
+    from ln3diff_tpu_torch.config import CAMERA_PRESETS
+    from ln3diff_tpu_torch.pipeline import build_unet_pipeline
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    results, steps = {}, {}
+    prompt = 'a red sports car'
+    for family, (hw, rays, side, mesh) in UNET_FAMILIES.items():
+        t0 = time.perf_counter()
+        pipe, encode, modules = build_unet_pipeline(family, 'cuda', seed=0)
+        phase_done(f'{family}_pipeline_build', t0, weights=(
+            'random (torch.Generator seed 0); U-Net-320 LSGM bf16 (v-pred, '
+            'mixing logit), CLIP-L text f32 with text_projection, pooled x'
+            f'{"18.4" if family == "shapenet" else "1.0"}, '
+            f'{"fusionv5" if family == "shapenet" else "4XC_final"} VAE '
+            'decoder bf16; ddim250, cfg '
+            f'{pipe.spec.cfg_scale}, 24 x {rays}^2-ray orbit + '
+            f'{"NearestConvSR" if family == "shapenet" else "8XDC"} to '
+            f'{side}^2, bf16 planes' + (', 192^3 sigma grid, mesh'
+                                        if mesh else '')),
+            parameters=sum(p.numel() for m in modules.values()
+                           for p in m.parameters()))
+        t0 = time.perf_counter()
+        cams = orbit_cameras(24, **CAMERA_PRESETS[family])
+        res, _ = _serving_call(
+            pipe, encode, prompt, 'text_encode', sample_key='unet_sample',
+            call_kw=dict(cameras=cams, render_resolution=rays),
+            shapes=dict(latents=(1, hw, hw, 12),
+                        planes=(1, 3, 256, 256, 32),
+                        video=(1, 24, side, side, 3)),
+            mesh=mesh, sr_head=modules['vae'].superresolution)
+        phase_done(f'{family}_pipeline', t0, **res)
+        results[family] = res
+        # CFG 1.0 runs the conditional half only: batch 1
+        steps[family] = (modules['denoiser'], *encode(prompt), hw,
+                         pipe.spec.cfg_scale != 1.0)
+        del pipe, encode, modules
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    profiles = {}
+    for family, (den, cond, uncond, hw, doubled) in steps.items():
+        profiles[f'{family}_batch_{2 if doubled else 1}'] = dit_profile(
+            {'unet': den}, cond, uncond, latent_shape=(hw, hw, 12),
+            doubled=doubled)['unet']
+    phase_done('unet_profile', t0, **profiles)
     return results
 
 
@@ -1939,7 +2126,15 @@ def main():
     # the image→3D call with the int8 DiT
     image_paths = image_families()
 
+    # 14. the ShapeNet and FFHQ paths: small models card vs CPU, then the
+    # full-width calls and a profiled DDIM step of the U-Net
+    t0 = time.perf_counter()
+    small_unet = small_reference_unet()
+    phase_done('small_reference_unet', t0, **small_unet)
+    unet_paths = unet_families()
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
+    osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
     qkv_main = qkv_checks[0]
     attn_i23d = attn_checks[1]
     calls = {'t23d_serving': serving,
@@ -1951,6 +2146,7 @@ def main():
         for attn in ('plain_attention', 'fused_attention'):
             calls[f'{family}_{attn}'] = res[attn]
     calls['i23d_int8_plain_attention'] = image_paths['i23d']['int8']
+    calls.update(unet_paths)
     osg_by_path = {k: sum(r['fused_osg_launches'].values())
                    for k, r in calls.items()}
     attn_by_path = {k: r['fused_attention_launches']
@@ -1969,7 +2165,10 @@ def main():
              ms=osg_main['ms'], device_ms=osg_main['device_ms'],
              host_us=osg_main['host_us'], plain_ms=osg_main['plain_ms'],
              bound_ms=osg_main['bound_ms'], bound_by=osg_main['bound_by'],
-             library_ms=None),
+             library_ms=None,
+             at_ffhq_frame={k: osg_ffhq[k] for k in (
+                 'M', 'ms', 'device_ms', 'host_us', 'plain_ms', 'bound_ms',
+                 'bound_by')}),
         dict(name='fused_attention', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_attention.cu',
              replaces='ln3diff_tpu/ops/fused_attention.py:39',

@@ -8,7 +8,10 @@ so it runs on a machine that has none of them.
 
 Ported so far: the text→3D serving call (CLIP text tower → DiT-L/2 DDIM
 with classifier-free guidance → triplane VAE decode → orbit render, σ-grid
-query and mesh file), the stage-1 VAE training step on one device, and all
+query and mesh file), the image→3D and multi-view→3D calls, the ShapeNet
+and FFHQ text→3D calls (pooled CLIP text → U-Net-320 LSGM → fusion-decoder
+VAEs → orbit through a render-space SR head), the stage-1 VAE training
+step on one device, and all
 four TPU kernels as CUDA sources in ``ops/csrc/``: the fused triplane point
 pipeline (``fused_osg.cu``) and its backward (``fused_osg_bwd.cu``), both
 behind ``ops/fused_render.py``; the fused self-attention
@@ -17,7 +20,7 @@ behind ``ops/fused_render.py``; the fused self-attention
 ``attention_common.cuh`` over its projection), both behind
 ``ops/fused_attention.py``.
 
-Entry points (:class:`~ln3diff_tpu_torch.pipeline.TextTo3DPipeline`,
-:func:`~ln3diff_tpu_torch.pipeline.build_t23d_pipeline`) run on the CUDA
+Entry points (:class:`~ln3diff_tpu_torch.pipeline.TextTo3DPipeline` and
+the ``build_*_pipeline`` functions of ``pipeline.py``) run on the CUDA
 device unless the caller passes ``device='cpu'``.
 """

@@ -2,25 +2,30 @@
 
 The inverse of the per-layer rules of
 ``ln3diff_tpu/conditioning/convert.py:31-55``, for the modules of the
-text→3D, image→3D and multi-view→3D paths.  Input: the JAX package's params as nested dicts of numpy
+text→3D, image→3D, multi-view→3D and ShapeNet/FFHQ text→3D paths.  Input: the JAX package's params as nested dicts of numpy
 arrays (``variables['params']`` or the whole ``variables``).  The port's
 modules keep the JAX modules' names, so each leaf maps by its path:
 
 * Dense ``kernel (in, out)`` → Linear ``weight (out, in)`` (EqualDense too:
   its scaling stays a runtime scale, as in JAX);
 * Conv ``kernel`` HWIO → OIHW, grouped convs included (Linen's
-  ``(kh, kw, in/groups, out)`` becomes torch's ``(out, in/groups, kh, kw)``);
+  ``(kh, kw, in/groups, out)`` becomes torch's ``(out, in/groups, kh, kw)``),
+  and StyleGAN's raw modulated-conv ``weight`` (kh, kw, Cin, Cout) → (Cout,
+  Cin, kh, kw);
 * LayerNorm / GroupNorm / RMSNorm ``scale`` → ``weight``; Embed
   ``embedding`` → ``weight``; ``bias`` and free parameters (the DiT's
-  ``scale_shift_table``s, the ViT's ``gamma1``/``gamma2``) keep their
-  names;
+  ``scale_shift_table``s, the ViT's and the fusion blocks'
+  ``gamma1``/``gamma2``, the fusion decoder's ``pos_embed``, the U-Net's
+  ``mixing_logit``, StyleGAN's ``noise_const``/``noise_strength`` and
+  the FFHQ VAE's ``sr_ws``) keep their names;
 * a quantized DiT's ``Int8Dense`` (``ops/int8.py``): int8 ``kernel_q (in,
   out)`` → ``Int8Linear`` ``kernel_q (out, in)``, still int8; its sibling
   ``scale (out,)`` keeps its name and stays f32;
 * ``nn.scan``-stacked trunks (leading depth axis) → one module per block:
   ``blocks/block/…`` → ``blocks.{i}.…`` for ``DiT_TriLatent`` and
   ``dit2/blocks/{within,across}/…`` → ``dit2.blocks.{i}.{within,across}…``
-  and ``blocks/block/…`` → ``blocks.{i}.…`` for ``VisionTransformer``;
+  and ``blocks/block/…`` → ``blocks.{i}.…`` for ``VisionTransformer``
+  (``encoder/blocks/block/…`` in the ShapeNet/FFHQ VAEs);
 * CLIP's ``layers_{i}`` → ``layers.{i}``.
 
 The DiT's sin-cos ``pos_embed`` lives in the ``constants`` collection;
@@ -59,6 +64,8 @@ def _leaf(path: tuple, arr: np.ndarray, int8_dense: bool = False):
         else:
             raise ValueError(f'{"/".join(path)}: kernel of rank {arr.ndim}')
         name = 'weight'
+    elif name == 'weight' and arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
     elif name == 'embedding' or (name == 'scale' and not int8_dense):
         name = 'weight'
     key = '.'.join(path[:-1] + (name,))
@@ -103,19 +110,20 @@ vit_state_dict = dit_state_dict
 
 
 def vae_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """``TriplaneVAE`` params → the port's state dict: the decode side
-    (``ldm_upsample``, ``dit2``, ``conv_sr``, ``osg_decoder``) and, when
-    present, the SD encoder and ``quant_conv``.  Other subtrees (SR and
-    background heads) are left out.
+    """``TriplaneVAE``, ``ShapeNetVAE`` or ``FFHQVAE`` params → the port's
+    state dict: the decode side, the SR head (and ``sr_ws``) and, when
+    present, the encoder, ``ldm_downsample`` and ``quant_conv``.
 
     The map is linear (transposes and renames only), so it also carries a
     JAX grad tree onto the port's parameter names."""
-    if 'params' in params:
-        params = params['params']
-    keep = ('encoder', 'quant_conv', 'ldm_upsample', 'dit2', 'conv_sr',
-            'osg_decoder')
-    params = {k: v for k, v in params.items() if k in keep}
-    return _convert(params, {('dit2', 'blocks'): 'dit2.blocks'})
+    return _convert(params, {('dit2', 'blocks'): 'dit2.blocks',
+                             ('encoder', 'blocks', 'block'): 'encoder.blocks'})
+
+
+def unet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """``UNetModel`` params (``mixing_logit`` included) → the port's state
+    dict."""
+    return _convert(params, {})
 
 
 def clip_text_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

@@ -5,10 +5,13 @@ Port of ``ln3diff_tpu/conditioning/clip.py`` (``quick_gelu`` :28,
 ``CLIPTextConfig`` :33, ``CLIPVisionConfig`` :45, ``CLIPMLP`` …
 ``CLIPTextModel`` :56-136, ``CLIPVisionModel`` :137, ``bytes_to_unicode``
 … ``default_tokenizer`` :183-347): pre-LN transformers with quick-GELU.
-The text tower is causal and returns ``last_hidden_state`` (B, 77, 768)
-and the EOT-pooled feature; the vision tower returns its tokens (B, 257,
-1024), the post-LayerNormed class token and, on request, every layer's
-tokens.
+The text tower is causal and returns ``last_hidden_state`` (B, 77, 768),
+the EOT-pooled feature and, with ``with_projection``, its bias-free
+``text_projection`` (``text_embeds``, the ShapeNet/FFHQ conditioning);
+the vision tower returns its tokens (B, 257, 1024), the post-LayerNormed
+class token and, on request, every layer's tokens.
+``pooled_text_context`` (:349) turns ``text_embeds`` into the ShapeNet/FFHQ
+cross-attention context.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_length: int = 77
     intermediate_size: int = 3072
+    with_projection: bool = False     # OpenAI encode_text text_projection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +106,14 @@ class CLIPTextModel(nn.Module):
             CLIPLayer(cfg.hidden_size, cfg.num_heads, cfg.intermediate_size)
             for _ in range(cfg.num_layers)])
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        if cfg.with_projection:
+            self.text_projection = nn.Linear(cfg.hidden_size,
+                                             cfg.hidden_size, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> dict:
         """input_ids (B, L) int → last_hidden_state (B, L, D), pooler_output
-        (B, D) at the EOT token (the highest id)."""
+        (B, D) at the EOT token (the highest id) and, with
+        ``with_projection``, text_embeds (B, D)."""
         B, L = input_ids.shape
         input_ids = input_ids.long()
         x = self.token_embedding(input_ids)
@@ -115,7 +123,31 @@ class CLIPTextModel(nn.Module):
         x = self.final_layer_norm(x)
         eot = torch.argmax(input_ids, dim=-1)
         pooled = x[torch.arange(B, device=x.device), eot]
-        return {'last_hidden_state': x, 'pooler_output': pooled}
+        out = {'last_hidden_state': x, 'pooler_output': pooled}
+        if self.cfg.with_projection:
+            out['text_embeds'] = self.text_projection(pooled)
+        return out
+
+
+def pooled_text_context(pooled: torch.Tensor, n_repeat: int = 1,
+                        normalize: bool = True,
+                        scale_clip_encoding: Optional[float] = None
+                        ) -> torch.Tensor:
+    """The ShapeNet/FFHQ text→3D context (reference
+    ``FrozenCLIPTextEmbedder.encode``): the pooled CLIP text feature (B, D),
+    L2-normalised and scaled by ``scale_clip_encoding``, repeated
+    ``n_repeat`` times → (B, n_repeat, D).  The reference applies the scale
+    only under normalisation, so a scale without ``normalize`` raises."""
+    if not normalize and scale_clip_encoding is not None:
+        raise ValueError('scale_clip_encoding requires normalize=True '
+                         '(the reference nests the scale under the '
+                         'normalisation)')
+    z = pooled
+    if normalize:
+        z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+        if scale_clip_encoding is not None:
+            z = z * scale_clip_encoding
+    return z[:, None, :].expand(z.shape[0], n_repeat, z.shape[-1])
 
 
 class CLIPVisionModel(nn.Module):

@@ -2,8 +2,8 @@
 
 Port of ``ln3diff_tpu/models/layers.py`` (``EqualDense``,
 ``timestep_embedding``), plus the attention core that the JAX package
-takes from ``jax.nn.dot_product_attention``, the Linen ``RMSNorm`` and a
-seeded random init for runs without released weights.
+takes from ``jax.nn.dot_product_attention``, the Linen ``LayerNorm`` and
+``RMSNorm`` and a seeded random init for runs without released weights.
 """
 
 from __future__ import annotations
@@ -23,12 +23,13 @@ class EqualDense(nn.Module):
     bias by ``lr_multiplier`` at call time, as the JAX layer does."""
 
     def __init__(self, in_features: int, features: int,
-                 lr_multiplier: float = 1.0):
+                 lr_multiplier: float = 1.0, bias_init: float = 0.0):
         super().__init__()
         self.lr_multiplier = lr_multiplier
+        self.bias_init = bias_init
         self.weight = nn.Parameter(
             torch.randn(features, in_features) / lr_multiplier)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.full((features,), bias_init))
 
     def forward(self, x):
         scale = self.lr_multiplier / math.sqrt(self.weight.shape[1])
@@ -48,6 +49,18 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+class LayerNorm(nn.LayerNorm):
+    """Linen's ``LayerNorm``: the statistics and the affine map in f32
+    whatever the input's dtype, the output in the weight's dtype (the
+    layer's compute dtype), so that an f32 residual stream may feed a
+    bf16 layer as it does in JAX."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.weight.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -90,10 +103,14 @@ def random_init_(module: nn.Module,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Fill every parameter from ``generator`` (for runs with no released
     weights): Linear and Conv weights ~ N(0, 1/fan_in), :class:`EqualDense`
-    weights ~ N(0, 1) (they are scaled at run time), normalisation scales
-    1, biases 0, embeddings and other tables ~ N(0, 0.02²).  An
-    ``Int8Linear`` quantizes the draw a Linear of its shape would get, so
-    a quantized model holds the int8 form of its float twin's weights."""
+    weights ~ N(0, 1) (they are scaled at run time) and biases
+    ``bias_init``, normalisation scales 1, biases 0, embeddings and other
+    tables ~ N(0, 0.02²).  A module with a ``reset_free_parameters(
+    generator)`` method then sets its free parameters to their JAX initial
+    values (layerscale gains, the U-Net's mixing logit, sin-cos tables,
+    StyleGAN weights).  An ``Int8Linear`` quantizes the draw a Linear of
+    its shape would get, so a quantized model holds the int8 form of its
+    float twin's weights."""
     from ..ops.int8 import Int8Linear
 
     def draw(shape, std, device):
@@ -115,6 +132,8 @@ def random_init_(module: nn.Module,
             for name, p in mod.named_parameters(recurse=False):
                 if isinstance(mod, (nn.GroupNorm, nn.LayerNorm, RMSNorm)):
                     p.fill_(1.0 if name == 'weight' else 0.0)
+                elif isinstance(mod, EqualDense) and name == 'bias':
+                    p.fill_(mod.bias_init)
                 elif name == 'bias':
                     p.zero_()
                 elif isinstance(mod, EqualDense):
@@ -123,4 +142,7 @@ def random_init_(module: nn.Module,
                     normal(p, 1.0 / math.sqrt(p[0].numel()))
                 else:
                     normal(p, 0.02)
+        for mod in module.modules():
+            if hasattr(mod, 'reset_free_parameters'):
+                mod.reset_free_parameters(generator)
     return module

@@ -3,10 +3,14 @@
 
 Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
 :194, ``decode_latent`` :213-238, ``_fused_osg`` :245-251, ``render``
-:253-306, ``render_rays_flat`` :307, ``__call__`` :328, ``query_points``
-:359-378) for the SD
-encoders (``encoder_type='sd'``).  The ``'lgm'`` encoder, the render-space
-SR heads and the background planes wait for later slices.
+:253-306 with the render-space SR heads of :156-178, ``render_rays_flat``
+:307, ``__call__`` :328, ``query_points`` :359-378) for the SD encoders
+(``encoder_type='sd'``).  The SR heads are ``'nearest'``
+(``NearestConvSR``) and ``'stylegan-8xdc'`` (``SuperresolutionHybrid8XDC``
+conditioned on ``sr_ws``).  Still missing: the ``'lgm'`` encoder, the
+``'stylegan'`` head (``SuperresolutionHybrid``) and the background planes
+(``use_background``); a config that asks for the last two raises
+``NotImplementedError`` (``ROADMAP.md`` §1, bring_up queue item (b)).
 
 Latent layout ``(B, h, w, z*3)`` channels-last with plane fastest, and the
 absorbed channel interleaves of the reference are reproduced exactly: the
@@ -32,6 +36,8 @@ from .distributions import make_gaussian
 from .osg_decoder import OSGDecoder
 from .sd_vae import (AutoencoderConfig, Decoder, Encoder, MVEncoder,
                      MVEncoderDynamic)
+from .sr import NearestConvSR
+from .stylegan import SuperresolutionHybrid8XDC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,11 @@ class TriplaneVAEConfig:
     conv_sr_res_blocks: int = 1
     plane_channels: int = 32
     decoder_output_dim: int = 32
+    # render-space SR: 'nearest' (NearestConvSR) or 'stylegan-8xdc'
+    use_sr: bool = False
+    sr_ratio: int = 2
+    sr_module: str = 'nearest'
+    use_background: bool = False
     dtype: Any = torch.float32
 
     @property
@@ -98,8 +109,34 @@ class TriplaneVAE(nn.Module):
         self.osg_decoder = OSGDecoder(
             in_features=cfg.plane_channels,
             decoder_output_dim=cfg.decoder_output_dim)
+        self._build_sr_head()
         if encoder:
             self._build_encoder()
+
+    def _build_sr_head(self):
+        """The render-space SR head that ``cfg`` asks for (JAX ``setup``
+        :156-178)."""
+        cfg = self.cfg
+        if cfg.use_background or (cfg.use_sr
+                                  and cfg.sr_module == 'stylegan'):
+            raise NotImplementedError(
+                'the background planes and the \'stylegan\' SR head '
+                '(SuperresolutionHybrid) are not ported yet: ROADMAP.md '
+                '§1, bring_up queue item (b)')
+        if not cfg.use_sr:
+            return
+        if cfg.sr_module == 'stylegan-8xdc':
+            self.superresolution = SuperresolutionHybrid8XDC(
+                cfg.decoder_output_dim)
+            # the reference's w_avg buffer, "replaced externally"
+            self.sr_ws = nn.Parameter(torch.zeros(512))
+        else:
+            self.superresolution = NearestConvSR(cfg.decoder_output_dim,
+                                                 sr_ratio=cfg.sr_ratio)
+
+    def reset_free_parameters(self, generator=None):
+        if hasattr(self, 'sr_ws'):
+            self.sr_ws.zero_()
 
     def _build_encoder(self):
         """The SD encoder chosen as JAX's ``setup`` chooses it
@@ -124,10 +161,14 @@ class TriplaneVAE(nn.Module):
         self.quant_conv = nn.Conv2d(zc, zc, 1, groups=3)
 
     def cast_decoder(self) -> 'TriplaneVAE':
-        """Store ``ldm_upsample``, ``dit2`` and ``conv_sr`` in
-        ``cfg.dtype`` (serving only: training keeps f32 parameters)."""
+        """Store ``ldm_upsample``, ``dit2``, ``conv_sr`` and a
+        ``NearestConvSR`` head in ``cfg.dtype`` (serving only: training
+        keeps f32 parameters).  The StyleGAN head computes in f32, as in
+        JAX."""
         for m in (self.ldm_upsample, self.dit2, self.conv_sr):
             m.to(self.cfg.dtype)
+        if isinstance(getattr(self, 'superresolution', None), NearestConvSR):
+            self.superresolution.to(self.cfg.dtype)
         return self
 
     # -- encoder ----------------------------------------------------------
@@ -203,7 +244,9 @@ class TriplaneVAE(nn.Module):
         when ``draws`` or a ``generator`` is given (see
         :func:`~ln3diff_tpu_torch.render.renderer.render_rays`).  Returns
         image_raw (B, res, res, 3), feature_image, image_depth,
-        image_mask."""
+        image_mask and, with an SR head, image_sr (an unbounded conv
+        output: ``NearestConvSR`` in the head's dtype, the StyleGAN head
+        in f32)."""
         if ray_origins is None:
             cam2world, intrinsics = unpack_25d_camera(camera25)
             ray_origins, ray_directions = sample_full_rays(
@@ -222,10 +265,18 @@ class TriplaneVAE(nn.Module):
         feature_image = out.feature_samples.reshape(B, res, res, -1)
         depth_image = out.depth_samples.reshape(B, res, res, 1)
         weights = out.weights_samples.reshape(B, res, res, 1)
-        return dict(feature_image=feature_image,
-                    image_raw=feature_image[..., :3],
-                    image_depth=depth_image,
-                    image_mask=weights * 1.002 - 0.001)
+        rgb = feature_image[..., :3]
+        ret = dict(feature_image=feature_image, image_raw=rgb,
+                   image_depth=depth_image,
+                   image_mask=weights * 1.002 - 0.001)
+        if self.cfg.use_sr:
+            if self.cfg.sr_module == 'stylegan-8xdc':
+                ws = self.sr_ws.expand(B, self.sr_ws.shape[0])
+                ret['image_sr'] = self.superresolution(feature_image, rgb,
+                                                       ws)
+            else:
+                ret['image_sr'] = self.superresolution(feature_image)
+        return ret
 
     def render_rays_flat(self, planes: torch.Tensor,
                          ray_origins: torch.Tensor,

@@ -25,8 +25,11 @@ The JAX version's multi-chip sharding (``serving_mesh``) is not ported.
 The pipeline takes callables over tensors (the JAX version takes
 param-explicit ones); :func:`build_t23d_pipeline`,
 :func:`build_i23d_pipeline` and :func:`build_mv23d_pipeline` assemble the
-released Objaverse text→3D, image→3D and multi-view→3D models from the
-port's modules, as ``bench.py``'s families configure them.
+released Objaverse text→3D, image→3D and multi-view→3D models, and
+:func:`build_shapenet_pipeline` and :func:`build_ffhq_pipeline` the
+ShapeNet and FFHQ text→3D models (U-Net-320 LSGM, fusion-decoder VAEs
+with render-space SR), from the port's modules, as ``bench.py``'s
+families configure them.
 """
 
 from __future__ import annotations
@@ -376,19 +379,22 @@ def _objaverse_pipeline(denoiser, vae, opts, render_resolution, sampler,
         render_dtype=render_dtype, device=device)
 
 
-def _sampler_diffusion(sampler: SamplerSpec):
+def _sampler_diffusion(sampler: SamplerSpec, **spec):
     """The 1000-step linear schedule that a DDPM-family ``sampler`` runs
     over: respaced to ``ddim{num_steps}`` for ``'ddim'`` and ``'plms'``,
     unspaced for ``'dpm'`` (its own solver grid, as ``bench.py``'s
-    ``dpm25`` builds it); None for flow matching."""
+    ``dpm25`` builds it); None for flow matching.  ``spec``: further
+    ``make_diffusion`` fields (the U-Net families' ``mean_type`` and
+    ``mixed_prediction``)."""
     from .diffusion.gaussian import make_diffusion
     if sampler.kind == 'flow_matching':
         return None
     if sampler.kind == 'dpm':
-        return make_diffusion(steps=1000)
+        return make_diffusion(steps=1000, **spec)
     if sampler.kind in ('ddim', 'plms'):
         return make_diffusion(steps=1000,
-                              timestep_respacing=f'ddim{sampler.num_steps}')
+                              timestep_respacing=f'ddim{sampler.num_steps}',
+                              **spec)
     raise ValueError(f'sampler kind {sampler.kind!r}')
 
 
@@ -606,3 +612,116 @@ def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
         'mv23d-dit-l2', None, dino_cfg, make_encode, device, seed, den_cfg,
         vae_cfg, render_opts, render_resolution, sampler, transport,
         render_dtype, modules)
+
+
+# bench.py FAMILY_SPECS / _build_unet_family: CFG scale, pooled-CLIP scale,
+# render preset and ray resolution of the two U-Net families
+_UNET_FAMILIES = {
+    'shapenet': dict(cfg_scale=1.0, clip_scale=18.4, ray_res=64,
+                     render='shapenet_tuneray_aug_resolution_64_64_'
+                            'nearestSR'),
+    'ffhq': dict(cfg_scale=6.5, clip_scale=1.0, ray_res=128, render='ffhq'),
+}
+
+
+def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
+                        den_cfg=None, vae_cfg=None, text_cfg=None,
+                        render_opts=None,
+                        render_resolution: Optional[int] = None,
+                        sampler: Optional[SamplerSpec] = None,
+                        render_dtype: Optional[torch.dtype] = torch.bfloat16,
+                        modules: Optional[dict] = None):
+    """The released ShapeNet (``family='shapenet'``) or FFHQ (``'ffhq'``)
+    text→3D model on ``device``, as ``bench.py`` ``_build_unet_family``
+    configures it.
+
+    Defaults: the f32 CLIP-L text tower with ``text_projection``; the
+    pooled feature L2-normalised × 18.4 (shapenet) or × 1.0 (ffhq) as a
+    one-token context; the U-Net-320 LSGM (``denoiser_preset(
+    'shapenet-unet')``, bf16) with v-prediction and its mixing logit,
+    250-step DDIM (``make_diffusion(steps=1000, mean_type='v',
+    mixed_prediction=True, timestep_respacing='ddim250')``), CFG 1.0
+    (the conditional half only) or 6.5, ``triplane_scaling_divider`` 1.0;
+    the fusionv5 (shapenet) or 4XC_final (ffhq) VAE decoder in bf16 to
+    (3, 256, 256, 32) planes, rendered in bf16 through the fused point
+    kernel at 64² rays with 64+64 samples + ``NearestConvSR`` to 128², or
+    128² rays with 48+48 samples + ``SuperresolutionHybrid8XDC`` to 512²:
+    the orbit's frames are ``image_sr``.  The σ grid (shapenet's mesh)
+    runs through the fused kernel.  Pass the family's orbit as
+    ``cameras=orbit_cameras(24, **CAMERA_PRESETS[family])`` and the ray
+    resolution as ``render_resolution`` to the call, as the bench does.
+    Weights are random, drawn from a ``torch.Generator`` seeded with
+    ``seed``, unless ``modules`` supplies ``{'denoiser', 'vae',
+    'text_model'}``.
+
+    Returns ``(pipeline, encode, modules)``; ``encode(prompt)`` gives the
+    (cond, uncond) pair (the prompt and '')."""
+    from .conditioning.clip import (CLIPTextConfig, CLIPTextModel,
+                                    default_tokenizer, pooled_text_context)
+    from .config import (RENDER_PRESETS, build_vae, denoiser_preset,
+                         vae_preset)
+    from .models.unet import UNetModel
+
+    spec = _UNET_FAMILIES[family]
+    device = resolve_device(device)
+    den_cfg = den_cfg or denoiser_preset('shapenet-unet')
+    vae_cfg = vae_cfg or vae_preset(family)
+    text_cfg = text_cfg or CLIPTextConfig(with_projection=True)
+    opts = render_opts or RENDER_PRESETS[spec['render']]
+    res = render_resolution or spec['ray_res']
+    hw = vae_cfg.latent_size
+    sampler = sampler or SamplerSpec(
+        kind='ddim', num_steps=250, cfg_scale=spec['cfg_scale'],
+        triplane_scaling_divider=1.0,
+        latent_shape=(hw, hw, vae_cfg.latent_channels))
+    if sampler.kind != 'ddim':
+        raise ValueError(f'the {family} family samples with DDIM, got '
+                         f'sampler kind {sampler.kind!r}')
+
+    if modules is None:
+        modules = _random_modules(device, seed, dict(
+            denoiser=lambda: UNetModel(den_cfg),
+            vae=lambda: build_vae(vae_cfg),
+            text_model=lambda: CLIPTextModel(text_cfg)))
+    denoiser = modules['denoiser'].to(device).to(den_cfg.dtype).eval()
+    vae = modules['vae'].to(device).cast_decoder().eval()
+    text_model = modules['text_model'].to(device).eval()
+    tokenizer = default_tokenizer(max_length=text_cfg.max_length)
+
+    pipeline = TextTo3DPipeline(
+        denoiser,
+        vae.decode_latent,
+        lambda planes, cam: vae.render(planes, cam, opts, res,
+                                       use_fused_osg=True)['image_sr'],
+        lambda planes, coords: vae.query_points(
+            planes, coords, opts.box_warp, use_fused_osg=True),
+        sampler=sampler,
+        diffusion=_sampler_diffusion(sampler, mean_type='v',
+                                     mixed_prediction=True),
+        mixing_logit=(denoiser.mixing_logit.detach()
+                      if den_cfg.mixed_prediction else None),
+        render_dtype=render_dtype, device=device)
+
+    @torch.no_grad()
+    def encode(prompt: str):
+        ids = torch.as_tensor(tokenizer([prompt, '']), device=device)
+        both = pooled_text_context(text_model(ids)['text_embeds'],
+                                   scale_clip_encoding=spec['clip_scale'])
+        return {'crossattn': both[:1]}, {'crossattn': both[1:]}
+
+    return pipeline, encode, dict(denoiser=denoiser, vae=vae,
+                                  text_model=text_model)
+
+
+def build_shapenet_pipeline(device='cuda', **kw):
+    """:func:`build_unet_pipeline` for the ShapeNet text→3D release
+    (pooled CLIP × 18.4, CFG 1.0, fusionv5 VAE, 24 64²-ray frames +
+    ``NearestConvSR`` to 128², 192³ mesh)."""
+    return build_unet_pipeline('shapenet', device, **kw)
+
+
+def build_ffhq_pipeline(device='cuda', **kw):
+    """:func:`build_unet_pipeline` for the FFHQ text→3D release (pooled
+    CLIP × 1.0, CFG 6.5, 4XC_final VAE, 24 128²-ray frames +
+    ``SuperresolutionHybrid8XDC`` to 512², no mesh)."""
+    return build_unet_pipeline('ffhq', device, **kw)

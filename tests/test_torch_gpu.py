@@ -700,3 +700,43 @@ def test_int8_attention_feeds_kernel_3(cuda):
         want = attention_reference(q, k, v).reshape(2, 768, 1024)
     assert FusedAttention.launches == before + 1
     _attn_close(seen['heads'], want, torch.bfloat16)
+
+
+# -- the ShapeNet / FFHQ paths ------------------------------------------------
+
+@pytest.mark.parametrize('M', [64 * 64 * 64, 128 * 128 * 48],
+                         ids=['shapenet_frame', 'ffhq_frame'])
+def test_fused_osg_at_unet_family_frames(cuda, M):
+    """Kernel 1 at one frame's pass of the ShapeNet (64² rays × 64
+    samples) and FFHQ (128² rays × 48) orbits: bf16 rows of 256² planes,
+    no in-box fold."""
+    args, _ = _inputs(M, torch.bfloat16, False, cuda, seed=M % 997)
+    before = FusedOSG.launches
+    rgb, sigma = osg_pointwise_fused(*args)
+    torch.cuda.synchronize()
+    assert FusedOSG.launches == before + 1
+    want_rgb, want_sigma = osg_pointwise_reference(*args)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(rgb, want_rgb, atol=atol, rtol=rtol)
+    torch.testing.assert_close(sigma, want_sigma, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize('up,demodulate,k', [(1, True, 3), (2, True, 3),
+                                             (1, False, 1)])
+def test_modulated_conv2d_card_matches_cpu(cuda, up, demodulate, k):
+    """``modulated_conv2d`` (the batch folded into the conv's groups; the
+    up path a stride-2 transposed conv and the FIR) on the card against
+    the CPU, f32 without TF32, at the 8XDC head's second block's widths."""
+    from ln3diff_tpu_torch.models.stylegan import modulated_conv2d
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(up * 10 + k)
+    x = torch.randn((2, 256, 32, 32), generator=g)
+    w = torch.randn((128, 256, k, k), generator=g)
+    styles = torch.rand((2, 256), generator=g) + 0.5
+    want = modulated_conv2d(x, w, styles, demodulate=demodulate, up=up)
+    got = modulated_conv2d(x.to(cuda), w.to(cuda), styles.to(cuda),
+                           demodulate=demodulate, up=up)
+    assert got.shape == (2, 128, 32 * up, 32 * up)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale,
+                               rtol=1e-4)
