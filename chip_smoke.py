@@ -140,6 +140,11 @@ TOL_TRAIN = 1e-3
 # the two routes of the full-width training step (bf16 compute): the
 # first step's loss, kernel pair against plain PyTorch, relative
 TOL_TRAIN_ROUTES = 1e-2
+# the bf16 U-Net step in channels-last memory against its twin with NCHW
+# convs, one call each on one input: |Δ| <= TOL_LAYOUT·max(1, |NCHW|).
+# cuDNN may pick another algorithm per layout, which moves a bf16 sum by
+# an ulp (2^-8 relative) here and there through 40-odd layers.
+TOL_LAYOUT = 2e-2
 # the serving path's mesh: σ > 10 inside, 192³ grid over ±0.45
 MESH_GRID, MESH_AABB, MESH_THRESHOLD = 192, 0.45, 10.0
 
@@ -1864,64 +1869,87 @@ def image_families():
     return results
 
 
-UNET_FAMILIES = {
-    # family: (latent side, ray resolution, SR frame side, mesh)
-    'shapenet': (32, 64, 128, True),
-    'ffhq': (16, 128, 512, False),
-}
-
-
 def unet_families():
     """The ShapeNet and FFHQ text→3D calls at full width
     (``build_unet_pipeline``, random weights from seed 0, each family's
     models freed before the next's): the call as the bench configures it
     (``_serving_call`` on the family's 24-frame orbit from
-    ``CAMERA_PRESETS``, ShapeNet with a mesh), then one DDIM step of the
-    U-Net under the profiler: batch 1 over the conditional half
-    (ShapeNet, CFG 1.0), batch 2 CFG-doubled (FFHQ, CFG 6.5)."""
+    ``CAMERA_PRESETS``, ShapeNet with a mesh), ShapeNet's mesh stage on an
+    analytic sphere with the colours from its planes (``mesh_check``: the
+    random σ field is empty), then one DDIM step of the U-Net under the
+    profiler: batch 1 over the conditional half (ShapeNet, CFG 1.0),
+    batch 2 CFG-doubled (FFHQ, CFG 6.5), each beside a twin with the
+    same weights whose convs are in NCHW memory (the layout cuDNN's sm90
+    convs transpose on every call)."""
+    import copy
     import torch
     from ln3diff_tpu_torch.config import CAMERA_PRESETS
-    from ln3diff_tpu_torch.pipeline import build_unet_pipeline
+    from ln3diff_tpu_torch.pipeline import UNET_FAMILIES, build_unet_pipeline
     from ln3diff_tpu_torch.render.camera import orbit_cameras
     results, steps = {}, {}
     prompt = 'a red sports car'
-    for family, (hw, rays, side, mesh) in UNET_FAMILIES.items():
+    for family, spec in UNET_FAMILIES.items():
+        mesh = family == 'shapenet'
         t0 = time.perf_counter()
         pipe, encode, modules = build_unet_pipeline(family, 'cuda', seed=0)
+        rays = spec['ray_res']
+        side = rays * modules['vae'].cfg.sr_ratio
         phase_done(f'{family}_pipeline_build', t0, weights=(
             'random (torch.Generator seed 0); U-Net-320 LSGM bf16 (v-pred, '
             'mixing logit), CLIP-L text f32 with text_projection, pooled x'
-            f'{"18.4" if family == "shapenet" else "1.0"}, '
-            f'{"fusionv5" if family == "shapenet" else "4XC_final"} VAE '
-            'decoder bf16; ddim250, cfg '
-            f'{pipe.spec.cfg_scale}, 24 x {rays}^2-ray orbit + '
-            f'{"NearestConvSR" if family == "shapenet" else "8XDC"} to '
+            f'{spec["clip_scale"]}, {type(modules["vae"]).__name__} '
+            f'decoder bf16; ddim250, cfg {pipe.spec.cfg_scale}, 24 x '
+            f'{rays}^2-ray orbit + '
+            f'{type(modules["vae"].superresolution).__name__} to '
             f'{side}^2, bf16 planes' + (', 192^3 sigma grid, mesh'
                                         if mesh else '')),
             parameters=sum(p.numel() for m in modules.values()
                            for p in m.parameters()))
         t0 = time.perf_counter()
         cams = orbit_cameras(24, **CAMERA_PRESETS[family])
-        res, _ = _serving_call(
+        res, latents = _serving_call(
             pipe, encode, prompt, 'text_encode', sample_key='unet_sample',
             call_kw=dict(cameras=cams, render_resolution=rays),
-            shapes=dict(latents=(1, hw, hw, 12),
+            shapes=dict(latents=(1, *pipe.spec.latent_shape),
                         planes=(1, 3, 256, 256, 32),
                         video=(1, 24, side, side, 3)),
             mesh=mesh, sr_head=modules['vae'].superresolution)
+        if mesh:
+            with torch.no_grad():
+                planes = pipe.decode_fn(latents)
+            res['mesh_on_sphere'] = mesh_check(pipe._mesh_decoder(
+                planes.to(torch.bfloat16)))
         phase_done(f'{family}_pipeline', t0, **res)
         results[family] = res
         # CFG 1.0 runs the conditional half only: batch 1
-        steps[family] = (modules['denoiser'], *encode(prompt), hw,
-                         pipe.spec.cfg_scale != 1.0)
+        steps[family] = (modules['denoiser'], *encode(prompt),
+                         pipe.spec.latent_shape, pipe.spec.cfg_scale != 1.0)
         del pipe, encode, modules
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     profiles = {}
-    for family, (den, cond, uncond, hw, doubled) in steps.items():
-        profiles[f'{family}_batch_{2 if doubled else 1}'] = dit_profile(
-            {'unet': den}, cond, uncond, latent_shape=(hw, hw, 12),
-            doubled=doubled)['unet']
+    for family, (den, cond, uncond, shape, doubled) in steps.items():
+        nchw = copy.deepcopy(den)
+        for mod in nchw.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                mod.to(memory_format=torch.contiguous_format)
+        B = 2 if doubled else 1
+        g = torch.Generator(device='cuda').manual_seed(6)
+        x = torch.randn((B, *shape), generator=g, device='cuda')
+        t = torch.full((B,), 500, device='cuda')
+        ctx = ({k: torch.cat([cond[k], uncond[k]]) for k in cond}
+               if doubled else cond)
+        with torch.no_grad():
+            got, want = den(x, t, ctx), nchw(x, t, ctx)
+        diff = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        check(diff <= TOL_LAYOUT * scale, f'{family}: the channels-last '
+              f'U-Net is {diff} from its NCHW twin, scale {scale}')
+        profiles[f'{family}_batch_{B}'] = dict(dit_profile(
+            {'channels_last': den, 'nchw_convs': nchw}, cond, uncond,
+            latent_shape=shape, doubled=doubled),
+            max_abs_diff_vs_nchw=diff, scale=scale)
+        del nchw
     phase_done('unet_profile', t0, **profiles)
     return results
 

@@ -25,22 +25,18 @@ W_DIM = 512          # the w latent's width
 CONV_CLAMP = 256.0   # the released head's conv_clamp
 
 
-def setup_filter(f=(1, 3, 3, 1), normalize: bool = True,
-                 device=None) -> torch.Tensor:
-    """2-D separable FIR filter from 1-D taps, f32."""
-    f = np.asarray(f, np.float32)
-    if f.ndim == 1:
-        f = np.outer(f, f)
-    if normalize:
-        f = f / f.sum()
-    return torch.as_tensor(f, device=device)
+def setup_filter(device=None) -> torch.Tensor:
+    """The released head's 2-D FIR filter: the outer product of the taps
+    [1, 3, 3, 1], normalised to sum 1, f32."""
+    f = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32)
+    return torch.as_tensor(f / f.sum(), device=device)
 
 
-def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
+def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1,
               padding=(0, 0, 0, 0), gain: float = 1.0) -> torch.Tensor:
     """Zero-stuff by ``up`` → pad (px0, px1, py0, py1; negative crops) →
     FIR filter (a convolution: the flipped taps correlated) with gain
-    ``gain·up²`` → keep every ``down``-th pixel.  x: (B, C, H, W)."""
+    ``gain·up²``.  x: (B, C, H, W)."""
     B, C, H, W = x.shape
     if up > 1:
         z = x.new_zeros((B, C, H, up, W, up))
@@ -48,18 +44,14 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
         x = z.reshape(B, C, H * up, W * up)
     x = F.pad(x, tuple(padding))
     kernel = torch.flip(f * (gain * up**2), (0, 1)).to(x.dtype)
-    x = F.conv2d(x, kernel[None, None].expand(C, 1, *f.shape), groups=C)
-    if down > 1:
-        x = x[:, :, ::down, ::down]
-    return x
+    return F.conv2d(x, kernel[None, None].expand(C, 1, *f.shape), groups=C)
 
 
-def upsample2d(x: torch.Tensor, f: torch.Tensor,
-               up: int = 2) -> torch.Tensor:
+def upsample2d(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """2x FIR upsampling with the padding that keeps the (2H, 2W) size."""
     fh, fw = f.shape
-    p = ((fw + up - 1) // 2, (fw - up) // 2, (fh + up - 1) // 2,
-         (fh - up) // 2)
-    return upfirdn2d(x, f, up=up, padding=p)
+    p = ((fw + 1) // 2, (fw - 2) // 2, (fh + 1) // 2, (fh - 2) // 2)
+    return upfirdn2d(x, f, up=2, padding=p)
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -125,15 +117,14 @@ class SynthesisLayerSG2(nn.Module):
 
 
 class ToRGBSG2(nn.Module):
-    """StyleGAN2 ``ToRGBLayer``: styles / √Cin, 1x1 modulated conv without
-    demodulation, bias, clamp to ±256."""
+    """StyleGAN2 ``ToRGBLayer`` to 3 channels: styles / √Cin, 1x1
+    modulated conv without demodulation, bias, clamp to ±256."""
 
-    def __init__(self, in_channels: int, out_channels: int = 3):
+    def __init__(self, in_channels: int):
         super().__init__()
         self.affine = EqualDense(W_DIM, in_channels, bias_init=1.0)
-        self.weight = nn.Parameter(
-            torch.randn(out_channels, in_channels, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.weight = nn.Parameter(torch.randn(3, in_channels, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(3))
 
     def reset_free_parameters(self, generator=None):
         self.weight.copy_(torch.randn(self.weight.shape, generator=generator,
@@ -152,22 +143,19 @@ class SynthesisBlockSG2(nn.Module):
     image skip FIR-upsampled plus ToRGB.  (x, img) NCHW → (x, img) at
     twice the resolution."""
 
-    def __init__(self, in_channels: int, out_channels: int, resolution: int,
-                 img_channels: int = 3):
+    def __init__(self, in_channels: int, out_channels: int,
+                 resolution: int):
         super().__init__()
         self.conv0 = SynthesisLayerSG2(in_channels, out_channels, resolution,
                                        up=2)
         self.conv1 = SynthesisLayerSG2(out_channels, out_channels,
                                        resolution)
-        self.torgb = ToRGBSG2(out_channels, img_channels)
+        self.torgb = ToRGBSG2(out_channels)
 
     def forward(self, x, img, w_latent):
         x = self.conv1(self.conv0(x, w_latent), w_latent)
-        y = self.torgb(x, w_latent)
-        if img is None:
-            return x, y
-        img = upsample2d(img.float(), setup_filter(device=x.device), up=2)
-        return x, img + y
+        img = upsample2d(img.float(), setup_filter(device=x.device))
+        return x, img + self.torgb(x, w_latent)
 
 
 class SuperresolutionHybrid8XDC(nn.Module):

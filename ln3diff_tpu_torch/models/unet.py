@@ -15,8 +15,11 @@ parameter that the LSGM samplers read.  The attention is the plain
 ``jax.nn.dot_product_attention``.
 
 The model takes and returns channels-last latents (B, H, W, 3·c) with the
-'(n c)' plane-outer channel layout; inside, it runs NCHW.  Submodule names
-are the JAX module's, so ``bridge.py`` maps the parameters one to one.
+'(n c)' plane-outer channel layout, as JAX's NHWC model does.  Inside, the
+activations and the conv weights are NCHW tensors in channels-last memory
+(NHWC storage), the layout Hopper's cuDNN convs take without transposing
+their operands.  Submodule names are the JAX module's, so ``bridge.py``
+maps the parameters one to one.
 Built in f32; ``cfg.dtype`` (bf16 for serving) is the dtype the caller
 casts it to.  ``quantized=True`` (the W8A8 int8 U-Net) is not ported yet.
 """
@@ -293,6 +296,9 @@ class UNetModel(nn.Module):
                 self._up.append(names)
         self.out_norm = _norm(ch)
         self.conv_out = _conv3(ch, cfg.out_channels)
+        for mod in self.modules():
+            if isinstance(mod, nn.Conv2d):
+                mod.to(memory_format=torch.channels_last)
 
     def _attn(self, name, ch):
         cfg = self.cfg
@@ -332,12 +338,10 @@ class UNetModel(nn.Module):
         B, H, W, C = x.shape
         if cfg.roll_out:
             # '(n c)' channels → the planes side by side along the width
-            c = C // 3
-            x = x.reshape(B, H, W, 3, c).permute(0, 4, 1, 3, 2)
-            x = x.reshape(B, c, H, 3 * W)
-        else:
-            x = x.permute(0, 3, 1, 2)
-        h = self.conv_in(x.to(dt))
+            x = x.reshape(B, H, W, 3, C // 3).transpose(2, 3)
+            x = x.reshape(B, H, 3 * W, C // 3)
+        h = self.conv_in(x.permute(0, 3, 1, 2).to(
+            dt, memory_format=torch.channels_last))
         hs = [h]
         for names in self._down:
             h = self._run(names, h, emb, context)
@@ -353,11 +357,9 @@ class UNetModel(nn.Module):
         for names in self._up:
             h = torch.cat([h, hs.pop()], dim=1)
             h = self._run(names, h, emb, context)
-        h = self.conv_out(F.silu(self.out_norm(h)))
+        h = self.conv_out(F.silu(self.out_norm(h))).permute(0, 2, 3, 1)
         if cfg.roll_out:
-            c = h.shape[1]
-            h = h.reshape(B, c, H, 3, W).permute(0, 2, 4, 3, 1)
+            c = h.shape[-1]
+            h = h.reshape(B, H, 3, W, c).transpose(2, 3)
             h = h.reshape(B, H, W, 3 * c)
-        else:
-            h = h.permute(0, 2, 3, 1)
         return h.float()

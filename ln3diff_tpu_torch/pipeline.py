@@ -616,7 +616,7 @@ def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
 
 # bench.py FAMILY_SPECS / _build_unet_family: CFG scale, pooled-CLIP scale,
 # render preset and ray resolution of the two U-Net families
-_UNET_FAMILIES = {
+UNET_FAMILIES = {
     'shapenet': dict(cfg_scale=1.0, clip_scale=18.4, ray_res=64,
                      render='shapenet_tuneray_aug_resolution_64_64_'
                             'nearestSR'),
@@ -662,7 +662,7 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
                          vae_preset)
     from .models.unet import UNetModel
 
-    spec = _UNET_FAMILIES[family]
+    spec = UNET_FAMILIES[family]
     device = resolve_device(device)
     den_cfg = den_cfg or denoiser_preset('shapenet-unet')
     vae_cfg = vae_cfg or vae_preset(family)

@@ -140,6 +140,33 @@ def test_unet_free_parameters():
         tunet.UNetModel(tunet.UNetConfig(quantized=True))
 
 
+def test_unet_runs_channels_last():
+    """The conv weights are NHWC in memory, and stay so through the random
+    init, a bridge load and the cast to bf16; the activations that the
+    convs return are channels-last too."""
+    _, _, tm, c = _unet('adm')
+    fresh = random_init_(tunet.UNetModel(tunet.UNetConfig(
+        dtype=torch.float32, **UNETS['adm'])),
+        torch.Generator().manual_seed(0))
+    fresh.load_state_dict(tm.state_dict())
+    fresh = fresh.to(torch.bfloat16)
+    convs = [m for m in fresh.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert convs and all(
+        m.weight.is_contiguous(memory_format=torch.channels_last)
+        for m in convs)
+    layouts = []
+    hooks = [m.register_forward_hook(lambda m, i, o: layouts.append(
+        o.is_contiguous(memory_format=torch.channels_last)))
+        for m in convs]
+    x, t, ctx = _inputs(c)
+    with torch.no_grad():
+        out = fresh(torch.from_numpy(x), torch.from_numpy(t))
+    for h in hooks:
+        h.remove()
+    assert len(layouts) == len(convs) and all(layouts)
+    assert out.shape == x.shape[:3] + (8,) and out.dtype == torch.float32
+
+
 def test_spatial_transformer_and_self_attention_match_jax():
     """The two attention blocks alone, NHWC in JAX, NCHW in the port."""
     rng = np.random.default_rng(5)
