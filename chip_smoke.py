@@ -51,7 +51,17 @@ from a fixed seed:
   CFG 6.5, the 4XC_final VAE, 128² rays with 48+48 samples and
   ``SuperresolutionHybrid8XDC`` to 512², no mesh);
 * ``unet_profile``: a DDIM step of the U-Net (batch 1 at CFG 1.0, batch 2
-  CFG-doubled) under the profiler.
+  CFG-doubled) under the profiler;
+* ``shapenet_int8`` and ``ffhq_int8``: the two calls with the W8A8 int8
+  U-Net-320 (``quantize_unet``: ``Int8Conv`` im2col over
+  ``torch._int_mm``, ``Int8Linear``), and ``unet_int8_profile``: a DDIM
+  step of the int8 and the bf16 U-Net under the profiler, and the int8
+  conv beside cuDNN's bf16 conv at the first level's 3x3 shape;
+* ``ffhq_fgbg_render``: the fg/bg VAE (``vae_preset('ffhq-fgbg')``: bf16
+  decoder, 32 fg + 32 bg plane channels, NeRF++ background of 16 samples
+  per ray, ``SuperresolutionHybrid`` ×4) decoding one latent and
+  rendering a 24-frame orbit of 64² rays to 256², the fg pass through
+  kernel 1 and through its plain version.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -61,7 +71,8 @@ g++ and holds each kernel against its plain PyTorch version
 sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
 models card against CPU (``small_reference``, ``small_reference_i23d``;
 ``small_reference_samplers``: DPM, PLMS and the int8 DiT;
-``small_reference_unet``: the ShapeNet and FFHQ paths) and a small training
+``small_reference_unet``: the ShapeNet and FFHQ paths and the int8 U-Net;
+``small_reference_fgbg``: a small fg/bg VAE) and a small training
 step card against CPU (``small_train_reference``), and profiles a
 sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
 ``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
@@ -281,8 +292,9 @@ def kernel_check():
     shapes: a 192² × 64-sample render pass (with the bbox fold), the same
     with a ragged M, one σ-grid chunk of 2^18 points (no fold), f32 rows,
     and one training-step launch (M = 64·32², bf16, with the fold); each
-    with the wrapper's host time per call (``host_us``); and one frame of
+    with the wrapper's host time per call (``host_us``); one frame of
     the FFHQ orbit's pass (128² rays × 48 samples over 256² planes, no
+    fold) and one of the fg/bg orbit's fg pass (64² rays × 48 samples, no
     fold)."""
     import torch
     from ln3diff_tpu_torch.ops.fused_render import (osg_pointwise_fused,
@@ -293,7 +305,8 @@ def kernel_check():
              ('sigma_chunk', 2**18, torch.bfloat16, False),
              ('render_pass_f32', 2**18 + 5, torch.float32, True),
              ('training_launch', 64 * 32 * 32, torch.bfloat16, True),
-             ('ffhq_frame', 128 * 128 * 48, torch.bfloat16, False)]
+             ('ffhq_frame', 128 * 128 * 48, torch.bfloat16, False),
+             ('fgbg_frame', 64 * 64 * 48, torch.bfloat16, False)]
     results = []
     for i, (name, M, dt, with_inbox) in enumerate(cases):
         args, inbox = osg_inputs(M, dt, with_inbox, seed=100 + i)
@@ -373,8 +386,7 @@ def _small_card_vs_cpu(build, kw, inputs, fused, variant, shared=False,
             planes = gpu_pipe.decode_fn(outs['cpu']['latents'].cuda())
             outs['cuda'] = dict(
                 outs['cuda'], planes=planes,
-                video=gpu_pipe.render_orbit(planes, 2,
-                                            render_resolution=32))
+                video=gpu_pipe.render_orbit(planes, **call_kw))
     for key in ('latents', 'planes', 'video'):
         ref = outs['cpu'][key]
         got = outs['cuda'][key].cpu()
@@ -523,7 +535,11 @@ def small_reference_unet():
     plane channels, as kernel 1 takes them), 16² rays with 16+16 samples
     and the family's SR head: ``NearestConvSR`` over 2 frames, the
     full-width ``SuperresolutionHybrid8XDC`` (fixed widths, to 512²) over
-    one.  Card against CPU, same weights and noise, f32."""
+    one.  Card against CPU, same weights and noise, f32.  ShapeNet's runs
+    again with the int8 U-Net (``quantized=True``: ``Int8Conv`` and
+    ``Int8Linear`` on ``torch._int_mm`` on both sides), its latents held
+    within ``TOL_INT8`` and the planes and frames from the CPU's
+    latents."""
     import torch
     from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
     from ln3diff_tpu_torch.config import CAMERA_PRESETS, RENDER_PRESETS
@@ -547,12 +563,15 @@ def small_reference_unet():
                      1.0, 2),
         'ffhq': (FFHQVAEConfig(token_size=8, **vae_kw), 'ffhq', 6.5, 1)}
     res = {}
-    for family, (vae_cfg, preset, cfg_scale, frames) in families.items():
+    runs = [(family, False) for family in families] + [('shapenet', True)]
+    for family, quantized in runs:
+        vae_cfg, preset, cfg_scale, frames = families[family]
         kw = dict(
             den_cfg=UNetConfig(model_channels=32, num_res_blocks=1,
                                attention_resolutions=(2,),
                                channel_mult=(1, 2), num_heads=2,
-                               context_dim=64, dtype=f32),
+                               context_dim=64, quantized=quantized,
+                               dtype=f32),
             vae_cfg=vae_cfg,
             text_cfg=CLIPTextConfig(hidden_size=64, num_layers=2,
                                     num_heads=2, intermediate_size=128,
@@ -566,11 +585,71 @@ def small_reference_unet():
                                 triplane_scaling_divider=1.0,
                                 latent_shape=(8, 8, 12)))
         cams = orbit_cameras(frames, **CAMERA_PRESETS[family])
-        res[family] = _small_card_vs_cpu(
+        name = f'{family}_int8' if quantized else family
+        res[name] = _small_card_vs_cpu(
             lambda *a, **k: build_unet_pipeline(family, *a, **k), kw,
-            'a red sports car', False, family,
+            'a red sports car', False, name, shared=quantized,
+            tol_latents=TOL_INT8 if quantized else TOL_PIPE,
             call_kw=dict(cameras=cams, render_resolution=16))
     return res
+
+
+def small_reference_fgbg():
+    """A small fg/bg VAE (``use_background``: 32 fg + 32 bg plane
+    channels, as kernel 1 takes the fg half; the ``'stylegan'`` SR head ×2)
+    on the CPU (seed 7) and on the card (a copy of the same weights), f32:
+    the decode of one latent and a 2-frame orbit of 16² rays with the FFHQ
+    render options (16+16 samples, 8 background samples), the fg pass
+    through the fused route (kernel 1 on the card, its plain version on
+    the CPU).  Planes and every render output within ``TOL_PIPE`` of
+    scale; the card must launch kernel 1, the CPU must not."""
+    import torch
+    from ln3diff_tpu_torch.config import CAMERA_PRESETS, RENDER_PRESETS
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    f32 = torch.float32
+    cfg = TriplaneVAEConfig(
+        latent_size=8,
+        dit2=DiT2Config(tokens_per_plane=16, hidden_size=64, depth=2,
+                        num_heads=2, dtype=f32),
+        conv_sr_ch=8, conv_sr_ch_mult=(1, 2), plane_channels=64,
+        use_sr=True, sr_ratio=2, sr_module='stylegan', use_background=True,
+        bg_depth_resolution=8, dtype=f32)
+    cpu = TriplaneVAE(cfg)
+    random_init_(cpu, torch.Generator().manual_seed(7))
+    vaes = {'cpu': cpu.eval(), 'cuda': copy.deepcopy(cpu).cuda().eval()}
+    latent = torch.randn((1, 8, 8, 12),
+                         generator=torch.Generator().manual_seed(3))
+    cams = torch.from_numpy(orbit_cameras(2, **CAMERA_PRESETS['ffhq']))
+    opts = dataclasses.replace(RENDER_PRESETS['ffhq'], depth_resolution=16,
+                               depth_resolution_importance=16)
+    outs, launches = {}, {}
+    for name, vae in vaes.items():
+        dev = 'cpu' if name == 'cpu' else 'cuda'
+        FusedOSG.launches = 0
+        with torch.no_grad():
+            planes = vae.decode_latent(latent.to(dev))
+            outs[name] = dict(planes=planes, **vae.render(
+                planes.expand(len(cams), -1, -1, -1, -1),
+                cams.float().to(dev), opts, 16, use_fused_osg=True))
+        launches[name] = FusedOSG.launches
+    check(launches['cuda'] == 4 and launches['cpu'] == 0,
+          f'kernel 1 launches {launches}, expected 4 on the card (2 '
+          f'frames x coarse and fine) and none on the CPU')
+    r = dict(fused_osg_launches=launches['cuda'])
+    for key in ('planes', 'image_raw', 'image_sr', 'image_depth',
+                'image_mask'):
+        ref = outs['cpu'][key]
+        got = outs['cuda'][key].cpu()
+        err = float((got - ref).abs().max())
+        tol = TOL_PIPE * max(1.0, float(ref.abs().max()))
+        r[key] = dict(max_abs_err=err, tol=tol)
+        check(bool(torch.isfinite(got).all()), f'fgbg {key}: non-finite')
+        check(err <= tol, f'fgbg {key}: card vs CPU max|Δ| {err} > {tol}')
+    return r
 
 
 def attention_bound_ms(B, L, H, d, itemsize):
@@ -1880,13 +1959,17 @@ def unet_families():
     profiler: batch 1 over the conditional half (ShapeNet, CFG 1.0),
     batch 2 CFG-doubled (FFHQ, CFG 6.5), each beside a twin with the
     same weights whose convs are in NCHW memory (the layout cuDNN's sm90
-    convs transpose on every call)."""
+    convs transpose on every call).  Each family's call runs again with
+    ``quantize_unet`` of its U-Net (``{family}_int8``), and
+    ``unet_int8_profile`` holds a DDIM step of the int8 U-Net beside the
+    bf16 one."""
     import copy
     import torch
     from ln3diff_tpu_torch.config import CAMERA_PRESETS
+    from ln3diff_tpu_torch.ops.int8 import Int8Conv, Int8Linear, quantize_unet
     from ln3diff_tpu_torch.pipeline import UNET_FAMILIES, build_unet_pipeline
     from ln3diff_tpu_torch.render.camera import orbit_cameras
-    results, steps = {}, {}
+    results, steps, int8 = {}, {}, {}
     prompt = 'a red sports car'
     for family, spec in UNET_FAMILIES.items():
         mesh = family == 'shapenet'
@@ -1907,13 +1990,15 @@ def unet_families():
                            for p in m.parameters()))
         t0 = time.perf_counter()
         cams = orbit_cameras(24, **CAMERA_PRESETS[family])
-        res, latents = _serving_call(
-            pipe, encode, prompt, 'text_encode', sample_key='unet_sample',
+        call_args = dict(
+            sample_key='unet_sample',
             call_kw=dict(cameras=cams, render_resolution=rays),
             shapes=dict(latents=(1, *pipe.spec.latent_shape),
                         planes=(1, 3, 256, 256, 32),
                         video=(1, 24, side, side, 3)),
             mesh=mesh, sr_head=modules['vae'].superresolution)
+        res, latents = _serving_call(pipe, encode, prompt, 'text_encode',
+                                     **call_args)
         if mesh:
             with torch.no_grad():
                 planes = pipe.decode_fn(latents)
@@ -1921,10 +2006,29 @@ def unet_families():
                 planes.to(torch.bfloat16)))
         phase_done(f'{family}_pipeline', t0, **res)
         results[family] = res
+        # the same call with the W8A8 int8 U-Net
+        t0 = time.perf_counter()
+        q = quantize_unet(modules['denoiser'])
+        quant_s = time.perf_counter() - t0
+        n_conv = sum(isinstance(m, Int8Conv) for m in q.modules())
+        n_lin = sum(isinstance(m, Int8Linear) for m in q.modules())
+        check(q.cfg.quantized and n_conv > 0 and n_lin > 0,
+              f'quantize_unet gave {n_conv} int8 convs, {n_lin} linears')
+        qpipe, qencode, _ = build_unet_pipeline(
+            family, 'cuda', den_cfg=q.cfg, modules=dict(modules, denoiser=q))
+        qres, qlat = _serving_call(qpipe, qencode, prompt, 'text_encode',
+                                   **call_args)
+        qres.update(latents_rel_to_bf16=float((qlat - latents).norm()
+                                              / latents.norm()),
+                    quantize_seconds=round(quant_s, 3),
+                    int8_convs=n_conv, int8_linears=n_lin)
+        phase_done(f'{family}_int8', t0, **qres)
+        results[f'{family}_int8'] = qres
         # CFG 1.0 runs the conditional half only: batch 1
         steps[family] = (modules['denoiser'], *encode(prompt),
                          pipe.spec.latent_shape, pipe.spec.cfg_scale != 1.0)
-        del pipe, encode, modules
+        int8[family] = q
+        del pipe, encode, modules, qpipe, qencode
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     profiles = {}
@@ -1951,7 +2055,181 @@ def unet_families():
             max_abs_diff_vs_nchw=diff, scale=scale)
         del nchw
     phase_done('unet_profile', t0, **profiles)
+
+    t0 = time.perf_counter()
+    profiles = {}
+    for family, (den, cond, uncond, shape, doubled) in steps.items():
+        q = int8[family]
+        B = 2 if doubled else 1
+        g = torch.Generator(device='cuda').manual_seed(7)
+        x = torch.randn((B, *shape), generator=g, device='cuda')
+        t = torch.full((B,), 500, device='cuda')
+        ctx = ({k: torch.cat([cond[k], uncond[k]]) for k in cond}
+               if doubled else cond)
+        with torch.no_grad():
+            want, got = den(x, t, ctx), q(x, t, ctx)
+        rel = float((got - want).norm() / want.norm())
+        check(bool(torch.isfinite(got).all()), f'{family}: int8 U-Net '
+              f'output not finite')
+        check(rel < 0.15, f'{family}: the int8 U-Net is {rel} relative '
+              f'from bf16 (bound 0.15, tests/test_int8.py)')
+        profiles[f'{family}_batch_{B}'] = dict(
+            dit_profile({'bf16': den, 'int8': q}, cond, uncond,
+                        latent_shape=shape, doubled=doubled),
+            int8_rel_to_bf16=rel, first_level_conv=int8_conv_ms(B))
+    phase_done('unet_int8_profile', t0, **profiles)
     return results
+
+
+def int8_conv_ms(B, C=320, H=32, W=96):
+    """The U-Net-320's first-level 3x3 conv (C → C over the rolled-out
+    32 × 96 latent, batch ``B``), ms per call from CUDA events around 50
+    back-to-back calls: ``Int8Conv`` whole (per-sample quantization,
+    padding and im2col, ``torch._int_mm``, rescale), its ``_int_mm``
+    alone on the same patches, and cuDNN's bf16 conv of the same shape in
+    channels-last memory."""
+    import torch
+    import torch.nn.functional as F
+    from ln3diff_tpu_torch.ops.int8 import (Int8Conv, im2col,
+                                            quantize_per_sample)
+    g = torch.Generator(device='cuda').manual_seed(12)
+    w = torch.randn((C, C, 3, 3), generator=g, device='cuda') / (9 * C)**0.5
+    conv = Int8Conv(C, C, 3, padding=1).cuda().load_weight(w)
+    x = torch.randn((B, C, H, W), generator=g, device='cuda').to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xq, _ = quantize_per_sample(x.permute(0, 2, 3, 1))
+    patches = im2col(xq, 3, padding=1).reshape(B * H * W, C * 9)
+    kq = conv.kernel_q.reshape(C, C * 9).t()
+    wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return dict(
+        shape=[B, C, H, W], kernel=3,
+        int8_conv_ms=events_ms(lambda: conv(x)),
+        int_mm_ms=events_ms(lambda: torch._int_mm(patches, kq)),
+        bf16_cudnn_ms=events_ms(lambda: F.conv2d(x, wb, padding=1)),
+        ops=2 * B * H * W * C * C * 9)
+
+
+def ffhq_fgbg_render(frames=24):
+    """The fg/bg VAE at full width (``vae_preset('ffhq-fgbg')``, random
+    weights from seed 0, the bf16 decoder of serving): decode one latent
+    to (1, 3, 128, 128, 64) planes, cast to bf16, then a ``frames``-frame
+    FFHQ orbit of 64² rays (``img_resolution`` 256 / ``sr_ratio`` 4) with
+    the FFHQ render options (48+48 samples) and 16 background samples
+    per ray, through ``SuperresolutionHybrid`` to 256², one frame per
+    call.  Twice: the fg pass through kernel 1 (``use_fused_osg=True``),
+    then through its plain version ``osg_pointwise_reference`` in the
+    wrapper's place; the frames held together at ``TOL['bfloat16']``.
+    ms per frame split into rays + kernel 1 (the fg pass), the bg pass and
+    the SR head by synchronising timers; kernel 1's launches; peak
+    memory."""
+    import torch
+    from ln3diff_tpu_torch.config import (CAMERA_PRESETS, RENDER_PRESETS,
+                                          vae_preset)
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    from ln3diff_tpu_torch.ops import fused_render
+    from ln3diff_tpu_torch.render import background
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+
+    cfg = vae_preset('ffhq-fgbg')
+    with torch.device('cuda'):
+        vae = TriplaneVAE(cfg)
+    random_init_(vae, torch.Generator(device='cuda').manual_seed(0))
+    vae.cast_decoder().eval()
+    rays = cfg.img_resolution // cfg.sr_ratio
+    opts = RENDER_PRESETS['ffhq']
+    cams = torch.from_numpy(orbit_cameras(
+        frames, **CAMERA_PRESETS['ffhq'])).float().cuda()
+    latent = torch.randn((1, cfg.latent_size, cfg.latent_size,
+                          cfg.latent_channels), device='cuda',
+                         generator=torch.Generator(device='cuda')
+                         .manual_seed(8))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        planes = vae.decode_latent(latent).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(tuple(planes.shape) == (1, 3, 128, 128, 64),
+          f'fgbg planes {tuple(planes.shape)}')
+    check(bool(torch.isfinite(planes).all()), 'fgbg planes not finite')
+
+    secs = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - s0
+            return out
+        return run
+
+    def orbit():
+        secs.clear()
+        outs = []
+        with torch.no_grad():
+            for i in range(frames):
+                outs.append(timed('frame', vae.render)(
+                    planes, cams[i:i + 1], opts, rays, use_fused_osg=True))
+        return {k: torch.cat([o[k] for o in outs])
+                for k in ('image_sr', 'image_raw', 'image_depth',
+                          'image_mask')}
+
+    render_bg = background.render_background
+    kernel_1 = fused_render.osg_pointwise_fused
+    background.render_background = timed('bg_pass', render_bg)
+    vae.superresolution.forward = timed('sr_head',
+                                        vae.superresolution.forward)
+    res = {}
+    try:
+        runs = {}
+        for route in ('kernel_1', 'plain'):
+            if route == 'plain':
+                fused_render.osg_pointwise_fused =                     fused_render.osg_pointwise_reference
+            fused_render.FusedOSG.launches = 0
+            orbit()                                   # warm-up
+            fused_render.FusedOSG.launches = 0
+            runs[route] = orbit()
+            launches = fused_render.FusedOSG.launches
+            want = 2 * frames if route == 'kernel_1' else 0
+            check(launches == want, f'fgbg {route}: kernel 1 launched '
+                  f'{launches} times, expected {want}')
+            per = {k: secs[k] / frames * 1e3
+                   for k in ('frame', 'bg_pass', 'sr_head')}
+            per['rays_and_fg_pass'] = (per['frame'] - per['bg_pass']
+                                       - per['sr_head'])
+            res[route] = dict(ms_per_frame=per, fused_osg_launches=launches)
+    finally:
+        background.render_background = render_bg
+        fused_render.osg_pointwise_fused = kernel_1
+        del vae.superresolution.forward
+    sr = runs['kernel_1']['image_sr']
+    check(tuple(sr.shape) == (frames, 4 * rays, 4 * rays, 3),
+          f'fgbg SR frames {tuple(sr.shape)}')
+    atol, rtol = TOL['bfloat16']
+    errs = {}
+    for key, got in runs['kernel_1'].items():
+        ref = runs['plain'][key]
+        check(bool(torch.isfinite(got).all()), f'fgbg {key} not finite')
+        err = (got - ref).abs()
+        # the SR frames are unbounded: atol scales with their range
+        a = atol * max(1.0, float(ref.abs().max())) if key == 'image_sr' \
+            else atol
+        errs[key] = float(err.max())
+        check(bool((err <= a + rtol * ref.abs()).all()),
+              f'fgbg {key}: kernel 1 vs plain max|Δ| {errs[key]}')
+    raw = runs['kernel_1']['image_raw']
+    res.update(decode_seconds=round(decode_s, 3), frames=frames,
+               rays=rays, sr_side=4 * rays, max_abs_err_vs_plain=errs,
+               atol=atol, rtol=rtol,
+               frames_range=[float(raw.min()), float(raw.max())],
+               sr_range=[float(sr.min()), float(sr.max())],
+               peak_mem_gib=round(torch.cuda.max_memory_allocated()
+                                  / 2**30, 3))
+    return res
 
 
 def main():
@@ -2155,14 +2433,22 @@ def main():
     image_paths = image_families()
 
     # 14. the ShapeNet and FFHQ paths: small models card vs CPU, then the
-    # full-width calls and a profiled DDIM step of the U-Net
+    # full-width calls (bf16 and int8 U-Net) and a profiled DDIM step of
+    # the U-Net; then the fg/bg VAE's orbit
     t0 = time.perf_counter()
     small_unet = small_reference_unet()
     phase_done('small_reference_unet', t0, **small_unet)
+    t0 = time.perf_counter()
+    small_fgbg = small_reference_fgbg()
+    phase_done('small_reference_fgbg', t0, **small_fgbg)
     unet_paths = unet_families()
+    t0 = time.perf_counter()
+    fgbg = ffhq_fgbg_render()
+    phase_done('ffhq_fgbg_render', t0, **fgbg)
 
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
+    osg_fgbg = next(c for c in checks if c['case'] == 'fgbg_frame')
     qkv_main = qkv_checks[0]
     attn_i23d = attn_checks[1]
     calls = {'t23d_serving': serving,
@@ -2179,6 +2465,7 @@ def main():
                    for k, r in calls.items()}
     attn_by_path = {k: r['fused_attention_launches']
                     for k, r in calls.items()}
+    osg_by_path['ffhq_fgbg_render'] = fgbg['kernel_1']['fused_osg_launches']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
@@ -2195,6 +2482,9 @@ def main():
              bound_ms=osg_main['bound_ms'], bound_by=osg_main['bound_by'],
              library_ms=None,
              at_ffhq_frame={k: osg_ffhq[k] for k in (
+                 'M', 'ms', 'device_ms', 'host_us', 'plain_ms', 'bound_ms',
+                 'bound_by')},
+             at_fgbg_frame={k: osg_fgbg[k] for k in (
                  'M', 'ms', 'device_ms', 'host_us', 'plain_ms', 'bound_ms',
                  'bound_by')}),
         dict(name='fused_attention', route='cuda',

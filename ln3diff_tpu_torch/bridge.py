@@ -18,9 +18,11 @@ modules keep the JAX modules' names, so each leaf maps by its path:
   ``gamma1``/``gamma2``, the fusion decoder's ``pos_embed``, the U-Net's
   ``mixing_logit``, StyleGAN's ``noise_const``/``noise_strength`` and
   the FFHQ VAE's ``sr_ws``) keep their names;
-* a quantized DiT's ``Int8Dense`` (``ops/int8.py``): int8 ``kernel_q (in,
-  out)`` → ``Int8Linear`` ``kernel_q (out, in)``, still int8; its sibling
-  ``scale (out,)`` keeps its name and stays f32;
+* a quantized denoiser's ``Int8Dense`` / ``Int8Conv`` (``ops/int8.py``):
+  int8 ``kernel_q (in, out)`` → ``Int8Linear`` ``kernel_q (out, in)`` and
+  ``kernel_q (kh, kw, in, out)`` → ``Int8Conv`` ``kernel_q (out, in, kh,
+  kw)``, still int8; the sibling ``scale (out,)`` keeps its name and stays
+  f32;
 * ``nn.scan``-stacked trunks (leading depth axis) → one module per block:
   ``blocks/block/…`` → ``blocks.{i}.…`` for ``DiT_TriLatent`` and
   ``dit2/blocks/{within,across}/…`` → ``dit2.blocks.{i}.{within,across}…``
@@ -54,8 +56,9 @@ def _leaf(path: tuple, arr: np.ndarray, int8_dense: bool = False):
     is an ``Int8Dense`` (its ``scale`` is the weight scale, not a norm's)."""
     name = path[-1]
     if name == 'kernel_q':
-        return '.'.join(path), torch.from_numpy(np.ascontiguousarray(
-            np.asarray(arr, np.int8).T))
+        arr = np.asarray(arr, np.int8)
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        return '.'.join(path), torch.from_numpy(np.ascontiguousarray(arr))
     if name == 'kernel':
         if arr.ndim == 2:
             arr = arr.T
@@ -121,8 +124,8 @@ def vae_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def unet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """``UNetModel`` params (``mixing_logit`` included) → the port's state
-    dict."""
+    """``UNetModel`` params (``mixing_logit`` included, quantized or not)
+    → the port's state dict."""
     return _convert(params, {})
 
 

@@ -4,8 +4,9 @@ dataclasses.
 The port's copy of the presets of ``ln3diff_tpu/config.py`` (that module
 imports JAX and every model) that those paths use: the render options of
 the Objaverse, ShapeNet and FFHQ releases (``RENDER_PRESETS`` :35-54), the
-evaluation cameras (``CAMERA_PRESETS`` :156-160), the Objaverse, ShapeNet
-and FFHQ VAEs (``vae_preset`` :167-218, encoder fields included),
+evaluation cameras (``CAMERA_PRESETS`` :156-160), the Objaverse, ShapeNet,
+FFHQ and fg/bg FFHQ VAEs (``vae_preset`` :167-232, encoder fields
+included),
 ``build_vae`` (:236) and the denoisers of the text→3D, image→3D,
 multi-view→3D and ShapeNet/FFHQ checkpoints (``denoiser_preset``
 :250-270).
@@ -57,7 +58,23 @@ def vae_preset(name: str = 'objaverse', dtype=torch.bfloat16):
     lite Rodin 4X SR to (3, 256, 256, 32) planes, ``NearestConvSR`` render
     SR.  'ffhq' (4XC_final): per-token Linear ``ldm_upsample`` over the
     16x16x12 latent, v3 fusion decoder, non-lite Rodin SR,
-    ``SuperresolutionHybrid8XDC`` to 512²."""
+    ``SuperresolutionHybrid8XDC`` to 512².  'ffhq-fgbg' (the reference's
+    ``Triplane_fg_bg_plane``, not on the released path): mono SD encoder
+    over 256² RGB, DiT2-B/2, (3, 128, 128, 64) planes split 32 fg | 32 bg,
+    a NeRF++ background of 16 samples per ray and ``SuperresolutionHybrid``
+    (×4)."""
+    if name == 'ffhq-fgbg':
+        return TriplaneVAEConfig(
+            encoder_in_channels=3, encoder_ch=64,
+            encoder_ch_mult=(1, 2, 4, 4), encoder_res_blocks=1,
+            img_resolution=256, num_views=0, ldm_z_channels=4,
+            latent_size=32,
+            dit2=dit2_registry('DiT2-B/2', tokens_per_plane=256,
+                               dtype=dtype),
+            patch_size=2, conv_sr_ch=32, conv_sr_ch_mult=(1, 2, 2, 4),
+            conv_sr_res_blocks=1, plane_channels=64, decoder_output_dim=32,
+            use_sr=True, sr_ratio=4, sr_module='stylegan',
+            use_background=True, bg_depth_resolution=16, dtype=dtype)
     if name == 'shapenet':
         return ShapeNetVAEConfig(
             encoder_vit=vit_registry('dinov2-s/14', img_size=224,

@@ -531,9 +531,11 @@ class DiT2(nn.Module):
 
 
 def dit2_registry(name: str, **overrides) -> DiT2Config:
-    """The released Objaverse VAE decoder backbone."""
+    """The VAE decoder backbones: the released Objaverse one (L/2) and
+    the fg/bg FFHQ preset's (B/2)."""
     presets = {
         'DiT2-L/2': dict(depth=24, hidden_size=1024, num_heads=16),
+        'DiT2-B/2': dict(depth=12, hidden_size=768, num_heads=12),
     }
     kw = dict(presets[name])
     kw.update(overrides)

@@ -108,10 +108,10 @@ def random_init_(module: nn.Module,
     tables ~ N(0, 0.02²).  A module with a ``reset_free_parameters(
     generator)`` method then sets its free parameters to their JAX initial
     values (layerscale gains, the U-Net's mixing logit, sin-cos tables,
-    StyleGAN weights).  An ``Int8Linear`` quantizes the draw a Linear of
-    its shape would get, so a quantized model holds the int8 form of its
-    float twin's weights."""
-    from ..ops.int8 import Int8Linear
+    StyleGAN weights).  An ``Int8Linear`` or ``Int8Conv`` quantizes the
+    draw a Linear or Conv2d of its shape would get, so a quantized model
+    holds the int8 form of its float twin's weights."""
+    from ..ops.int8 import Int8Module
 
     def draw(shape, std, device):
         return torch.randn(shape, generator=generator, device=device,
@@ -122,10 +122,10 @@ def random_init_(module: nn.Module,
 
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, Int8Linear):
-                mod.load_weight(draw(mod.kernel_q.shape,
-                                     1.0 / math.sqrt(mod.in_features),
-                                     mod.kernel_q.device))
+            if isinstance(mod, Int8Module):
+                w = mod.kernel_q
+                mod.load_weight(draw(w.shape, 1.0 / math.sqrt(w[0].numel()),
+                                     w.device))
                 if mod.bias is not None:
                     mod.bias.zero_()
                 continue

@@ -1,14 +1,16 @@
-"""Render-space super-resolution: ``NearestConvSR``.
+"""Render-space super-resolution: ``NearestConvSR`` and its residual
+form.
 
-Port of ``NearestConvSR`` in ``ln3diff_tpu/models/sr.py`` (:19-49,
-reference ``utils/torch_utils/components.py:367``), the SR head of the
-ShapeNet VAE.  Channels-last in and out, NCHW inside.  The StyleGAN head of
-FFHQ is in ``stylegan.py``; ``NearestConvSRResidual`` (no released model)
-is not ported.
+Port of ``ln3diff_tpu/models/sr.py``: ``NearestConvSR`` :24 (reference
+``utils/torch_utils/components.py:367``), the SR head of the ShapeNet VAE,
+and ``NearestConvSRResidual`` :51 (:402).  Channels-last in and out, NCHW
+inside.  The StyleGAN heads of FFHQ and ``PixelUnshuffleUpsample`` are in
+``stylegan.py``.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -48,3 +50,15 @@ class NearestConvSR(nn.Module):
             x = F.leaky_relu(self.conv_up2(_up2(x)), 0.2)
         x = F.leaky_relu(self.conv_hr(x), 0.2)
         return self.conv_last(x).permute(0, 2, 3, 1)
+
+
+class NearestConvSRResidual(NearestConvSR):
+    """tanh of ``NearestConvSR``'s output added to the bilinear upsample of
+    the base render ``base_x`` (B, H, W, C) to the SR size."""
+
+    def forward(self, x, base_x):
+        r = torch.tanh(super().forward(x))
+        scale = r.shape[1] // base_x.shape[1]
+        up = F.interpolate(base_x.permute(0, 3, 1, 2), scale_factor=scale,
+                           mode='bilinear', align_corners=False)
+        return r + up.permute(0, 2, 3, 1)

@@ -1,19 +1,24 @@
-"""StyleGAN2 pieces of the FFHQ render-space SR head.
+"""StyleGAN2 pieces of the FFHQ render-space SR heads.
 
-Port of the subset of ``ln3diff_tpu/models/stylegan.py`` that
-``FFHQVAE`` runs: ``setup_filter`` :36, ``upfirdn2d`` :47, ``upsample2d``
-:79, ``modulated_conv2d`` :107, ``SynthesisLayerSG2`` :221, ``ToRGBSG2``
-:257, ``SynthesisBlockSG2`` :279 and ``SuperresolutionHybrid8XDC`` :300
-(reference ``nsr/superresolution.py:384-446``).  The functions take NCHW
-tensors and OIHW weights (PyTorch's conv layout); the head takes and
-returns channels-last images, as the JAX module does, and computes in
-f32 whatever the caller's dtype.  The discriminators, the mapping network,
-``SuperresolutionHybrid`` and ``PixelUnshuffleUpsample`` are not ported.
+Port of ``ln3diff_tpu/models/stylegan.py``: ``setup_filter`` :36,
+``upfirdn2d`` :47, ``upsample2d`` :79, ``downsample2d`` :86,
+``modulated_conv2d`` :107, the ``'stylegan'`` head of the fg/bg VAE
+(``SynthesisLayerLite`` :154, ``ToRGB`` :176, ``SuperresolutionHybrid``
+:192), the released 8XDC head (``SynthesisLayerSG2`` :221, ``ToRGBSG2``
+:257, ``SynthesisBlockSG2`` :279, ``SuperresolutionHybrid8XDC`` :300;
+reference ``nsr/superresolution.py:181-446``), ``filtered_lrelu`` :450 and
+``PixelUnshuffleUpsample`` :474.  The functions take NCHW tensors and OIHW
+weights (PyTorch's conv layout); the heads take and return channels-last
+images, as the JAX modules do, and the StyleGAN heads compute in f32
+whatever the caller's dtype.  The discriminators and the mapping network
+(only the adversarial trainer calls them) are not ported.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -32,11 +37,11 @@ def setup_filter(device=None) -> torch.Tensor:
     return torch.as_tensor(f / f.sum(), device=device)
 
 
-def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1,
+def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
               padding=(0, 0, 0, 0), gain: float = 1.0) -> torch.Tensor:
     """Zero-stuff by ``up`` → pad (px0, px1, py0, py1; negative crops) →
     FIR filter (a convolution: the flipped taps correlated) with gain
-    ``gain·up²``.  x: (B, C, H, W)."""
+    ``gain·up²`` → keep every ``down``-th pixel.  x: (B, C, H, W)."""
     B, C, H, W = x.shape
     if up > 1:
         z = x.new_zeros((B, C, H, up, W, up))
@@ -44,14 +49,49 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1,
         x = z.reshape(B, C, H * up, W * up)
     x = F.pad(x, tuple(padding))
     kernel = torch.flip(f * (gain * up**2), (0, 1)).to(x.dtype)
-    return F.conv2d(x, kernel[None, None].expand(C, 1, *f.shape), groups=C)
+    x = F.conv2d(x, kernel[None, None].expand(C, 1, *f.shape), groups=C)
+    return x[:, :, ::down, ::down] if down > 1 else x
 
 
-def upsample2d(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """2x FIR upsampling with the padding that keeps the (2H, 2W) size."""
+def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2
+               ) -> torch.Tensor:
+    """FIR upsampling by ``up`` with the padding that keeps the (up·H,
+    up·W) size."""
     fh, fw = f.shape
-    p = ((fw + 1) // 2, (fw - 2) // 2, (fh + 1) // 2, (fh - 2) // 2)
-    return upfirdn2d(x, f, up=2, padding=p)
+    p = ((fw + up - 1) // 2, (fw - up) // 2, (fh + up - 1) // 2,
+         (fh - up) // 2)
+    return upfirdn2d(x, f, up=up, padding=p)
+
+
+def downsample2d(x: torch.Tensor, f: torch.Tensor, down: int = 2
+                 ) -> torch.Tensor:
+    """FIR downsampling by ``down`` with the padding that gives the (H /
+    down, W / down) size."""
+    fh, fw = f.shape
+    p = ((fw - down + 1) // 2, (fw - down) // 2, (fh - down + 1) // 2,
+         (fh - down) // 2)
+    return upfirdn2d(x, f, down=down, padding=p)
+
+
+def filtered_lrelu(x: torch.Tensor, fu: Optional[torch.Tensor] = None,
+                   fd: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None, up: int = 2,
+                   down: int = 2, gain: float = math.sqrt(2),
+                   slope: float = 0.2, clamp: Optional[float] = None
+                   ) -> torch.Tensor:
+    """StyleGAN3's antialiased nonlinearity (reference
+    ``utils/torch_utils/ops/filtered_lrelu.py``): bias (per channel of
+    NCHW ``x``) → FIR upsample by ``up`` → leaky ReLU × ``gain`` → clamp →
+    FIR downsample by ``down``; the filters default to the [1, 3, 3, 1]
+    taps."""
+    fu = setup_filter(device=x.device) if fu is None else fu
+    fd = setup_filter(device=x.device) if fd is None else fd
+    if bias is not None:
+        x = x + bias.to(x.dtype)[:, None, None]
+    x = F.leaky_relu(upsample2d(x, fu, up=up), slope) * gain
+    if clamp is not None:
+        x = x.clamp(-clamp, clamp)
+    return downsample2d(x, fd, down=down)
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -83,6 +123,87 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     out = out.reshape(B, Cout, out.shape[2], out.shape[3])
     return upfirdn2d(out, setup_filter(device=x.device),
                      padding=(1, 1, 1, 1), gain=float(up * up))
+
+
+class SynthesisLayerLite(nn.Module):
+    """Modulated conv (optional 2x up) + bias + leaky ReLU (0.2) × √2, no
+    noise and no clamp: the layer of ``SuperresolutionHybrid``.  Its raw
+    weight is scaled by 1/√(Cin·k²) before the modulation."""
+
+    def __init__(self, in_channels: int, out_channels: int, up: int = 1,
+                 kernel: int = 3):
+        super().__init__()
+        self.up = up
+        self.affine = EqualDense(W_DIM, in_channels, bias_init=1.0)
+        self.weight = nn.Parameter(
+            torch.randn(out_channels, in_channels, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_free_parameters(self, generator=None):
+        self.weight.copy_(torch.randn(self.weight.shape, generator=generator,
+                                      device=self.weight.device))
+
+    def forward(self, x, w_latent):
+        styles = self.affine(w_latent.float())
+        cin, k = self.weight.shape[1], self.weight.shape[2]
+        weight = self.weight.float() * (1.0 / math.sqrt(cin * k * k))
+        y = modulated_conv2d(x.float(), weight, styles, up=self.up)
+        y = F.leaky_relu(y + self.bias.float()[:, None, None], 0.2)
+        return y * math.sqrt(2)
+
+
+class ToRGB(nn.Module):
+    """1x1 modulated conv without demodulation (the weight scaled by
+    1/√Cin) + bias: the skip of ``SuperresolutionHybrid``."""
+
+    def __init__(self, in_channels: int, out_channels: int = 3):
+        super().__init__()
+        self.affine = EqualDense(W_DIM, in_channels, bias_init=1.0)
+        self.weight = nn.Parameter(torch.randn(out_channels, in_channels,
+                                               1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_free_parameters(self, generator=None):
+        self.weight.copy_(torch.randn(self.weight.shape, generator=generator,
+                                      device=self.weight.device))
+
+    def forward(self, x, w_latent):
+        styles = self.affine(w_latent.float())
+        weight = self.weight.float() / math.sqrt(self.weight.shape[1])
+        y = modulated_conv2d(x.float(), weight, styles, demodulate=False)
+        return y + self.bias.float()[:, None, None]
+
+
+class SuperresolutionHybrid(nn.Module):
+    """The ``'stylegan'`` render-space SR head (reference
+    ``SuperresolutionHybrid4X``-style, ``nsr/superresolution.py:181-446``):
+    log2(``sr_ratio``) blocks, each a 2x-up and a plain
+    ``SynthesisLayerLite`` of ``hidden`` channels with the rgb skip
+    FIR-upsampled plus ``ToRGB``.  Inputs: the feature image (B, H, W, C),
+    its rgb (B, H, W, 3) and w latents (B, 512); returns the (B, sr·H,
+    sr·W, 3) rgb in f32."""
+
+    def __init__(self, in_channels: int = 32, sr_ratio: int = 4,
+                 hidden: int = 128):
+        super().__init__()
+        self.n_blocks = int(math.log2(sr_ratio))
+        cin = in_channels
+        for i in range(self.n_blocks):
+            self.add_module(f'conv0_{i}', SynthesisLayerLite(cin, hidden,
+                                                             up=2))
+            self.add_module(f'conv1_{i}', SynthesisLayerLite(hidden, hidden))
+            self.add_module(f'torgb_{i}', ToRGB(hidden))
+            cin = hidden
+
+    def forward(self, feature_image, rgb_image, ws):
+        x = feature_image.permute(0, 3, 1, 2).float()
+        rgb = rgb_image.permute(0, 3, 1, 2).float()
+        f = setup_filter(device=x.device)
+        for i in range(self.n_blocks):
+            x = getattr(self, f'conv0_{i}')(x, ws)
+            x = getattr(self, f'conv1_{i}')(x, ws)
+            rgb = upsample2d(rgb, f) + getattr(self, f'torgb_{i}')(x, ws)
+        return rgb.permute(0, 2, 3, 1)
 
 
 class SynthesisLayerSG2(nn.Module):
@@ -181,3 +302,39 @@ class SuperresolutionHybrid8XDC(nn.Module):
         x, rgb = self.block0(x, rgb, ws)
         x, rgb = self.block1(x, rgb, ws)
         return rgb.permute(0, 2, 3, 1)
+
+
+class PixelUnshuffleUpsample(nn.Module):
+    """Pixel-shuffle SR head (reference ``utils/torch_utils/
+    components.py:323-344``): conv (+ the input as a skip) → conv to
+    ``num_feat`` + leaky ReLU (0.01) → per 2x stage a conv to 4·num_feat
+    and a depth-to-space with the JAX module's channel order (r_h, r_w,
+    feat) → conv to ``num_out_ch``.  Channels-last in and out; the input
+    is cast to the layers' dtype."""
+
+    def __init__(self, in_channels: int, num_feat: int = 128,
+                 num_out_ch: int = 3, sr_ratio: int = 2):
+        super().__init__()
+        self.num_feat = num_feat
+        self.stages = int(math.log2(sr_ratio))
+        self.conv_after_body = nn.Conv2d(in_channels, in_channels, 3,
+                                         padding=1)
+        self.conv_before_upsample = nn.Conv2d(in_channels, num_feat, 3,
+                                              padding=1)
+        for i in range(self.stages):
+            self.add_module(f'up_conv_{i}', nn.Conv2d(num_feat, 4 * num_feat,
+                                                      3, padding=1))
+        self.conv_last = nn.Conv2d(num_feat, num_out_ch, 3, padding=1)
+
+    def forward(self, x, input_skip_connection: bool = True):
+        x = x.permute(0, 3, 1, 2).to(self.conv_last.weight.dtype)
+        h = self.conv_after_body(x)
+        x = h + x if input_skip_connection else h
+        x = F.leaky_relu(self.conv_before_upsample(x), 0.01)
+        for i in range(self.stages):
+            x = getattr(self, f'up_conv_{i}')(x)
+            B, _, H, W = x.shape
+            x = x.reshape(B, 2, 2, self.num_feat, H, W)
+            x = x.permute(0, 3, 4, 1, 5, 2).reshape(B, self.num_feat, 2 * H,
+                                                    2 * W)
+        return self.conv_last(x).permute(0, 2, 3, 1)

@@ -21,7 +21,12 @@ activations and the conv weights are NCHW tensors in channels-last memory
 their operands.  Submodule names are the JAX module's, so ``bridge.py``
 maps the parameters one to one.
 Built in f32; ``cfg.dtype`` (bf16 for serving) is the dtype the caller
-casts it to.  ``quantized=True`` (the W8A8 int8 U-Net) is not ported yet.
+casts it to.  ``quantized=True`` is the W8A8 int8 U-Net of serving (JAX
+``_conv_cls`` / ``_dense_cls`` :42-57): ``ops.int8.Int8Conv`` for the
+ResBlocks' convs and skip, the resampling convs and the attention's 1x1
+projections, ``Int8Linear`` for the transformer blocks' layers; ``conv_in``,
+``conv_out``, the time MLP, the ResBlocks' ``emb_proj`` and the mixing
+logit stay float.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.int8 import Int8Conv, Int8Linear
 from .layers import dot_product_attention, timestep_embedding
 
 
@@ -45,26 +51,32 @@ def _norm(channels: int, eps: float = 1e-5) -> nn.GroupNorm:
     return nn.GroupNorm(groups, channels, eps=eps)
 
 
-def _conv3(cin, cout, stride=1):
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+def _conv3(cin, cout, stride=1, quantized=False):
+    conv = Int8Conv if quantized else nn.Conv2d
+    return conv(cin, cout, 3, stride=stride, padding=1)
+
+
+def _conv1(cin, cout, quantized=False):
+    return (Int8Conv if quantized else nn.Conv2d)(cin, cout, 1)
 
 
 class ResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  use_scale_shift_norm: bool = True, up: bool = False,
-                 down: bool = False):
+                 down: bool = False, quantized: bool = False):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
         self.in_norm = _norm(in_channels)
-        self.in_conv = _conv3(in_channels, out_channels)
+        self.in_conv = _conv3(in_channels, out_channels, quantized=quantized)
         self.emb_proj = nn.Linear(
             emb_channels,
             2 * out_channels if use_scale_shift_norm else out_channels)
         self.out_norm = _norm(out_channels)
-        self.out_conv = _conv3(out_channels, out_channels)
+        self.out_conv = _conv3(out_channels, out_channels,
+                               quantized=quantized)
         if in_channels != out_channels:
-            self.skip = nn.Conv2d(in_channels, out_channels, 1)
+            self.skip = _conv1(in_channels, out_channels, quantized)
 
     def _resample(self, v):
         if self.up:
@@ -92,9 +104,11 @@ class ResBlock(nn.Module):
 class Downsample(nn.Module):
     """3x3 stride-2 conv with torch's (1, 1) padding."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 quantized: bool = False):
         super().__init__()
-        self.op = _conv3(in_channels, out_channels, stride=2)
+        self.op = _conv3(in_channels, out_channels, stride=2,
+                         quantized=quantized)
 
     def forward(self, x):
         return self.op(x)
@@ -103,9 +117,10 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest ×2, then a 3x3 conv."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 quantized: bool = False):
         super().__init__()
-        self.conv = _conv3(in_channels, out_channels)
+        self.conv = _conv3(in_channels, out_channels, quantized=quantized)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
@@ -118,12 +133,13 @@ def _heads(t, B, num_heads):
 class SelfAttention2D(nn.Module):
     """ADM ``AttentionBlock`` (with ``use_spatial_transformer=False``)."""
 
-    def __init__(self, channels: int, num_head_channels: int = 64):
+    def __init__(self, channels: int, num_head_channels: int = 64,
+                 quantized: bool = False):
         super().__init__()
         self.num_heads = max(1, channels // num_head_channels)
         self.norm = _norm(channels)
-        self.qkv = nn.Conv2d(channels, 3 * channels, 1)
-        self.proj = nn.Conv2d(channels, channels, 1)
+        self.qkv = _conv1(channels, 3 * channels, quantized)
+        self.proj = _conv1(channels, channels, quantized)
 
     def forward(self, x, context=None):
         B, C, H, W = x.shape
@@ -139,21 +155,22 @@ class TransformerBlock(nn.Module):
     with erf-GELU, each behind a LayerNorm (eps 1e-6, Linen's default)."""
 
     def __init__(self, channels: int, num_heads: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, quantized: bool = False):
         super().__init__()
         C = channels
         kv_dim = context_dim or C
+        linear = Int8Linear if quantized else nn.Linear
         self.num_heads = num_heads
         self.norm1 = nn.LayerNorm(C, eps=1e-6)
         self.norm2 = nn.LayerNorm(C, eps=1e-6)
         self.norm3 = nn.LayerNorm(C, eps=1e-6)
         for name, kv_in in (('attn1', C), ('attn2', kv_dim)):
-            self.add_module(f'{name}_q', nn.Linear(C, C, bias=False))
-            self.add_module(f'{name}_k', nn.Linear(kv_in, C, bias=False))
-            self.add_module(f'{name}_v', nn.Linear(kv_in, C, bias=False))
-            self.add_module(f'{name}_out', nn.Linear(C, C))
-        self.ff_proj = nn.Linear(C, 8 * C)
-        self.ff_out = nn.Linear(4 * C, C)
+            self.add_module(f'{name}_q', linear(C, C, bias=False))
+            self.add_module(f'{name}_k', linear(kv_in, C, bias=False))
+            self.add_module(f'{name}_v', linear(kv_in, C, bias=False))
+            self.add_module(f'{name}_out', linear(C, C))
+        self.ff_proj = linear(C, 8 * C)
+        self.ff_out = linear(4 * C, C)
 
     def _mha(self, q_in, kv_in, name):
         B, L, C = q_in.shape
@@ -181,15 +198,15 @@ class SpatialTransformer(nn.Module):
     channels."""
 
     def __init__(self, channels: int, num_heads: int, context_dim: int,
-                 depth: int = 1):
+                 depth: int = 1, quantized: bool = False):
         super().__init__()
         self.depth = depth
         self.norm = _norm(channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = _conv1(channels, channels, quantized)
         for d in range(depth):
             self.add_module(f'block_{d}', TransformerBlock(
-                channels, num_heads, context_dim))
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+                channels, num_heads, context_dim, quantized))
+        self.proj_out = _conv1(channels, channels, quantized)
 
     def forward(self, x, context=None):
         B, C, H, W = x.shape
@@ -231,11 +248,8 @@ class UNetModel(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.quantized:
-            raise NotImplementedError(
-                'the W8A8 int8 U-Net (Int8Conv, quantize_unet) is not '
-                'ported yet: ROADMAP.md §1, bring_up queue item (a)')
         self.cfg = cfg
+        q = cfg.quantized
         mc = cfg.model_channels
         emb = 4 * mc
         if cfg.mixed_prediction:
@@ -248,7 +262,8 @@ class UNetModel(nn.Module):
 
         def res(name, cin, cout, **kw):
             self.add_module(name, ResBlock(cin, cout, emb,
-                                           cfg.use_scale_shift_norm, **kw))
+                                           cfg.use_scale_shift_norm,
+                                           quantized=q, **kw))
 
         chans = [mc]
         ch, ds = mc, 1
@@ -268,7 +283,7 @@ class UNetModel(nn.Module):
                 if cfg.resblock_updown:
                     res(name, ch, ch, down=True)
                 else:
-                    self.add_module(name, Downsample(ch, ch))
+                    self.add_module(name, Downsample(ch, ch, q))
                 self._down.append([name])
                 chans.append(ch)
                 ds *= 2
@@ -290,7 +305,7 @@ class UNetModel(nn.Module):
                     if cfg.resblock_updown:
                         res(name, ch, ch, up=True)
                     else:
-                        self.add_module(name, Upsample(ch, ch))
+                        self.add_module(name, Upsample(ch, ch, q))
                     names.append(name)
                     ds //= 2
                 self._up.append(names)
@@ -306,11 +321,11 @@ class UNetModel(nn.Module):
             heads = (cfg.num_heads if cfg.num_head_channels == -1
                      else max(1, ch // cfg.num_head_channels))
             mod = SpatialTransformer(ch, heads, cfg.context_dim,
-                                     cfg.transformer_depth)
+                                     cfg.transformer_depth, cfg.quantized)
         else:
             mod = SelfAttention2D(
                 ch, cfg.num_head_channels if cfg.num_head_channels > 0
-                else max(1, ch // cfg.num_heads))
+                else max(1, ch // cfg.num_heads), cfg.quantized)
         self.add_module(name, mod)
 
     def reset_free_parameters(self, generator=None):

@@ -6,11 +6,12 @@ Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
 :253-306 with the render-space SR heads of :156-178, ``render_rays_flat``
 :307, ``__call__`` :328, ``query_points`` :359-378) for the SD encoders
 (``encoder_type='sd'``).  The SR heads are ``'nearest'``
-(``NearestConvSR``) and ``'stylegan-8xdc'`` (``SuperresolutionHybrid8XDC``
-conditioned on ``sr_ws``).  Still missing: the ``'lgm'`` encoder, the
-``'stylegan'`` head (``SuperresolutionHybrid``) and the background planes
-(``use_background``); a config that asks for the last two raises
-``NotImplementedError`` (``ROADMAP.md`` §1, bring_up queue item (b)).
+(``NearestConvSR``), ``'stylegan-8xdc'`` (``SuperresolutionHybrid8XDC``)
+and ``'stylegan'`` (``SuperresolutionHybrid``), the StyleGAN ones
+conditioned on ``sr_ws``.  ``use_background`` splits the planes' channels
+into fg | bg halves, rendered by ``render/background.py`` with a second
+point decoder ``bg_decoder`` (the ``'ffhq-fgbg'`` preset).  Still
+missing: the ``'lgm'`` encoder.
 
 Latent layout ``(B, h, w, z*3)`` channels-last with plane fastest, and the
 absorbed channel interleaves of the reference are reproduced exactly: the
@@ -27,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.fused_render import FusedOSG, fused_osg_from_params
+from ..render.background import render_rays_fg_bg
 from ..render.ray_sampler import sample_full_rays, unpack_25d_camera
 from ..render.renderer import (RenderDraws, RenderOptions, pack_corner_table,
                                packed_gather, project_onto_planes,
@@ -37,7 +39,7 @@ from .osg_decoder import OSGDecoder
 from .sd_vae import (AutoencoderConfig, Decoder, Encoder, MVEncoder,
                      MVEncoderDynamic)
 from .sr import NearestConvSR
-from .stylegan import SuperresolutionHybrid8XDC
+from .stylegan import SuperresolutionHybrid, SuperresolutionHybrid8XDC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +63,15 @@ class TriplaneVAEConfig:
     conv_sr_res_blocks: int = 1
     plane_channels: int = 32
     decoder_output_dim: int = 32
-    # render-space SR: 'nearest' (NearestConvSR) or 'stylegan-8xdc'
+    # render-space SR: 'nearest' (NearestConvSR), 'stylegan-8xdc' or
+    # 'stylegan' (SuperresolutionHybrid)
     use_sr: bool = False
     sr_ratio: int = 2
     sr_module: str = 'nearest'
+    # NeRF++ background: planes split fg | bg by channel, the bg half on
+    # inverted-sphere samples composited behind the fg
     use_background: bool = False
+    bg_depth_resolution: int = 16
     dtype: Any = torch.float32
 
     @property
@@ -106,9 +112,15 @@ class TriplaneVAE(nn.Module):
             ch=cfg.conv_sr_ch, ch_mult=tuple(cfg.conv_sr_ch_mult),
             num_res_blocks=cfg.conv_sr_res_blocks, z_channels=D,
             out_ch=cfg.plane_channels))
+        point_features = cfg.plane_channels // (2 if cfg.use_background
+                                                else 1)
         self.osg_decoder = OSGDecoder(
-            in_features=cfg.plane_channels,
+            in_features=point_features,
             decoder_output_dim=cfg.decoder_output_dim)
+        if cfg.use_background:
+            self.bg_decoder = OSGDecoder(
+                in_features=point_features,
+                decoder_output_dim=cfg.decoder_output_dim)
         self._build_sr_head()
         if encoder:
             self._build_encoder()
@@ -117,12 +129,6 @@ class TriplaneVAE(nn.Module):
         """The render-space SR head that ``cfg`` asks for (JAX ``setup``
         :156-178)."""
         cfg = self.cfg
-        if cfg.use_background or (cfg.use_sr
-                                  and cfg.sr_module == 'stylegan'):
-            raise NotImplementedError(
-                'the background planes and the \'stylegan\' SR head '
-                '(SuperresolutionHybrid) are not ported yet: ROADMAP.md '
-                '§1, bring_up queue item (b)')
         if not cfg.use_sr:
             return
         if cfg.sr_module == 'stylegan-8xdc':
@@ -130,12 +136,22 @@ class TriplaneVAE(nn.Module):
                 cfg.decoder_output_dim)
             # the reference's w_avg buffer, "replaced externally"
             self.sr_ws = nn.Parameter(torch.zeros(512))
+        elif cfg.sr_module == 'stylegan':
+            self.superresolution = SuperresolutionHybrid(
+                cfg.decoder_output_dim, sr_ratio=cfg.sr_ratio)
+            # a learned constant style: the VAE has no mapping network
+            self.sr_ws = nn.Parameter(torch.randn(512) * 0.02)
         else:
             self.superresolution = NearestConvSR(cfg.decoder_output_dim,
                                                  sr_ratio=cfg.sr_ratio)
 
     def reset_free_parameters(self, generator=None):
-        if hasattr(self, 'sr_ws'):
+        """``sr_ws`` as JAX initialises it: zeros for the 8XDC head,
+        N(0, 0.02²) for the ``'stylegan'`` head."""
+        if self.cfg.use_sr and self.cfg.sr_module == 'stylegan':
+            self.sr_ws.copy_(torch.randn(
+                512, generator=generator, device=self.sr_ws.device) * 0.02)
+        elif hasattr(self, 'sr_ws'):
             self.sr_ws.zero_()
 
     def _build_encoder(self):
@@ -245,16 +261,26 @@ class TriplaneVAE(nn.Module):
         :func:`~ln3diff_tpu_torch.render.renderer.render_rays`).  Returns
         image_raw (B, res, res, 3), feature_image, image_depth,
         image_mask and, with an SR head, image_sr (an unbounded conv
-        output: ``NearestConvSR`` in the head's dtype, the StyleGAN head
-        in f32)."""
+        output: ``NearestConvSR`` in the head's dtype, the StyleGAN heads
+        in f32).  With ``use_background`` the fg half of the planes goes
+        through the two-pass renderer (and kernel 1 with
+        ``use_fused_osg``), the bg half through ``bg_decoder``
+        (``render_rays_fg_bg``; ``draws`` are the fg pass's)."""
         if ray_origins is None:
             cam2world, intrinsics = unpack_25d_camera(camera25)
             ray_origins, ray_directions = sample_full_rays(
                 cam2world, intrinsics, resolution)
-        out = render_rays(planes, self.osg_decoder, ray_origins,
-                          ray_directions, render_opts,
-                          fused_osg=self.fused_osg() if use_fused_osg
-                          else None, generator=generator, draws=draws)
+        fused = self.fused_osg() if use_fused_osg else None
+        if self.cfg.use_background:
+            out = render_rays_fg_bg(
+                planes, self.osg_decoder, self.bg_decoder, ray_origins,
+                ray_directions, render_opts,
+                bg_depth_resolution=self.cfg.bg_depth_resolution,
+                fused_osg=fused, generator=generator, draws=draws)
+        else:
+            out = render_rays(planes, self.osg_decoder, ray_origins,
+                              ray_directions, render_opts, fused_osg=fused,
+                              generator=generator, draws=draws)
         B, R = ray_origins.shape[:2]
         res = resolution
         if R != resolution * resolution:
@@ -270,7 +296,7 @@ class TriplaneVAE(nn.Module):
                    image_depth=depth_image,
                    image_mask=weights * 1.002 - 0.001)
         if self.cfg.use_sr:
-            if self.cfg.sr_module == 'stylegan-8xdc':
+            if self.cfg.sr_module.startswith('stylegan'):
                 ws = self.sr_ws.expand(B, self.sr_ws.shape[0])
                 ret['image_sr'] = self.superresolution(feature_image, rgb,
                                                        ws)
@@ -287,7 +313,11 @@ class TriplaneVAE(nn.Module):
         necessarily square: no image reshape, so an orbit's frames can
         fold into the ray axis over one set of planes
         (``TextTo3DPipeline.render_orbit`` with ``render_rays_fn``).
-        Foreground only, deterministic sampling."""
+        Foreground only, deterministic sampling: a background config
+        raises ``ValueError``."""
+        if self.cfg.use_background:
+            raise ValueError('render_rays_flat renders the foreground '
+                             'only; this VAE has background planes')
         return render_rays(planes, self.osg_decoder, ray_origins,
                            ray_directions, render_opts,
                            fused_osg=self.fused_osg() if use_fused_osg
@@ -321,7 +351,10 @@ class TriplaneVAE(nn.Module):
 
     def query_points(self, planes: torch.Tensor, coords: torch.Tensor,
                      box_warp: float, use_fused_osg: bool = False):
-        """σ/rgb at world coords (B, M, 3) → (rgb, sigma)."""
+        """σ/rgb at world coords (B, M, 3) → (rgb, sigma); with
+        ``use_background`` from the fg half of the planes."""
+        if self.cfg.use_background:
+            planes = planes[..., :planes.shape[-1] // 2]
         if use_fused_osg:
             H, W = planes.shape[2:4]
             packed = pack_corner_table(planes)

@@ -7,10 +7,11 @@ over channels-last images: the DINOv2 image embedder of the image→3D and
 multi-view→3D paths and the encoder of the ShapeNet/FFHQ VAEs), and the
 released ShapeNet/FFHQ decoder backbone: ``XYGridCrossAttention`` :215,
 ``DinoFusionBlock`` :256 (v4), ``DinoFusionBlockV3`` :293,
-``DinoFusionDecoder`` :320 and ``unpatchify_triplane`` :371.  The blocks
-reuse the DiT's ``Attention`` and ``GeluMLP``, as in the JAX package.
-``TriplaneFusionBlock`` / ``TriplaneViTDecoder`` (:142-213, no released
-model) are not ported.
+``DinoFusionDecoder`` :320 and ``unpatchify_triplane`` :371; and the
+generic fusion decoder of no released model, ``TriplaneFusionBlock``
+:142, ``TriplaneViTDecoderConfig`` :163 and ``TriplaneViTDecoder`` :174.
+The blocks reuse the DiT's ``Attention`` and ``GeluMLP``, as in the JAX
+package.
 
 The LayerNorms compute in f32 and return the layer's dtype (Linen's
 numerics).  The fusion blocks' own gains ``gamma1``/``gamma2`` stay f32
@@ -132,6 +133,77 @@ def vit_registry(name: str, **overrides) -> ViTConfig:
     kw = dict(presets[name])
     kw.update(overrides)
     return ViTConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# triplane fusion
+# ---------------------------------------------------------------------------
+
+class TriplaneFusionBlock(nn.Module):
+    """Fusion step over (B, 3, L, D) triplane tokens: a ``ViTBlock``
+    within each plane, then one over all 3L tokens jointly."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4):
+        super().__init__()
+        self.within = ViTBlock(dim, num_heads, mlp_ratio)
+        self.across = ViTBlock(dim, num_heads, mlp_ratio)
+
+    def forward(self, x):
+        B, n, L, D = x.shape
+        h = self.within(x.reshape(B * n, L, D))
+        return self.across(h.reshape(B, n * L, D)).reshape(B, n, L, D)
+
+
+@dataclasses.dataclass(frozen=True)
+class TriplaneViTDecoderConfig:
+    tokens_per_plane: int = 256
+    embed_dim: int = 384
+    depth: int = 12               # number of fusion blocks (2 attn each)
+    num_heads: int = 6
+    mlp_ratio: int = 4
+    uvit_skips: bool = True       # long skips second half ← first half
+    dtype: Any = torch.float32
+
+
+class TriplaneViTDecoder(nn.Module):
+    """ViT triplane decoder backbone: a sin-cos ``pos_embed`` over the (3,
+    L) grid, ``depth`` fusion blocks and, with ``uvit_skips``, long skips
+    into the second half (``skip_linear_{i}`` maps [x, skip] to x).
+    Tokens (B, 3, L, D) in and out."""
+
+    def __init__(self, cfg: TriplaneViTDecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.embed_dim
+        self.pos_embed = nn.Parameter(self._sincos())
+        half = cfg.depth // 2
+        for i in range(cfg.depth):
+            if cfg.uvit_skips and i >= cfg.depth - half:
+                self.add_module(f'skip_linear_{i}', nn.Linear(2 * D, D))
+            self.add_module(f'fusion_{i}', TriplaneFusionBlock(
+                D, cfg.num_heads, cfg.mlp_ratio))
+
+    def _sincos(self):
+        n, L, D = 3, self.cfg.tokens_per_plane, self.cfg.embed_dim
+        return torch.tensor(get_2d_sincos_pos_embed(D, (n, L))
+                            ).reshape(1, n, L, D)
+
+    def reset_free_parameters(self, generator=None):
+        self.pos_embed.copy_(self._sincos())
+
+    def forward(self, x):
+        cfg = self.cfg
+        x = x + self.pos_embed.to(x.dtype)
+        half = cfg.depth // 2
+        skips = []
+        for i in range(cfg.depth):
+            if hasattr(self, f'skip_linear_{i}') and skips:
+                x = getattr(self, f'skip_linear_{i}')(
+                    torch.cat([x, skips.pop()], dim=-1))
+            x = getattr(self, f'fusion_{i}')(x)
+            if cfg.uvit_skips and i < half:
+                skips.append(x)
+        return x
 
 
 # ---------------------------------------------------------------------------

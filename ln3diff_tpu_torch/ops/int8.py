@@ -1,15 +1,17 @@
-"""Opt-in W8A8 int8 serving for the DiT denoisers.
+"""Opt-in W8A8 int8 serving for the denoisers (the DiT and the U-Net).
 
-Port of ``ln3diff_tpu/ops/int8.py`` for the DiT: ``quantize_weight`` :44
+Port of ``ln3diff_tpu/ops/int8.py``: ``quantize_weight`` :44
 (symmetric per-output-channel int8 weights, stacked and conv layouts),
 ``_quantize_rows`` :64 (dynamic per-token activations), ``int8_dense``
 :73, ``Int8Dense`` :87 as :class:`Int8Linear` (a drop-in for
-``nn.Linear``), ``quantize_params_like`` :224 as a ``state_dict``
-transform, and ``quantize_dit`` :170 over a loaded module.  Both operands
-are rounded half to even (``torch.round``, as ``jnp.round``), the
-int8 × int8 product accumulates exactly in int32, and the result is
-rescaled in f32 by ``row_scale · w_scale``, the bias added in f32, then
-cast to the input's dtype (the module's compute dtype).
+``nn.Linear``), ``Int8Conv`` :115 (a drop-in for ``nn.Conv2d``: one
+activation scale per batch item), ``quantize_params_like`` :200 as a
+``state_dict`` transform, and ``quantize_dit`` :163 / ``quantize_unet``
+:191 over a loaded module.  Both operands are rounded half to even
+(``torch.round``, as ``jnp.round``), the int8 × int8 product accumulates
+exactly in int32, and the result is rescaled in f32 by ``x_scale ·
+w_scale`` (the product of the scales taken first), the bias added in f32,
+then cast to the input's dtype (the module's compute dtype).
 
 The int32 product is ``torch._int_mm``, the library's int8 GEMM, on the
 CPU and on the card: the JAX package computes it with XLA's
@@ -21,11 +23,16 @@ arithmetic), :class:`Int8Linear` stores ``kernel_q`` as ``(out, in)``
 once, so that its transpose is the column-major operand, and any other
 shape raises.  There is no float fallback.
 
-The int8 convolution (``Int8Conv``) and ``quantize_unet`` wait for the
-U-Net; PyTorch has no public int8 convolution on CUDA.  The trade is an
-inference-accuracy one that the reference does not make, so it is opt-in
-(``DiTConfig.quantized``, ``quantize_dit``); ``tests/test_torch_int8.py``
-holds the bounds that ``tests/test_int8.py`` pins against bf16.
+PyTorch has no public int8 convolution on CUDA, and JAX computes its own
+with XLA's ``conv_general_dilated``, so :class:`Int8Conv` is an im2col
+over the same ``int8_matmul``: the int8 activations are padded with
+exact zeros and unfolded from their channels-last memory into (C, kh,
+kw)-ordered patches, which the weight's (out, in, kh, kw) layout matches.
+The trade is an inference-accuracy one that the reference does not make,
+so it is opt-in (``DiTConfig.quantized`` / ``UNetConfig.quantized``,
+``quantize_dit`` / ``quantize_unet``); ``tests/test_torch_int8.py`` and
+``tests/test_torch_int8_unet.py`` hold the bounds that
+``tests/test_int8.py`` pins against bf16.
 """
 
 from __future__ import annotations
@@ -34,8 +41,26 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 _MIN_ROWS = 17          # torch._int_mm on CUDA: more than 16 rows
+
+
+def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-12) / 127 by true division on every device: CUDA turns
+    a division by a Python scalar into a product with its reciprocal,
+    which is an ulp off the quotient now and then (as XLA's rewrite under
+    jit is); the divisor is therefore a tensor on amax's device."""
+    return torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
+
+
+def _quantize(x: torch.Tensor, dims):
+    """Symmetric int8 quantization with one scale per slice over ``dims``
+    (the amax over them) → (x_q int8, scale f32 with ``dims`` kept)."""
+    x = x.float()
+    scale = _amax_scale(x.abs().amax(dim=dims, keepdim=True))
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), \
+        scale
 
 
 def quantize_weight(w: torch.Tensor, all_but_last: bool = False):
@@ -44,11 +69,8 @@ def quantize_weight(w: torch.Tensor, all_but_last: bool = False):
     reduced over the contraction axis ``in`` (ndim − 2) — or, with
     ``all_but_last``, over every leading axis (the conv layout (kh, kw,
     in, out)).  Returns ``(w_q int8, scale f32)``."""
-    w = w.float()
     axes = tuple(range(w.ndim - 1)) if all_but_last else (w.ndim - 2,)
-    amax = w.abs().amax(dim=axes, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    w_q, scale = _quantize(w, axes)
     kept = [d for i, d in enumerate(w.shape) if i not in axes]
     return w_q, scale.reshape(kept)
 
@@ -56,11 +78,7 @@ def quantize_weight(w: torch.Tensor, all_but_last: bool = False):
 def _quantize_rows(x: torch.Tensor):
     """Dynamic symmetric per-token (last-axis row) int8 quantization →
     (x_q int8, scale f32 (..., 1))."""
-    x = x.float()
-    amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    x_q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return x_q, scale
+    return _quantize(x, -1)
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,31 +116,38 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor,
     return y.to(dtype)
 
 
-class Int8Linear(nn.Module):
-    """Drop-in for ``nn.Linear`` with W8A8 int8 storage and compute.
+def _quantize_weight_torch_layout(weight: torch.Tensor):
+    """Quantize a float weight in PyTorch's layout — Linear ``(out, in)``
+    or Conv2d ``(out, in, kh, kw)`` — as JAX quantizes its ``(in, out)`` or
+    ``(kh, kw, in, out)`` kernel; returns ``(kernel_q, scale)`` in the
+    PyTorch layout."""
+    if weight.ndim == 4:
+        w_q, scale = quantize_weight(weight.permute(2, 3, 1, 0),
+                                     all_but_last=True)
+        return w_q.permute(3, 2, 0, 1).contiguous(), scale
+    w_q, scale = quantize_weight(weight.t())
+    return w_q.t().contiguous(), scale
 
-    Buffers: ``kernel_q`` (out, in) int8, ``scale`` (out,) f32 and
-    ``bias`` (out,) f32 or None.  The output takes the input's dtype.
-    ``Module.to(dtype)`` leaves the scale and the bias in f32.  Weights
-    arrive by :meth:`load_weight`, :func:`quantize_params_like`,
-    ``bridge.dit_state_dict`` or ``layers.random_init_``."""
 
-    def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
+class Int8Module(nn.Module):
+    """Buffers ``kernel_q`` (int8, PyTorch's weight layout), ``scale``
+    (out,) f32 and ``bias`` (out,) f32 or None.  ``Module.to(dtype)``
+    leaves the scale and the bias in f32."""
+
+    def __init__(self, shape, bias: bool):
         super().__init__()
-        self.in_features, self.out_features = in_features, out_features
-        self.register_buffer('kernel_q', torch.zeros(
-            (out_features, in_features), dtype=torch.int8))
-        self.register_buffer('scale', torch.ones(out_features))
-        self.register_buffer('bias', torch.zeros(out_features)
-                             if bias else None)
+        self.register_buffer('kernel_q', torch.zeros(shape,
+                                                     dtype=torch.int8))
+        self.register_buffer('scale', torch.ones(shape[0]))
+        self.register_buffer('bias', torch.zeros(shape[0]) if bias
+                             else None)
 
     @torch.no_grad()
-    def load_weight(self, weight: torch.Tensor) -> 'Int8Linear':
-        """Quantize a float ``(out, in)`` weight into ``kernel_q`` and
-        ``scale``."""
-        w_q, scale = quantize_weight(weight.t())
-        self.kernel_q.copy_(w_q.t())
+    def load_weight(self, weight: torch.Tensor):
+        """Quantize a float weight of the float layer's shape into
+        ``kernel_q`` and ``scale``."""
+        w_q, scale = _quantize_weight_torch_layout(weight)
+        self.kernel_q.copy_(w_q)
         self.scale.copy_(scale)
         return self
 
@@ -135,29 +160,106 @@ class Int8Linear(nn.Module):
                 self._buffers[k] = v.to(self._buffers[k].device)
         return self
 
+
+class Int8Linear(Int8Module):
+    """Drop-in for ``nn.Linear`` with W8A8 int8 storage and compute:
+    ``kernel_q`` (out, in).  The output takes the input's dtype.  Weights
+    arrive by :meth:`load_weight`, :func:`quantize_params_like`, the
+    bridge or ``layers.random_init_``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__((out_features, in_features), bias)
+        self.in_features, self.out_features = in_features, out_features
+
     def forward(self, x):
         return int8_dense(x, self.kernel_q, self.scale, self.bias)
 
 
+def quantize_per_sample(x: torch.Tensor):
+    """Dynamic symmetric int8 quantization with one scale per batch item
+    (the amax over every other axis) → (x_q int8, scale f32 (B, 1, …))."""
+    return _quantize(x, tuple(range(1, x.ndim)))
+
+
+def im2col(x_q: torch.Tensor, kernel: int, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """(C, kh, kw)-ordered patches of channels-last ``x_q`` (B, H, W, C),
+    zero-padded: (B, Ho, Wo, C·kernel²), unfolded from the NHWC memory
+    (``F.unfold`` takes no int8)."""
+    if padding:
+        x_q = F.pad(x_q, (0, 0, padding, padding, padding, padding))
+    patches = x_q.unfold(1, kernel, stride).unfold(2, kernel, stride)
+    return patches.reshape(*patches.shape[:3], -1)
+
+
+def int8_conv_acc(x_q: torch.Tensor, kernel_q: torch.Tensor,
+                  stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Exact int32 convolution of channels-last int8 activations ``x_q``
+    (B, H, W, C) with an int8 ``kernel_q`` (out, C, k, k): :func:`im2col`
+    and one :func:`int8_matmul`.  Returns (B, Ho, Wo, out) int32."""
+    N, _, k, _ = kernel_q.shape
+    patches = im2col(x_q, k, stride, padding)
+    acc = int8_matmul(patches.reshape(-1, patches.shape[-1]),
+                      kernel_q.reshape(N, -1).t())
+    return acc.reshape(*patches.shape[:3], N)
+
+
+class Int8Conv(Int8Module):
+    """Drop-in for ``nn.Conv2d`` (square kernel, symmetric zero padding)
+    with W8A8 int8 compute: ``kernel_q`` (out, in, kh, kw) with one scale
+    per output channel (reduced over kh·kw·in), and one activation scale
+    per batch item (the amax over C, H and W; zero padding quantizes to
+    exact 0).  Takes and returns NCHW-shaped tensors; the output is in
+    channels-last memory and the input's dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int = 1, padding: int = 0,
+                 bias: bool = True):
+        super().__init__((out_channels, in_channels, kernel_size,
+                          kernel_size), bias)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        x_q, x_scale = quantize_per_sample(x.permute(0, 2, 3, 1))
+        acc = int8_conv_acc(x_q, self.kernel_q, self.stride, self.padding)
+        y = acc.float() * (x_scale * self.scale)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
 def quantize_params_like(q_state: dict, state: dict) -> dict:
     """Fill a quantized module's ``state_dict`` (``q_state``: the keys and
-    shapes of an :class:`Int8Linear`-bearing module) from the trained
-    float ``state`` of its unquantized twin (same module names): wherever
-    ``q_state`` holds ``<name>.kernel_q`` and ``<name>.scale``, the twin's
-    ``<name>.weight`` is quantized in; every other entry is copied."""
+    shapes of an :class:`Int8Linear` / :class:`Int8Conv`-bearing module)
+    from the trained float ``state`` of its unquantized twin (same module
+    names): wherever ``q_state`` holds ``<name>.kernel_q`` and
+    ``<name>.scale``, the twin's ``<name>.weight`` is quantized in — a
+    conv weight ``(out, in, kh, kw)`` as JAX's ``(kh, kw, in, out)`` with
+    one scale per output channel; every other entry is copied."""
     out = {}
     for key in q_state:
         name, _, leaf = key.rpartition('.')
         if f'{name}.kernel_q' in q_state and leaf in ('kernel_q', 'scale'):
             if leaf == 'kernel_q':
-                w_q, scale = quantize_weight(state[f'{name}.weight'].t())
-                out[key], out[f'{name}.scale'] = w_q.t().contiguous(), scale
+                out[key], out[f'{name}.scale'] = \
+                    _quantize_weight_torch_layout(state[f'{name}.weight'])
             continue
         if key not in state:
             raise ValueError(f'state dict mismatch: {key} is absent from '
                              f'the source state')
         out[key] = state[key]
     return out
+
+
+def _quantize_model(model_cls, module):
+    p = next(module.parameters())
+    with torch.device(p.device):
+        q = model_cls(dataclasses.replace(module.cfg, quantized=True))
+    q.load_state_dict(quantize_params_like(q.state_dict(),
+                                           module.state_dict()))
+    return q.to(device=p.device, dtype=p.dtype).train(module.training)
 
 
 def quantize_dit(module):
@@ -167,9 +269,14 @@ def quantize_dit(module):
     (``bench.py``'s ``LN3DIFF_BENCH_INT8``); ``module`` is left as it
     is."""
     from ..models.dit import DiT_TriLatent
-    p = next(module.parameters())
-    with torch.device(p.device):
-        q = DiT_TriLatent(dataclasses.replace(module.cfg, quantized=True))
-    q.load_state_dict(quantize_params_like(q.state_dict(),
-                                           module.state_dict()))
-    return q.to(device=p.device, dtype=p.dtype).train(module.training)
+    return _quantize_model(DiT_TriLatent, module)
+
+
+def quantize_unet(module):
+    """The W8A8 twin of a loaded ``UNetModel`` (the ShapeNet/FFHQ path):
+    the ResBlock convs, the resampling convs, the attention projections
+    and the transformer layers go int8; ``conv_in``, ``conv_out``, the
+    time MLP, the ResBlocks' embedding projections and ``mixing_logit``
+    are copied as they are.  ``module`` is left as it is."""
+    from ..models.unet import UNetModel
+    return _quantize_model(UNetModel, module)

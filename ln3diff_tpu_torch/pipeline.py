@@ -650,9 +650,10 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
     runs through the fused kernel.  Pass the family's orbit as
     ``cameras=orbit_cameras(24, **CAMERA_PRESETS[family])`` and the ray
     resolution as ``render_resolution`` to the call, as the bench does.
+    ``den_cfg.quantized`` gives the W8A8 int8 U-Net (``ops/int8.py``).
     Weights are random, drawn from a ``torch.Generator`` seeded with
     ``seed``, unless ``modules`` supplies ``{'denoiser', 'vae',
-    'text_model'}``.
+    'text_model'}`` (a denoiser from ``ops.int8.quantize_unet``, say).
 
     Returns ``(pipeline, encode, modules)``; ``encode(prompt)`` gives the
     (cond, uncond) pair (the prompt and '')."""

@@ -11,6 +11,7 @@ weights.  The kernel itself is checked on the card in
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +28,9 @@ from ln3diff_tpu_torch.models.layers import dot_product_attention
 from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
                                                    attention_reference,
                                                    fused_attention, sdpa_auto)
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def _qkv(shape, seed, dtype=np.float32):

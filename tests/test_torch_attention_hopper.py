@@ -13,6 +13,7 @@ card in ``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -25,6 +26,9 @@ from ln3diff_tpu_torch.ops import fused_attention as tfa
 from ln3diff_tpu_torch.ops.fused_attention import (
     KEY_TILE, PROJ_K_CHUNK, key_mask, key_tiles, qkv_attention_reference,
     split_qkv_weights, tma_geometry)
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 # the card's bf16 tolerance (chip_smoke.py TOL_ATTN, tests/test_torch_gpu.py
 # ATTN_TOL): |Δ| <= 4e-3 + 1e-2·|ref|.  Both sides round p and o to bf16

@@ -6,6 +6,7 @@ same arithmetic (tolerance 1e-5 relative to the sample's scale).
 """
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -14,6 +15,9 @@ import jax.numpy as jnp
 
 from ln3diff_tpu.diffusion import gaussian as jg
 from ln3diff_tpu_torch.diffusion import gaussian as tg
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize('name', ['linear', 'cosine', 'linear_simple'])

@@ -10,6 +10,7 @@ scale."""
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -23,6 +24,9 @@ from ln3diff_tpu.models import dit as jdit
 from ln3diff_tpu_torch import bridge
 from ln3diff_tpu_torch import config as tconfig
 from ln3diff_tpu_torch.models import dit as tdit
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-5
 B = 2

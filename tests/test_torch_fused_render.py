@@ -9,6 +9,7 @@ launches themselves need the card (``tests/test_torch_gpu.py``).
 """
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -17,6 +18,9 @@ import jax.numpy as jnp
 
 from ln3diff_tpu.ops import fused_render as jfr
 from ln3diff_tpu_torch.ops import fused_render as tfr
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def _inputs(M=300, C=32, seed=0, with_inbox=True):

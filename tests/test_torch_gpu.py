@@ -8,6 +8,7 @@ the card's machine, which has no JAX:
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX.)
 """
 
+import os
 import pytest
 import torch
 
@@ -17,6 +18,9 @@ from ln3diff_tpu_torch.ops.fused_attention import (
 from ln3diff_tpu_torch.ops.fused_render import (
     FusedOSG, osg_pointwise_backward, osg_pointwise_backward_reference,
     osg_pointwise_fused, osg_pointwise_reference)
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
@@ -700,6 +704,96 @@ def test_int8_attention_feeds_kernel_3(cuda):
         want = attention_reference(q, k, v).reshape(2, 768, 1024)
     assert FusedAttention.launches == before + 1
     _attn_close(seen['heads'], want, torch.bfloat16)
+
+
+INT8_CONVS = {
+    # (kernel, stride, padding, B, H, W, in, out)
+    'unet320_level0_3x3': (3, 1, 1, 2, 8, 24, 320, 320),
+    'downsample_3x3_s2': (3, 2, 1, 1, 8, 8, 64, 64),
+    'skip_1x1': (1, 1, 0, 2, 4, 12, 640, 1280),
+    'few_rows_3x3': (3, 1, 1, 1, 2, 3, 16, 8),
+}
+
+
+@pytest.mark.parametrize('case', sorted(INT8_CONVS))
+def test_int8_conv_card_matches_cpu(cuda, case):
+    """``Int8Conv`` (im2col over ``_int_mm``) on the card against the CPU:
+    the same int8 weights and scales quantized on either, the same
+    per-sample int8 activations, the same exact int32 sums (fewer than 17
+    rows zero-padded on the card), the same f32 rescale; channels-last
+    bf16 in and out, as the U-Net runs it."""
+    from ln3diff_tpu_torch.ops.int8 import (Int8Conv, int8_conv_acc,
+                                            quantize_per_sample)
+    k, s, p, B, H, W, cin, cout = INT8_CONVS[case]
+    g = torch.Generator().manual_seed(cin + k)
+    w = torch.randn((cout, cin, k, k), generator=g) / (cin * k * k)**0.5
+    conv = Int8Conv(cin, cout, k, stride=s, padding=p).load_weight(w)
+    on_card = Int8Conv(cin, cout, k, stride=s, padding=p).to(cuda)
+    on_card.load_weight(w.to(cuda))
+    assert torch.equal(on_card.kernel_q.cpu(), conv.kernel_q)
+    assert torch.equal(on_card.scale.cpu(), conv.scale)
+    conv.bias.copy_(torch.randn((cout,), generator=g))
+    x = torch.randn((B, cin, H, W), generator=g)
+    x[-1] *= 5.0
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xq, xs = quantize_per_sample(x.permute(0, 2, 3, 1))
+    want_acc = int8_conv_acc(xq, conv.kernel_q, s, p)
+    want = conv(x)
+    conv.to(cuda)
+    xq_c, xs_c = quantize_per_sample(x.to(cuda).permute(0, 2, 3, 1))
+    assert torch.equal(xq_c.cpu(), xq) and torch.equal(xs_c.cpu(), xs)
+    assert torch.equal(int8_conv_acc(xq_c, conv.kernel_q, s, p).cpu(),
+                       want_acc)
+    got = conv(x.to(cuda))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+def test_int8_conv_refuses_what_int_mm_refuses(cuda):
+    """No float fallback: a contraction (in·kh·kw) that is not a multiple
+    of 8 raises on the card."""
+    from ln3diff_tpu_torch.ops.int8 import Int8Conv
+    conv = Int8Conv(3, 8, 1).load_weight(torch.randn(8, 3, 1, 1)).to(cuda)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        conv(torch.randn(1, 3, 8, 8, device=cuda))
+
+
+def test_fgbg_render_kernel_1_matches_plain(cuda):
+    """The fg/bg render (``use_background``, 32 fg + 32 bg plane
+    channels, the FFHQ render options) with the fg pass through kernel 1
+    against the plain point decoder, on the card, f32 planes; kernel 1
+    launches once per batch element in each of the coarse and fine
+    passes, the bg pass never."""
+    from ln3diff_tpu_torch.config import RENDER_PRESETS
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    cfg = TriplaneVAEConfig(
+        latent_size=8, dit2=DiT2Config(tokens_per_plane=16, hidden_size=32,
+                                       depth=2, num_heads=2),
+        conv_sr_ch=8, conv_sr_ch_mult=(1, 2), plane_channels=64,
+        use_sr=True, sr_ratio=2, sr_module='stylegan', use_background=True)
+    with torch.device(cuda):
+        vae = TriplaneVAE(cfg)
+    random_init_(vae, torch.Generator(device=cuda).manual_seed(0))
+    planes = torch.randn((1, 3, 32, 32, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    cam = torch.from_numpy(orbit_cameras(2, radius=2.7, fov=12.6,
+                                         pitch_deg=0.0)).float().to(cuda)
+    opts = RENDER_PRESETS['ffhq']
+    outs = []
+    for fused in (False, True):
+        before = FusedOSG.launches
+        with torch.no_grad():
+            outs.append(vae.render(planes.expand(2, -1, -1, -1, -1), cam,
+                                   opts, 16, use_fused_osg=fused))
+        assert FusedOSG.launches == before + (4 if fused else 0)
+    atol, rtol = TOL[torch.float32]
+    for key in ('feature_image', 'image_depth', 'image_mask', 'image_sr'):
+        torch.testing.assert_close(outs[1][key], outs[0][key], atol=atol,
+                                   rtol=rtol)
 
 
 # -- the ShapeNet / FFHQ paths ------------------------------------------------

@@ -15,6 +15,7 @@ text→3D slice's bar); the conditioning towers 1e-5.
 
 import dataclasses
 import functools
+import os
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +45,9 @@ from ln3diff_tpu_torch.pipeline import (SamplerSpec, build_i23d_pipeline,
                                         build_mv23d_pipeline,
                                         build_t23d_pipeline)
 from ln3diff_tpu_torch.render.renderer import RenderOptions
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 RES, HW, STEPS, GRID = 8, 28, 4, 20
 OPTS = dict(depth_resolution=6, depth_resolution_importance=6,

@@ -20,6 +20,7 @@
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -34,6 +35,9 @@ from ln3diff_tpu_torch import bridge
 from ln3diff_tpu_torch.models import dit as tdit
 from ln3diff_tpu_torch.models.layers import random_init_
 from ln3diff_tpu_torch.ops import int8 as tint8
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 B = 2
 

@@ -9,6 +9,7 @@ fused point kernel's plain version on the port's side, must agree within
 the tolerances the port's VAE tests hold that path to.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -27,6 +28,9 @@ from ln3diff_tpu_torch import bridge
 from ln3diff_tpu_torch.models.dit import DiT2Config
 from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
 from ln3diff_tpu_torch.render import mesh as tmesh
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def _field(kind, g=32, seed=0):

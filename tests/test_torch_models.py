@@ -9,6 +9,7 @@ in another order through several layers), 1e-5 for single layers.
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -31,6 +32,9 @@ from ln3diff_tpu_torch.models import dit as tdit
 from ln3diff_tpu_torch.models import sd_vae as tsd
 from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
 from ln3diff_tpu_torch.render.renderer import RenderOptions
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 def np_tree(v):
     return jax.tree_util.tree_map(np.asarray, v)

@@ -32,6 +32,7 @@ op, so features differ from JAX's by a bf16 ulp before the MLP.
 """
 
 import math
+import os
 import re
 from pathlib import Path
 
@@ -44,6 +45,9 @@ import jax.numpy as jnp
 
 from ln3diff_tpu.ops import fused_render as jfr
 from ln3diff_tpu_torch.ops import fused_render as tfr
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 P = tfr.POINTS_PER_TILE
 CSRC = Path(tfr.__file__).resolve().parent / 'csrc'

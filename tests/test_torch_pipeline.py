@@ -47,6 +47,9 @@ from ln3diff_tpu_torch.pipeline import (SamplerSpec, build_t23d_pipeline,
                                         resolve_device)
 from ln3diff_tpu_torch.render.renderer import RenderOptions
 
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 RES = 8
 OPTS = dict(depth_resolution=6, depth_resolution_importance=6,

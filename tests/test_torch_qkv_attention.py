@@ -14,6 +14,7 @@ Pallas kernel.  The kernel itself is checked on the card in
 """
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -30,6 +31,9 @@ from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
                                                    fused_qkv_attention,
                                                    qkv_attention_reference,
                                                    split_qkv_weights)
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 JDT = {'float32': jnp.float32, 'bfloat16': jnp.bfloat16}
 TDT = {'float32': torch.float32, 'bfloat16': torch.bfloat16}

@@ -6,6 +6,7 @@ single functions) unless a test says otherwise.
 """
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -26,6 +27,9 @@ from ln3diff_tpu_torch.render import mesh as tmesh
 from ln3diff_tpu_torch.render import ray_marcher as trm
 from ln3diff_tpu_torch.render import ray_sampler as trs
 from ln3diff_tpu_torch.render import renderer as tr
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def T(a):

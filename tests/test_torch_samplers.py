@@ -16,6 +16,7 @@ to √(1/ᾱ_t)).
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +34,9 @@ from ln3diff_tpu_torch.diffusion import dpm_solver as tdpm
 from ln3diff_tpu_torch.diffusion import gaussian as tg
 from ln3diff_tpu_torch.diffusion import transport as ttr
 from ln3diff_tpu_torch.models import dit as tdit
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 SHAPE = (2, 4, 4, 12)
 C = SHAPE[-1]

@@ -14,6 +14,7 @@ slices' bar); renders of the same planes 1e-5.
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -42,6 +43,9 @@ from ln3diff_tpu_torch.render.renderer import RenderOptions
 from test_torch_i23d import (D2_KW, OPTS, RES, TEXT_KW, VAE_KW, _family,
                              _images, _perturbed)
 from test_torch_pipeline import _salt_free_ids
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 LATENT = (8, 8, 12)
 DEN_KW = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32,

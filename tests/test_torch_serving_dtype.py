@@ -12,6 +12,7 @@ whole tower, as its builders do.
 """
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -29,6 +30,9 @@ from test_torch_dit_pixart import _kw as pixart_kw
 from test_torch_dit_pixart import _models as pixart_models
 from test_torch_vision import VIT_CASES, _images
 from test_torch_vision import _vit as vit_models
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def _gaps(want32, want16, got):

@@ -12,6 +12,7 @@ The port casts the U-Net whole and the VAE decoder's layers
 (``cast_decoder``)."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +34,9 @@ from ln3diff_tpu_torch.render.renderer import RenderOptions
 from test_torch_unet_families import (FAMILIES, OPTS, RES, UNET_KW, VAE_KW,
                                       _enc, _params)
 from ln3diff_tpu.models import vit as jvit
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 
 def _gaps(want32, want16, got):

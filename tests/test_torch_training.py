@@ -21,6 +21,7 @@ computed once and shared (``functools.lru_cache``).
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import optax
@@ -57,6 +58,9 @@ from ln3diff_tpu_torch.training import train_state as tts
 from ln3diff_tpu_torch.training.vae_trainer import (TrainDraws,
                                                     VAETrainConfig,
                                                     VAETrainer)
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TINY = dict(encoder_in_channels=10, encoder_ch=8, encoder_ch_mult=(1, 2),
             encoder_res_blocks=1, img_resolution=32, num_views=2,

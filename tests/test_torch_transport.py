@@ -6,6 +6,7 @@ start noise fed to the port as ``x_init``.  f32 on both sides; tolerance
 up to the libraries' transcendental functions)."""
 
 import numpy as np
+import os
 import pytest
 import torch
 
@@ -14,6 +15,9 @@ import jax.numpy as jnp
 
 from ln3diff_tpu.diffusion import transport as jtr
 from ln3diff_tpu_torch.diffusion import transport as ttr
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-5
 

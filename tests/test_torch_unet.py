@@ -8,6 +8,7 @@ are carried by ``bridge.py``; toy sizes, f32 on both sides; tolerance
 1e-5 of each output's scale."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +23,9 @@ from ln3diff_tpu_torch import bridge
 from ln3diff_tpu_torch.conditioning import clip as tclip
 from ln3diff_tpu_torch.models import unet as tunet
 from ln3diff_tpu_torch.models.layers import random_init_
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-5
 
@@ -125,8 +129,8 @@ def test_unet_control_residuals_match_jax():
 
 def test_unet_free_parameters():
     """The mixing logit has JAX's shape (1, 1, 1, 3·in_channels); the
-    random init sets it to its JAX init, -6; a quantized config is the
-    next slice's."""
+    random init sets it to its JAX init, -6, in the quantized U-Net
+    too."""
     _, v, tm, _ = _unet('transformer')
     assert tm.mixing_logit.shape == v['params']['mixing_logit'].shape \
         == (1, 1, 1, 12)
@@ -136,8 +140,11 @@ def test_unet_free_parameters():
     assert torch.equal(fresh.mixing_logit, torch.full((1, 1, 1, 12), -6.0))
     assert not hasattr(tunet.UNetModel(tunet.UNetConfig(
         **UNETS['adm'])), 'mixing_logit')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tunet.UNetModel(tunet.UNetConfig(quantized=True))
+    q = random_init_(tunet.UNetModel(tunet.UNetConfig(
+        dtype=torch.float32, quantized=True, **UNETS['transformer'])),
+        torch.Generator().manual_seed(0))
+    assert torch.equal(q.mixing_logit, torch.full((1, 1, 1, 12), -6.0))
+    assert q.down_0_res_0.in_conv.kernel_q.dtype == torch.int8
 
 
 def test_unet_runs_channels_last():

@@ -15,6 +15,7 @@ toy size).  The 8XDC head has fixed widths, so the FFHQ frames cost full
 SR compute: the head runs twice here, once per batch."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -43,6 +44,9 @@ from ln3diff_tpu_torch.render.camera import orbit_cameras
 from ln3diff_tpu_torch.render.mesh import grid_points
 from ln3diff_tpu_torch.render.renderer import RenderOptions
 from test_torch_pipeline import _jax_noise, _salt_free_ids
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-4
 RES, STEPS = 8, 4
@@ -110,7 +114,10 @@ def _enc(registry):
 
 
 @functools.lru_cache(maxsize=None)
-def _family(name):
+def _family(name, quantized=False):
+    """JAX's and the port's toy pipelines of family ``name`` on the same
+    weights; with ``quantized`` both U-Nets are the int8 twins (JAX's
+    ``quantize_unet``, the port's strict load of the bridge's copy)."""
     fam = FAMILIES[name]
     jden = junet.UNetModel(junet.UNetConfig(dtype=jnp.float32, **UNET_KW))
     jvae = fam['jvae'](fam['jcfg'](encoder_vit=_enc(jvit.vit_registry),
@@ -124,6 +131,12 @@ def _family(name):
         k, *a, jopts, RES, method=jvae.init_decoder_paths),
         jnp.zeros((1, hw, hw, 12)), jnp.zeros((1, 25)), seed=4)
     text_v = _params(jtext.init, jnp.zeros((1, 77), jnp.int32), seed=5)
+    if quantized:
+        from ln3diff_tpu.ops.int8 import quantize_unet
+        jden, den_v = quantize_unet(
+            jden.cfg, den_v, jnp.zeros((2, hw, hw, 12)), jnp.zeros((2,)),
+            jnp.zeros((2, 1, 32)))
+        den_v = jax.tree_util.tree_map(np.asarray, den_v)
 
     jpipe = JPipeline(
         lambda p, x, t, c: jden.apply(p, x, t, c['crossattn']), den_v,
@@ -143,7 +156,8 @@ def _family(name):
                                  timestep_respacing=f'ddim{STEPS}'),
         mixing_logit=den_v['params']['mixing_logit'])
 
-    den_cfg = tunet.UNetConfig(dtype=torch.float32, **UNET_KW)
+    den_cfg = tunet.UNetConfig(dtype=torch.float32, quantized=quantized,
+                               **UNET_KW)
     vae_cfg = fam['tcfg'](encoder_vit=_enc(tvit.vit_registry), **VAE_KW,
                           **fam['vae'])
     text_cfg = tclip.CLIPTextConfig(**TEXT_KW)
@@ -218,9 +232,10 @@ def test_shapenet_sigma_grid_matches_jax():
 
 
 def test_presets_match_jax():
-    """The port's copies of the ShapeNet/FFHQ presets equal JAX's field
-    for field (dtypes aside), ``build_vae`` picks the same classes, and
-    the unported SR head and background planes raise."""
+    """The port's copies of the ShapeNet/FFHQ presets (and of the fg/bg
+    FFHQ preset) equal JAX's field for field (dtypes aside), ``build_vae``
+    picks the same classes, and the ``'stylegan'`` SR head and the
+    background planes build."""
     import dataclasses
     from ln3diff_tpu import config as jconfig
     from ln3diff_tpu_torch import config as tconfig
@@ -232,6 +247,10 @@ def test_presets_match_jax():
                          else getattr(cfg, f.name))
                 for f in dataclasses.fields(cfg) if f.name != 'dtype'}
 
+    def common(want, got):
+        return {k: common(v, got[k]) if isinstance(v, dict) else v
+                for k, v in want.items() if k in got}
+
     for name in ('shapenet_tuneray_aug_resolution_64_64_nearestSR', 'ffhq'):
         got = dataclasses.asdict(tconfig.RENDER_PRESETS[name])
         want = dataclasses.asdict(jconfig.RENDER_PRESETS[name])
@@ -239,20 +258,20 @@ def test_presets_match_jax():
     for family in ('objaverse', 'shapenet', 'ffhq'):
         assert tconfig.CAMERA_PRESETS[family] == \
             jconfig.CAMERA_PRESETS[family]
-    for family in ('shapenet', 'ffhq'):
+    for family in ('shapenet', 'ffhq', 'ffhq-fgbg'):
         tcfg, jcfg = tconfig.vae_preset(family), jconfig.vae_preset(family)
-        want = {k: v for k, v in fields(jcfg).items()
-                if k in fields(tcfg)}
-        assert fields(tcfg) == want
+        assert fields(tcfg) == common(fields(jcfg), fields(tcfg))
         assert type(tconfig.build_vae(tcfg)).__name__ == \
             type(jconfig.build_vae(jcfg)).__name__
     assert fields(tconfig.denoiser_preset('shapenet-unet')) == \
         fields(jconfig.denoiser_preset('shapenet-unet'))
     assert type(tconfig.build_vae(TriplaneVAEConfig())) is TriplaneVAE
-    for kw in (dict(use_sr=True, sr_module='stylegan'),
-               dict(use_background=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TriplaneVAE(TriplaneVAEConfig(**kw))
+    from ln3diff_tpu_torch.models.stylegan import SuperresolutionHybrid
+    vae = TriplaneVAE(TriplaneVAEConfig(use_sr=True, sr_module='stylegan'))
+    assert isinstance(vae.superresolution, SuperresolutionHybrid)
+    vae = TriplaneVAE(TriplaneVAEConfig(use_background=True,
+                                        plane_channels=64))
+    assert vae.bg_decoder.EqualDense_0.weight.shape == (64, 32)
 
 
 def test_unet_family_entry_points_need_a_card():

@@ -10,6 +10,7 @@ are carried by ``bridge.py``; toy sizes, f32 on both sides; tolerance
 channels up to 512²), so it runs twice in this file."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +33,9 @@ from ln3diff_tpu_torch.models import vae_shapenet as tvs
 from ln3diff_tpu_torch.models import vit as tvit
 from ln3diff_tpu_torch.render.camera import orbit_cameras
 from ln3diff_tpu_torch.render.renderer import RenderOptions
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-5
 

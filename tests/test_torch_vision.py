@@ -6,6 +6,7 @@ carried by ``bridge.clip_vision_state_dict`` / ``bridge.vit_state_dict``.
 Toy sizes, f32 on both sides; tolerance 1e-5 of each output's scale."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +20,9 @@ from ln3diff_tpu.models import vit as jvit
 from ln3diff_tpu_torch import bridge
 from ln3diff_tpu_torch.conditioning import clip as tclip
 from ln3diff_tpu_torch.models import vit as tvit
+
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 TOL = 1e-5
 
