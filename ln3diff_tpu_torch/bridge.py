@@ -32,6 +32,12 @@ modules keep the JAX modules' names, so each leaf maps by its path:
 
 The DiT's sin-cos ``pos_embed`` lives in the ``constants`` collection;
 the port recomputes it as a buffer, so it is not carried.
+
+Every map is linear (transposes, splits and renames only), so it also
+carries a JAX grad tree (``jax.grad`` of a trainer's loss) onto the port's
+parameter names: ``dit_state_dict`` for the LDM trainer (a
+``learn_sigma`` head is a wider final ``linear``), ``vae_state_dict`` for
+the VAE trainer and ``controlnet_state_dict`` for the ControlNet trainer.
 """
 
 from __future__ import annotations
@@ -125,8 +131,14 @@ def vae_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 def unet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """``UNetModel`` params (``mixing_logit`` included, quantized or not)
-    → the port's state dict."""
+    → the port's state dict.  ``ControlNet`` (its U-Net blocks, zero convs
+    and hint encoder keep the JAX names) and ``ConfNet`` map the same way:
+    ``controlnet_state_dict`` and ``confnet_state_dict`` are this
+    function."""
     return _convert(params, {})
+
+
+controlnet_state_dict = confnet_state_dict = unet_state_dict
 
 
 def clip_text_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

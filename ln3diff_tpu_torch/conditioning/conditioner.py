@@ -2,14 +2,14 @@
 
 Port of ``ln3diff_tpu/conditioning/conditioner.py`` (``Embedder`` :23,
 ``GeneralConditioner`` :42, ``make_clip_text_embedder`` :91,
-``make_clip_image_embedder`` :121, ``make_dino_embedder`` :150 and
-``make_dino_mv_embedder`` :171): each embedder declares its input key,
+``make_clip_image_embedder`` :121, ``make_dino_embedder`` :150,
+``make_dino_mv_embedder`` :171, ``make_dino_mv_plucker_embedder`` :202 and
+``make_concat_timestep_embedder`` :249): each embedder declares its input key,
 its output keys (crossattn / vector / dino) and its ucg (unconditional
 guidance dropout) rate; ``get_unconditional_conditioning`` gives the
 (c, uc) pair the samplers take.  The embedders wrap the port's torch
 modules where the JAX ones take parameter trees; the image→3D and
-multi-view→3D builders run their towers through them.  The Plücker multi-view
-embedder and the concat-timestep embedder are not ported.
+multi-view→3D builders run their towers through them.
 """
 
 from __future__ import annotations
@@ -30,11 +30,14 @@ class Embedder:
     ('' caption / zero image).
     ucg_rate: probability of dropping a sample to its unconditional value
     during training (reference ucg_rate 0.1).
+    is_trainable: whether the tower trains with the denoiser (the
+    reference's flag; every released tower is frozen).
     """
     input_key: str
     encode: Callable[[Any], dict]
     uncond: Callable[[int], dict]
     ucg_rate: float = 0.0
+    is_trainable: bool = False
     name: str = ''
 
 
@@ -177,3 +180,71 @@ def make_dino_mv_embedder(vit_model, ucg_rate: float = 0.0,
 
     return Embedder(input_key='img', encode=encode, uncond=uncond,
                     ucg_rate=ucg_rate, name='dino_mv')
+
+
+def make_dino_mv_plucker_embedder(vit_model, ucg_rate: float = 0.0,
+                                  n_cond_frames: int = 4) -> Embedder:
+    """FrozenDinov2ImageEmbedderMVPlucker (reference
+    ``sgm/modules/encoders/modules.py:871-1014``): the first
+    ``n_cond_frames`` views with their 25-dim cameras → per-view Plücker
+    ray maps [cross(o, d), d] concatenated onto RGB → the port's
+    ``VisionTransformer(cfg, in_channels=9)`` → tokens flattened
+    across views, (B, V·L, D) on 'dino'.  ``encode`` takes ``(images,
+    cameras)``: (B, V, H, W, 3) in [-1, 1] and (B, V, 25).  The null
+    conditioning is zeros."""
+    from ..data.objaverse import plucker_embedding
+    hw = vit_model.cfg.img_size
+
+    @torch.no_grad()
+    def encode(img_c):
+        images, cameras = (np.asarray(a) for a in img_c)
+        B, V = images.shape[:2]
+        V = min(V, n_cond_frames)
+        plucker = np.stack([
+            np.stack([plucker_embedding(cameras[b, v], hw)
+                      for v in range(V)]) for b in range(B)])
+        x = np.concatenate([images[:, :V], plucker], axis=-1)
+        tokens = vit_model(torch.as_tensor(
+            x.reshape(B * V, hw, hw, 9), device=_device_of(vit_model)))
+        L, D = tokens.shape[1:]
+        return {'dino': tokens.reshape(B, V * L, D)}
+
+    @torch.no_grad()
+    def uncond(n):
+        tokens = vit_model(torch.zeros((n * n_cond_frames, hw, hw, 9),
+                                       device=_device_of(vit_model)))
+        L, D = tokens.shape[1:]
+        return {'dino': torch.zeros((n, n_cond_frames * L, D),
+                                    dtype=tokens.dtype,
+                                    device=tokens.device)}
+
+    return Embedder(input_key='img-c', encode=encode, uncond=uncond,
+                    ucg_rate=ucg_rate, name='dino_mv_plucker')
+
+
+def make_concat_timestep_embedder(outdim: int = 256,
+                                  input_key: str = 'original_size_as_tuple',
+                                  ucg_rate: float = 0.0, n_dims: int = 2,
+                                  device='cuda') -> Embedder:
+    """ConcatTimestepEmbedderND (reference
+    ``sgm/modules/encoders/modules.py:1516``): each scalar of a size or
+    crop tuple (B, d) through the sinusoidal table, concatenated to
+    (B, d·outdim) on 'vector'.  No parameters.  The unconditional value is
+    the embedding of an all-zero tuple of ``n_dims``, as in JAX."""
+    from ..models.layers import timestep_embedding
+
+    def encode_vals(x):
+        x = torch.as_tensor(x, device=device)
+        if x.ndim == 1:
+            x = x[:, None]
+        b, d = x.shape
+        return timestep_embedding(x.reshape(-1), outdim).reshape(b, d * outdim)
+
+    def encode(x):
+        return {'vector': encode_vals(x)}
+
+    def uncond(n):
+        return {'vector': encode_vals(torch.zeros((n, n_dims)))}
+
+    return Embedder(input_key=input_key, encode=encode, uncond=uncond,
+                    ucg_rate=ucg_rate, name='concat_timestep')

@@ -7,10 +7,16 @@ Port of the sampling side of ``ln3diff_tpu/diffusion/gaussian.py``
 the LSGM mixing ``_apply_mixing`` :244, ``p_mean_variance`` :264,
 ``p_sample_loop`` :419, ``ddim_sample_loop`` :444, ``plms_sample_loop``
 :481, ``ddim_reverse_sample_loop`` :542, ``make_cfg_model_fn`` :568,
-``make_diffusion`` :598).  The schedule tables are computed in float64
+``make_diffusion`` :598) and its training half: ``mean_flat``,
+``normal_kl``, ``approx_standard_normal_cdf`` and
+``discretized_gaussian_log_likelihood`` :101-131, the VLB terms
+``_vb_terms_bpd`` :315, ``prior_bpd`` :332, ``calc_bpd_loop`` :342 and
+``training_losses`` :376 (mse, kl, rescaled_kl and rescaled_mse; eps, v
+and x0 targets; the learned-range variance trained through the VLB with
+the mean half detached).  The schedule tables are computed in float64
 with numpy and kept as f32 tensors; each JAX scan over steps is a Python
-loop.  The training losses and the VLB (and ``DiffusionSpec.loss_type``)
-come with the diffusion trainer.
+loop.  The noise of a loss is a tensor argument (the tests feed JAX's
+draws) or a draw from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -86,6 +92,40 @@ class DiffusionSpec:
     mixed_prediction: bool = False    # LSGM mixing-logit prediction
     clip_denoised: bool = False
     rescale_timesteps: bool = False
+    # 'mse' | 'rescaled_mse' (hybrid: MSE + the detached-mean VLB for
+    # learned_range) | 'kl' | 'rescaled_kl'
+    loss_type: str = 'mse'
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL of two diagonal Gaussians, elementwise in nats (reference
+    ``guided_diffusion/losses.py:12``)."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2)**2 * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                   * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """log p of uint8-discretized data in [-1, 1] under a Gaussian
+    (reference ``losses.py:50``): the CDF mass of the 1/255-wide bin."""
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min,
+                                   log_cdf_delta))
 
 
 _TABLES = ('betas', 'alphas_cumprod', 'alphas_cumprod_prev',
@@ -186,6 +226,17 @@ class GaussianDiffusion:
 
     # -- prediction conversions --------------------------------------------
 
+    def q_sample(self, x_start, t, noise):
+        return (self._extract('sqrt_alphas_cumprod', t, x_start.ndim)
+                * x_start
+                + self._extract('sqrt_one_minus_alphas_cumprod', t,
+                                x_start.ndim) * noise)
+
+    def predict_v(self, x_start, t, noise):
+        return (self._extract('sqrt_alphas_cumprod', t, x_start.ndim) * noise
+                - self._extract('sqrt_one_minus_alphas_cumprod', t,
+                                x_start.ndim) * x_start)
+
     def q_posterior_mean_variance(self, x_start, x_t, t):
         mean = (self._extract('posterior_mean_coef1', t, x_t.ndim) * x_start
                 + self._extract('posterior_mean_coef2', t, x_t.ndim) * x_t)
@@ -277,6 +328,113 @@ class GaussianDiffusion:
         out = model_fn(x, self.scale_t(t), **model_kwargs)
         _, _, _, x0 = self.p_mean_variance(out, x, t, mixing_logit)
         return self.predict_eps_from_xstart(x, t, x0), x0
+
+    # -- variational bound (reference :1012-1177) --------------------------
+
+    def _vb_terms_bpd(self, model_output, x_start, x_t, t,
+                      mixing_logit=None):
+        """One VLB term in bits: KL(q(x_{t-1}|x_t, x0) ‖ p(x_{t-1}|x_t)),
+        the decoder NLL at t = 0.  ``model_output`` is the raw network
+        output (both halves for learned_range).  → (term (B,), x0)."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(
+            x_start, x_t, t)
+        mean, _, log_var, x0 = self.p_mean_variance(
+            model_output, x_t, t, mixing_logit=mixing_logit)
+        ln2 = math.log(2.0)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, mean,
+                                 log_var)) / ln2
+        decoder_nll = -mean_flat(discretized_gaussian_log_likelihood(
+            x_start, means=mean, log_scales=0.5 * log_var)) / ln2
+        return torch.where(t == 0, decoder_nll, kl), x0
+
+    def prior_bpd(self, x_start):
+        """KL(q(x_T|x_0) ‖ N(0, I)) in bits (reference ``_prior_bpd``)."""
+        t = self._t(self.num_timesteps - 1, x_start.shape[0], x_start.device)
+        mean = self._extract('sqrt_alphas_cumprod', t, x_start.ndim) * x_start
+        acp = self.table('alphas_cumprod', x_start.device)[t]
+        logvar = torch.log(1.0 - acp).reshape(t.shape + (1,)
+                                              * (x_start.ndim - 1))
+        zero = torch.zeros((), device=x_start.device)
+        return mean_flat(normal_kl(mean, logvar, zero, zero)) / math.log(2.0)
+
+    @torch.no_grad()
+    def calc_bpd_loop(self, model_fn: ModelFn, x_start,
+                      generator: Optional[torch.Generator] = None,
+                      model_kwargs=None,
+                      noise: Optional[torch.Tensor] = None):
+        """Full-chain NLL (reference ``calc_bpd_loop:1110-1177``): the VLB
+        term of every t and the prior bpd.  Step i evaluates t = T−1−i
+        with ``noise[i]`` of a (T, *x_start.shape) stack when given, else a
+        draw from ``generator``.  → dict of total_bpd (B,), prior_bpd
+        (B,), and vb, mse, xstart_mse (B, T) with columns t = T−1 .. 0."""
+        model_kwargs = model_kwargs or {}
+        B = x_start.shape[0]
+        vb, mse, xstart_mse = [], [], []
+        for i in range(self.num_timesteps):
+            t = self._t(self.num_timesteps - 1 - i, B, x_start.device)
+            n = _step_noise(noise, i, x_start, generator)
+            x_t = self.q_sample(x_start, t, n)
+            out = model_fn(x_t, self.scale_t(t), **model_kwargs)
+            term, x0 = self._vb_terms_bpd(out, x_start, x_t, t)
+            eps = self.predict_eps_from_xstart(x_t, t, x0)
+            vb.append(term)
+            mse.append(mean_flat((eps - n)**2))
+            xstart_mse.append(mean_flat((x0 - x_start)**2))
+        vb = torch.stack(vb, dim=1)
+        prior = self.prior_bpd(x_start)
+        return {'total_bpd': vb.sum(dim=1) + prior, 'prior_bpd': prior,
+                'vb': vb, 'mse': torch.stack(mse, dim=1),
+                'xstart_mse': torch.stack(xstart_mse, dim=1)}
+
+    # -- training losses (reference :1050-1175) ----------------------------
+
+    def training_losses(self, model_fn: ModelFn, x_start, t,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None,
+                        model_kwargs=None) -> dict:
+        """The per-sample losses at integer steps ``t`` (B,): the model sees
+        x_t from ``noise`` (else a standard normal draw from ``generator``)
+        and ``scale_t(t)``.  → dict with 'loss' (B,), 'x_t',
+        'model_output' and, by loss type, 'mse' and 'vb'."""
+        model_kwargs = model_kwargs or {}
+        spec = self.spec
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device, dtype=x_start.dtype)
+        x_t = self.q_sample(x_start, t, noise)
+        model_output = model_fn(x_t, self.scale_t(t), **model_kwargs)
+
+        if spec.loss_type in ('kl', 'rescaled_kl'):
+            vb, _ = self._vb_terms_bpd(model_output, x_start, x_t, t)
+            loss = vb * self.num_timesteps \
+                if spec.loss_type == 'rescaled_kl' else vb
+            return {'loss': loss, 'vb': vb, 'x_t': x_t,
+                    'model_output': model_output}
+        if spec.loss_type not in ('mse', 'rescaled_mse'):
+            raise NotImplementedError(f'loss_type {spec.loss_type!r}')
+
+        terms = {}
+        if spec.var_type == 'learned_range':
+            # the variance head learns through the VLB, which must not
+            # move the mean prediction (reference :1100-1127 frozen_out)
+            mean_out, var_values = model_output.chunk(2, dim=-1)
+            frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
+            vb, _ = self._vb_terms_bpd(frozen, x_start, x_t, t)
+            if spec.loss_type == 'rescaled_mse':
+                vb = vb * (self.num_timesteps / 1000.0)
+            terms['vb'] = vb
+            model_output = mean_out
+
+        if spec.mean_type == 'eps':
+            target = noise
+        elif spec.mean_type == 'v':
+            target = self.predict_v(x_start, t, noise)
+        else:
+            target = x_start
+        mse = mean_flat((target - model_output)**2)
+        terms.update(mse=mse, x_t=x_t, model_output=model_output)
+        terms['loss'] = mse + terms['vb'] if 'vb' in terms else mse
+        return terms
 
     # -- samplers ------------------------------------------------------------
     #
@@ -427,10 +585,12 @@ def make_diffusion(schedule: str = 'linear', steps: int = 1000,
                    mean_type: str = 'eps', var_type: str = 'fixed_small',
                    timestep_respacing: str | None = None,
                    mixed_prediction: bool = False,
-                   rescale_timesteps: bool = False) -> GaussianDiffusion:
+                   rescale_timesteps: bool = False,
+                   loss_type: str = 'mse') -> GaussianDiffusion:
     spec = DiffusionSpec(schedule=schedule, steps=steps, mean_type=mean_type,
                          var_type=var_type, mixed_prediction=mixed_prediction,
-                         rescale_timesteps=rescale_timesteps)
+                         rescale_timesteps=rescale_timesteps,
+                         loss_type=loss_type)
     use = None
     if timestep_respacing:
         use = space_timesteps(steps, timestep_respacing)

@@ -1,16 +1,19 @@
-"""Flow-matching / stochastic-interpolant transport (SiT): the path plans
-and the ODE sampler.
+"""Flow-matching / stochastic-interpolant transport (SiT): the path plans,
+the training loss and the ODE and SDE samplers.
 
 Port of ``ln3diff_tpu/diffusion/transport.py``: ``PathPlan`` :27 (linear,
 gvp and vp interpolants with their velocities and the velocity→score
-map), ``TransportSpec`` :80, ``Transport.sample_ode`` :120 (fixed-step
+map), ``TransportSpec`` :80, ``Transport.sample_t`` :96 and
+``Transport.training_losses`` :105 (velocity matching at uniform or
+logit-normal t), ``Transport.sample_ode`` :120 (fixed-step
 Euler or Heun from noise at t = 0 to data at t = 1, or back with
 ``reverse``), ``Transport.sample_sde`` :151 (Euler–Maruyama with the
 score-augmented drift) and ``create_transport`` :189.  The denoiser gets
 t as JAX sends it: a float in [0, 1], not scaled to 1000 steps.
 
 The JAX loop is one ``lax.scan``; here it is a Python loop of eager
-steps.  The training losses and ``sample_t`` come with the trainer.
+steps.  Every draw is a tensor argument (the tests feed JAX's) or comes
+from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -84,11 +87,15 @@ class PathPlan:
 
 @dataclasses.dataclass(frozen=True)
 class TransportSpec:
-    """The sampling half of JAX's ``TransportSpec``: the path and the ODE's
-    start offset.  Its training fields (``prediction``, ``t_sampling``,
-    ``train_eps``) come with the trainer that reads them; the port's ODE
-    takes the model's output as a velocity, as every released path does."""
+    """The path, what the model predicts (the velocity on every released
+    path, and the only prediction the JAX package trains or samples), how
+    training draws t (``'lognorm'``: sigmoid of a standard normal, or
+    ``'uniform'``) and the offsets of training and sampling from the ends
+    of [0, 1]."""
     path: str = 'linear'
+    prediction: str = 'velocity'
+    t_sampling: str = 'lognorm'       # 'uniform' | 'lognorm'
+    train_eps: float = 0.0
     sample_eps: float = 0.0
 
 
@@ -96,8 +103,46 @@ class Transport:
     """Functional transport object (reference ``Transport``)."""
 
     def __init__(self, spec: TransportSpec = TransportSpec()):
+        if spec.prediction != 'velocity':
+            raise NotImplementedError(f'prediction {spec.prediction!r}')
         self.spec = spec
         self.path = PathPlan(kind=spec.path)
+
+    def sample_t(self, batch: int, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None):
+        """Training times in [train_eps, 1 − train_eps]: ``'lognorm'``
+        maps a standard normal draw through the sigmoid, ``'uniform'`` a
+        U[0, 1) draw.  ``u`` is that draw when given (the tests feed
+        JAX's), else it comes from ``generator``."""
+        t0, t1 = self.spec.train_eps, 1.0 - self.spec.train_eps
+        lognorm = self.spec.t_sampling == 'lognorm'
+        if u is None:
+            draw = torch.randn if lognorm else torch.rand
+            u = draw((batch,), generator=generator, device=device)
+        if lognorm:
+            u = torch.sigmoid(u)
+        return u * (t1 - t0) + t0
+
+    def training_losses(self, model_fn: ModelFn, x1, model_kwargs=None,
+                        generator: Optional[torch.Generator] = None,
+                        t: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None) -> dict:
+        """Velocity matching (reference ``transport.py:148-190`` with
+        ``FMLoss``): x_t on the path from the noise x0 to the data x1, the
+        per-sample mean squared error of the model's velocity.  ``t`` (B,)
+        and ``noise`` (x1's shape) are used when given, else drawn from
+        ``generator`` (t through ``sample_t``)."""
+        model_kwargs = model_kwargs or {}
+        if t is None:
+            t = self.sample_t(x1.shape[0], x1.device, generator)
+        if noise is None:
+            noise = torch.randn(x1.shape, generator=generator,
+                                device=x1.device, dtype=x1.dtype)
+        xt, ut = self.path.plan(t, noise, x1)
+        pred = model_fn(xt, t, **model_kwargs)
+        loss = ((pred - ut)**2).mean(dim=tuple(range(1, x1.ndim)))
+        return {'loss': loss, 'pred': pred, 't': t, 'xt': xt}
 
     @torch.no_grad()
     def sample_ode(self, model_fn: ModelFn, shape, num_steps: int = 250,
@@ -177,8 +222,10 @@ class Transport:
         return x + last_step_size * model_fn(x, t, **model_kwargs)
 
 
-def create_transport(path_type: str = 'Linear') -> Transport:
-    """Factory mirroring reference ``transport/__init__.py:3-71`` for
-    sampling: its ``prediction`` and ``snr_type`` arguments set training
-    fields and come with the trainer."""
-    return Transport(TransportSpec(path=path_type.lower()))
+def create_transport(path_type: str = 'Linear',
+                     prediction: str = 'velocity',
+                     snr_type: str = 'lognorm') -> Transport:
+    """Factory mirroring reference ``transport/__init__.py:3-71``."""
+    return Transport(TransportSpec(path=path_type.lower(),
+                                   prediction=prediction,
+                                   t_sampling=snr_type))

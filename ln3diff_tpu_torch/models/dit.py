@@ -18,7 +18,14 @@ does.  ``DiTConfig.quantized=True`` (the W8A8 serving knob) makes every
 block's ``qkv``/``proj``, ``to_q``/``to_k``/``to_v``/``to_out`` and
 ``fc1``/``fc2`` an ``ops.int8.Int8Linear``, as the JAX package's
 ``_dense_cls`` does; the adaLN, the norms and the embedders stay in the
-model's dtype.  ``learn_sigma`` and remat come with the trainer.
+model's dtype.  ``learn_sigma`` doubles the head's channels with a
+variance half for learned-range VLB training.  ``remat`` recomputes each
+block (DiT2: each block pair) in the backward pass: ``remat_policy='full'``
+keeps only the block's inputs (``torch.utils.checkpoint``), ``'dots'``
+also keeps the outputs of its matrix products (selective checkpointing:
+``aten.mm``, ``addmm`` and ``bmm``) and recomputes the elementwise ops,
+as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps the
+projections' outputs (it recomputes the attention's batched products).
 
 Layout: latents are channels-last ``(B, H, W, C)`` with the channel axis
 decomposed as ``(c, plane)``, plane fastest, as in the JAX package.  The
@@ -33,12 +40,14 @@ matches the JAX modules' per-op cast of f32 params to ``dtype``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from ..ops.fused_attention import sdpa_auto
 from ..ops.int8 import Int8Linear
@@ -69,6 +78,34 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size) -> np.ndarray:
     emb_h = _sincos_1d(embed_dim // 2, grid[0])
     emb_w = _sincos_1d(embed_dim // 2, grid[1])
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_call(policy: str, fn, *args):
+    """``fn(*args)`` recomputed in the backward pass under ``policy``
+    (``'full'`` or ``'dots'``); a plain call when autograd records
+    nothing."""
+    if policy not in ('full', 'dots'):
+        raise ValueError(f'unknown remat_policy {policy!r}')
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if policy == 'dots':
+        kw['context_fn'] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +373,11 @@ class DiTConfig:
     fused_attention: bool = False
     # serving mode: W8A8 int8 block projections and MLPs (ops/int8.py)
     quantized: bool = False
+    # double the output channels with a variance head (learned_range)
+    learn_sigma: bool = False
+    # training: recompute each block in the backward pass ('full' | 'dots')
+    remat: bool = False
+    remat_policy: str = 'full'
     dtype: Any = torch.bfloat16
 
 
@@ -349,7 +391,8 @@ class DiT_TriLatent(nn.Module):
     (B, V, L, C) flattened to (B, V·L, C) — ``'vector'`` (B,
     pooled_vector_dim) when ``pooled_vector_dim`` > 0, and ``'dino'`` (B,
     L2, dino_dim) for the image variants.  Returns the prediction in x's
-    layout, f32.
+    layout, f32; with ``learn_sigma`` its channels are (mean C, var C) ×
+    planes, c slow and plane fast, so the last axis splits in halves.
     """
 
     def __init__(self, cfg: DiTConfig):
@@ -378,7 +421,8 @@ class DiT_TriLatent(nn.Module):
                      fused_attention=cfg.fused_attention,
                      quantized=cfg.quantized)
             for _ in range(cfg.depth)])
-        self.final_layer = FinalLayer(D, cfg.patch_size**2 * cfg.in_channels,
+        self.out_channels = cfg.in_channels * (2 if cfg.learn_sigma else 1)
+        self.final_layer = FinalLayer(D, cfg.patch_size**2 * self.out_channels,
                                       t2i=cfg.t2i_final)
         L = (cfg.input_size // cfg.patch_size)**2
         self.register_buffer('pos_embed', torch.from_numpy(
@@ -428,14 +472,18 @@ class DiT_TriLatent(nn.Module):
         c = (self.adaLN_modulation(F.silu(t))
              if cfg.variant in PIXART_VARIANTS else t)
         for block in self.blocks:
-            x = block(x, c, context=crossattn, dino_tokens=dino)
+            if cfg.remat:
+                x = _remat_call(cfg.remat_policy, block, x, c, crossattn,
+                                dino)
+            else:
+                x = block(x, c, context=crossattn, dino_tokens=dino)
 
         x = self.final_layer(x, t)
-        p = cfg.patch_size
+        p, C = cfg.patch_size, self.out_channels
         h = w = H // p
-        x = x.reshape(B, n, h, w, p, p, cfg.in_channels)
+        x = x.reshape(B, n, h, w, p, p, C)
         x = x.permute(0, 2, 4, 3, 5, 6, 1)      # B h p w p c n
-        return x.reshape(B, H, W, cfg.in_channels * n).float()
+        return x.reshape(B, H, W, C * n).float()
 
 
 def dit_registry(name: str, **overrides) -> DiTConfig:
@@ -485,6 +533,9 @@ class DiT2Config:
     num_heads: int = 12
     mlp_ratio: int = 4
     plane_n: int = 3
+    # recompute each block pair in the backward pass ('full' | 'dots')
+    remat: bool = False
+    remat_policy: str = 'full'
     dtype: Any = torch.bfloat16
 
 
@@ -498,6 +549,14 @@ class _Pair(nn.Module):
                                token_modulation=True)
         self.across = DiTBlock(D, cfg.num_heads, cfg.mlp_ratio,
                                token_modulation=True)
+        self.plane_n = cfg.plane_n
+
+    def forward(self, x, c):
+        B, nL, D = x.shape
+        n = self.plane_n
+        h = self.within(x.reshape(B * n, nL // n, D),
+                        c.reshape(B * n, nL // n, D))
+        return self.across(h.reshape(B, nL, D), c)
 
 
 class DiT2(nn.Module):
@@ -525,8 +584,8 @@ class DiT2(nn.Module):
         c = c.to(dtype)
         x = self.pos_embed.expand(B, n * L, D)
         for pair in self.blocks:
-            h = pair.within(x.reshape(B * n, L, D), c.reshape(B * n, L, D))
-            x = pair.across(h.reshape(B, n * L, D), c)
+            x = (_remat_call(cfg.remat_policy, pair, x, c) if cfg.remat
+                 else pair(x, c))
         return x
 
 

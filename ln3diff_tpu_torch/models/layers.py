@@ -3,7 +3,8 @@
 Port of ``ln3diff_tpu/models/layers.py`` (``EqualDense``,
 ``timestep_embedding``), plus the attention core that the JAX package
 takes from ``jax.nn.dot_product_attention``, the Linen ``LayerNorm`` and
-``RMSNorm`` and a seeded random init for runs without released weights.
+``RMSNorm``, a seeded random init for runs without released weights and
+the zeros of JAX's initializers for the trainers.
 """
 
 from __future__ import annotations
@@ -146,3 +147,34 @@ def random_init_(module: nn.Module,
             if hasattr(mod, 'reset_free_parameters'):
                 mod.reset_free_parameters(generator)
     return module
+
+
+def zero_init_like_jax(model: nn.Module) -> nn.Module:
+    """Zero what the JAX modules zero-initialise (weight and bias): every
+    adaLN modulation (adaLN-zero: each DiT block starts as the identity),
+    the DiT's final ``linear`` and ``cap_proj``, the multi-view
+    attention's ``proj_out``, the U-Net blocks' last layers
+    (``ResBlock.out_conv``, ``SpatialTransformer.proj_out``,
+    ``SelfAttention2D.proj``, ``UNetModel.conv_out``) and the ControlNet's
+    ``zero_*`` convs and ``hint_encoder.conv_out``."""
+    from .controlnet import ControlNet, HintEncoder
+    from .dit import FinalLayer
+    from .sd_vae import MVAttn
+    from .unet import ResBlock, SelfAttention2D, SpatialTransformer, UNetModel
+    last = {FinalLayer: 'linear', MVAttn: 'proj_out', ResBlock: 'out_conv',
+            SpatialTransformer: 'proj_out', SelfAttention2D: 'proj',
+            UNetModel: 'conv_out', HintEncoder: 'conv_out'}
+    zeroed = []
+    for mod in model.modules():
+        names = [n for n in ('adaLN_modulation', 'cap_proj')
+                 if hasattr(mod, n)]
+        names += [n for cls, n in last.items() if isinstance(mod, cls)]
+        if isinstance(mod, ControlNet):
+            names += [n for n, _ in mod.named_children()
+                      if n.startswith('zero_')]
+        zeroed += [getattr(mod, n) for n in names]
+    with torch.no_grad():
+        for mod in zeroed:
+            for p in mod.parameters(recurse=False):
+                p.zero_()
+    return model

@@ -77,15 +77,16 @@ class ViTConfig:
 
 
 class VisionTransformer(nn.Module):
-    """DINO ViT encoder: images (B, H, W, 3) channels-last → normalised
+    """DINO ViT encoder: images (B, H, W, C) channels-last → normalised
     tokens (B, [1 +] h·w, D), in the module's dtype (``cfg.dtype`` is the
-    dtype the caller casts it to)."""
+    dtype the caller casts it to).  ``in_channels``: C, 3 for images, 9
+    for RGB + Plücker rays (JAX's conv takes it from its input)."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, in_channels: int = 3):
         super().__init__()
         self.cfg = cfg
         D, p = cfg.embed_dim, cfg.patch_size
-        self.patch_embed = nn.Conv2d(3, D, p, stride=p)
+        self.patch_embed = nn.Conv2d(in_channels, D, p, stride=p)
         n_tok = (cfg.img_size // p)**2 + (1 if cfg.use_cls_token else 0)
         self.pos_embed = nn.Parameter(torch.randn(1, n_tok, D) * 0.02)
         if cfg.use_cls_token:

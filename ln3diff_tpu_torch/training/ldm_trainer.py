@@ -1,0 +1,324 @@
+"""Stage-2 latent-diffusion trainer: one loop, three objectives.
+
+Port of ``ln3diff_tpu/training/ldm_trainer.py`` (``LDMTrainConfig`` :30,
+``LDMTrainer`` :62 with ``init_state`` :124, ``_loss_fn`` :148, ``build``
+:204 and ``run_loop`` :213, ``ControlNetTrainer`` :236; reference
+``nsr/lsgm/flow_matching_trainer.py:303``, ``sgm_DiffusionEngine.py:210``,
+``train_util_diffusion_lsgm_noD_joint.py:250-489``,
+``nsr/lsgm/crossattn_cldm_objv.py:775``) on one device.  The step trains
+the denoiser on pre-extracted VAE latents (÷ ``triplane_scaling_divider``)
+with their context already encoded:
+
+* ``'flow_matching'``: velocity matching at logit-normal t
+  (``Transport.training_losses``);
+* ``'ddpm'``: ``GaussianDiffusion.training_losses`` (every mean, variance
+  and loss type; ``learned_range`` trains the VLB head), t uniform or,
+  with ``schedule_sampler='loss-second-moment'``, importance-sampled on
+  the host with the per-sample losses fed back;
+* ``'edm'``: the EDM loss over the discrete σ table with eps scaling; the
+  network gets c_noise, the σ's table index as f32, as its t.
+
+The denoiser computes under autocast to its ``cfg.dtype`` (bf16 on the
+released configs) over f32 parameters, as the JAX modules compute in
+``dtype`` over f32 params; the step is ``train_state.build_train_step``
+(microbatch averaging, clip, AdamW, EMA).  Randomness: t, the noise and
+the σ indices come from a ``torch.Generator`` or are passed in
+(:class:`LDMDraws`, so that a test can feed JAX's); the resampler's draws
+come from ``numpy.random.default_rng([seed, 0])``, the JAX trainer's host
+RNG on process 0.  Not ported: the mesh and its pipeline-parallel trunk
+(``ROADMAP.md`` §1 item 3) and the logger (metrics are printed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..diffusion.edm import DiscreteDenoiser, edm_training_loss
+from ..diffusion.gaussian import make_diffusion
+from ..diffusion.resample import LossSecondMomentResampler
+from ..diffusion.transport import Transport, TransportSpec
+from ..models.controlnet import ControlNet
+from ..models.layers import random_init_, zero_init_like_jax
+from ..models.unet import UNetModel
+from ..pipeline import resolve_device
+from .train_state import TrainState, build_train_step, make_optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class LDMTrainConfig:
+    objective: str = 'flow_matching'   # 'flow_matching' | 'ddpm' | 'edm'
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    grad_clip: float = 0.5
+    ema_rate: float = 0.9999
+    triplane_scaling_divider: float = 0.96806   # reference objaverse value
+    # ddpm objective options
+    schedule: str = 'linear'
+    diffusion_steps: int = 1000
+    mean_type: str = 'v'
+    var_type: str = 'fixed_small'     # 'learned_range' trains the VLB head
+    loss_type: str = 'mse'            # 'rescaled_mse' = hybrid MSE + VLB
+    # 'uniform' | 'loss-second-moment' (importance-sample t ∝ sqrt(E[loss²])
+    # on the host, diffusion/resample.py)
+    schedule_sampler: str = 'uniform'
+    microbatch_steps: int = 1
+    log_interval: int = 10
+
+
+class LDMDraws(NamedTuple):
+    """The random draws of one loss evaluation: ``t`` (B,) — the
+    flow-matching time in [0, 1], the DDPM step (int) or the EDM σ-table
+    index (int) — and ``noise`` in the latent's shape."""
+    t: torch.Tensor
+    noise: torch.Tensor
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree, device=device)
+
+
+class LDMTrainer:
+    """Owns the denoiser (``model(x, t, context) -> prediction``), the
+    train state and the step; drives the loop (reference ``run_loop``).
+    The model's weights are redrawn at construction from ``seed``
+    (``random_init_``, zero where JAX's init is); load others into
+    ``trainer.model`` before the first step.  Batches are dicts with
+    'latent' (B, H, W, C) and 'context' (a dict of tensors), or
+    (S, B, ...) under ``microbatch_steps`` S > 1."""
+
+    def __init__(self, model: nn.Module,
+                 train_cfg: LDMTrainConfig = LDMTrainConfig(),
+                 seed: int = 0, device='cuda', pipeline_stages: int = 1):
+        if pipeline_stages > 1:
+            raise NotImplementedError(
+                'the pipeline-parallel DiT trunk (parallel/pipeline.py) is '
+                'ROADMAP.md §1 item 3 (parallel); the trainer runs on one '
+                'device')
+        if getattr(getattr(model, 'cfg', None), 'fused_attention', False):
+            raise ValueError('the fused attention kernel has no backward '
+                             'pass: build the denoiser with '
+                             'fused_attention=False to train it')
+        self.device = resolve_device(device)
+        self.cfg = train_cfg
+        self.model = model.to(self.device)
+        self.seed = seed
+        self._init_weights()
+        self.generator: Optional[torch.Generator] = None
+        self.state: Optional[TrainState] = None
+        self._step_fn = None
+        self.resampler = None
+
+        if train_cfg.objective == 'ddpm':
+            self.diffusion = make_diffusion(
+                schedule=train_cfg.schedule, steps=train_cfg.diffusion_steps,
+                mean_type=train_cfg.mean_type, var_type=train_cfg.var_type,
+                loss_type=train_cfg.loss_type)
+            if train_cfg.schedule_sampler == 'loss-second-moment':
+                self.resampler = LossSecondMomentResampler(
+                    self.diffusion.num_timesteps)
+                self._resampler_rng = np.random.default_rng([int(seed), 0])
+            elif train_cfg.schedule_sampler != 'uniform':
+                raise ValueError(f'schedule_sampler '
+                                 f'{train_cfg.schedule_sampler!r}')
+        elif train_cfg.objective == 'edm':
+            self.denoiser = DiscreteDenoiser(num_idx=1000, scaling='eps')
+        elif train_cfg.objective == 'flow_matching':
+            self.transport = Transport(TransportSpec())
+        else:
+            raise ValueError(f'objective {train_cfg.objective!r}')
+
+    def _init_weights(self):
+        module = self._trained_module().to(self.device)
+        random_init_(module, torch.Generator(
+            device=self.device).manual_seed(self.seed))
+        zero_init_like_jax(module)
+
+    # -- state -------------------------------------------------------------
+
+    def _constants(self):
+        return None
+
+    def init_state(self) -> TrainState:
+        """The optimizer and the EMA over the model's current weights."""
+        tx = make_optimizer(self.cfg.lr, self.cfg.weight_decay,
+                            grad_clip=self.cfg.grad_clip)
+        self.state = TrainState.create(
+            self._trained_module(), tx,
+            ema_rates=(('ema', self.cfg.ema_rate),),
+            constants=self._constants())
+        return self.state
+
+    def _trained_module(self) -> nn.Module:
+        return self.model
+
+    def build(self) -> 'LDMTrainer':
+        if self.state is None:
+            self.init_state()
+        self._step_fn = build_train_step(self._loss_fn,
+                                         self.cfg.microbatch_steps)
+        return self
+
+    # -- the loss ----------------------------------------------------------
+
+    def _autocast(self):
+        dt = getattr(getattr(self.model, 'cfg', None), 'dtype', torch.float32)
+        return torch.autocast(self.device.type, dtype=dt,
+                              enabled=dt != torch.float32)
+
+    def _loss_fn(self, params, constants, batch, draws: Optional[LDMDraws]):
+        """(loss, metrics) of one (micro)batch (JAX ``_loss_fn``).  The
+        draws come from ``draws`` or from ``self.generator``."""
+        cfg = self.cfg
+        gen = self.generator
+        x0 = batch['latent'] / cfg.triplane_scaling_divider
+        ctx = batch['context']
+        t_in = None if draws is None else draws.t
+        noise = None if draws is None else draws.noise
+
+        def model_fn(xt, t):
+            with self._autocast():
+                return self.model(xt, t, ctx)
+
+        if cfg.objective == 'flow_matching':
+            out = self.transport.training_losses(model_fn, x0, generator=gen,
+                                                 t=t_in, noise=noise)
+            loss = out['loss'].mean()
+            return loss, {'fm_mse': loss.detach()}
+        if cfg.objective == 'ddpm':
+            if 't' in batch:
+                # importance-sampled steps from the host-side resampler;
+                # the weights undo the sampling bias
+                t, t_w = batch['t'].long(), batch['t_weights']
+            else:
+                t = t_in if t_in is not None else torch.randint(
+                    0, self.diffusion.num_timesteps, (x0.shape[0],),
+                    generator=gen, device=x0.device)
+                t_w = 1.0
+            out = self.diffusion.training_losses(model_fn, x0, t,
+                                                 noise=noise, generator=gen)
+            loss = (t_w * out['loss']).mean()
+            metrics = {'ddpm_mse': out.get('mse', out['loss']).mean()
+                       .detach()}
+            if 'vb' in out:
+                metrics['vb'] = out['vb'].mean().detach()
+            if 't' in batch:
+                metrics['per_sample_loss'] = out['loss'].detach()
+            return loss, metrics
+
+        def network(xt, c_noise, cond):
+            return model_fn(xt, c_noise.float())
+
+        loss = edm_training_loss(self.denoiser, network, x0, ctx,
+                                 generator=gen, sigma_idx=t_in,
+                                 noise=noise).mean()
+        return loss, {'edm_mse': loss.detach()}
+
+    # -- the step and the loop ----------------------------------------------
+
+    def train_step(self, batch: dict, draws=None) -> dict:
+        """One optimizer step on a batch already on the device; ``draws``:
+        an :class:`LDMDraws` (a sequence of S of them under
+        ``microbatch_steps`` S > 1) or None for ``self.generator``'s."""
+        if self._step_fn is None:
+            self.build()
+        if self.generator is None:
+            self.generator = torch.Generator(
+                device=self.device).manual_seed(1234)
+        return self._step_fn(self.state, batch, draws)
+
+    def run_loop(self, data: Iterator[dict], num_steps: int,
+                 step_offset: int = 0, eval_fn: Optional[Callable] = None,
+                 eval_interval: int = 0, guard=None,
+                 log: Callable = print) -> TrainState:
+        """``num_steps`` steps over ``data`` (dicts of arrays).  Every
+        ``log_interval`` steps the metrics go to ``log`` as floats;
+        ``eval_fn(state, step)`` runs every ``eval_interval`` steps; a
+        ``guard`` (anything with ``should_stop()``, such as a preemption
+        guard) stops the loop at the next step boundary."""
+        if self._step_fn is None:
+            self.build()
+        for i in range(num_steps):
+            batch = _to_device(next(data), self.device)
+            if self.resampler is not None:
+                # t for every sample, shaped like the batch's leading axes
+                # so that the microbatch split slices it
+                lead = batch['latent'].shape[
+                    :1 if self.cfg.microbatch_steps == 1 else 2]
+                t_np, w_np = self.resampler.sample(self._resampler_rng,
+                                                   int(np.prod(lead)))
+                batch['t'] = torch.as_tensor(
+                    t_np, device=self.device).reshape(lead)
+                batch['t_weights'] = torch.as_tensor(
+                    w_np, device=self.device).reshape(lead)
+            metrics = self.train_step(batch)
+            if self.resampler is not None:
+                self.resampler.update_with_losses(
+                    t_np, metrics.pop('per_sample_loss').cpu().numpy())
+            step = step_offset + i + 1
+            if (i + 1) % self.cfg.log_interval == 0:
+                log(dict({k: float(v) for k, v in metrics.items()},
+                         step=step))
+            if eval_fn is not None and eval_interval \
+                    and (i + 1) % eval_interval == 0:
+                eval_fn(self.state, step)
+            if guard is not None and guard.should_stop():
+                log({'stopped_after_step': step})
+                break
+        return self.state
+
+
+class ControlNetTrainer(LDMTrainer):
+    """Hint-conditioned fine-tuning (reference
+    ``scripts/vit_triplane_cldm_train.py``): a frozen U-Net and a trainable
+    ControlNet branch whose zero-conv residuals are added to the U-Net's
+    skips.  Only the ControlNet trains: the U-Net's parameters are
+    ``requires_grad=False`` and sit in the train state's ``constants``,
+    out of the optimizer's reach.  The objective is 'ddpm'.  Batches carry
+    'latent', 'context' and 'hint' (B, H, W, C).  The ControlNet's weights
+    are redrawn from ``seed`` (zero convs at zero); the U-Net keeps the
+    weights it holds."""
+
+    def __init__(self, unet_model: UNetModel, controlnet_model: ControlNet,
+                 train_cfg: LDMTrainConfig = LDMTrainConfig(
+                     objective='ddpm'),
+                 seed: int = 0, device='cuda'):
+        if train_cfg.objective != 'ddpm':
+            raise ValueError('the ControlNet trains the DDPM objective')
+        self.controlnet = controlnet_model
+        super().__init__(unet_model, train_cfg, seed=seed, device=device)
+        self.model.requires_grad_(False)
+
+    def _trained_module(self) -> nn.Module:
+        return self.controlnet
+
+    def _constants(self):
+        return {'unet': dict(self.model.named_parameters())}
+
+    def _loss_fn(self, params, constants, batch, draws: Optional[LDMDraws]):
+        cfg = self.cfg
+        gen = self.generator
+        x0 = batch['latent'] / cfg.triplane_scaling_divider
+        ctx = batch['context']
+        crossattn = ctx.get('crossattn') if isinstance(ctx, dict) else ctx
+        hint = batch['hint']
+
+        def model_fn(xt, t):
+            with self._autocast():
+                controls = self.controlnet(xt, hint, t, crossattn)
+                return self.model(xt, t, crossattn, control=controls)
+
+        t = draws.t if draws is not None else torch.randint(
+            0, self.diffusion.num_timesteps, (x0.shape[0],), generator=gen,
+            device=x0.device)
+        out = self.diffusion.training_losses(
+            model_fn, x0, t, noise=None if draws is None else draws.noise,
+            generator=gen)
+        loss = out['loss'].mean()
+        return loss, {'cldm_mse': loss.detach()}

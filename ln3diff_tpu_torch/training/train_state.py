@@ -3,7 +3,9 @@
 Port of ``ln3diff_tpu/training/train_state.py``: ``make_optimizer`` :65
 (optax's ``chain(clip_by_global_norm, adamw)`` with per-module learning
 rates and the warmup-cosine schedule), the EMA of ``apply_gradients``
-:38-52 and the microbatch gradient averaging of ``build_train_step`` :107.
+:38-52, the frozen ``constants`` of the train state and the generic step
+``build_train_step`` :107-195 on one device (microbatch gradient
+averaging, the ``per_sample*`` metrics flattened in draw order).
 Written out with optax's arithmetic rather than taken from ``torch.optim``,
 so that one step matches the JAX trainer's:
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -162,23 +164,26 @@ def update_ema(ema: dict, params: dict, rate: float):
 @dataclasses.dataclass
 class TrainState:
     """The module's trainable parameters (by name), the optimizer and its
-    state, one EMA copy per rate and the step count."""
+    state, one EMA copy per rate, the step count and the ``constants``
+    that the loss reads and no optimizer touches (a frozen network, say)."""
     params: dict
     tx: AdamW
     opt_state: dict
     ema_params: dict
     ema_rates: tuple = ()
     step: int = 0
+    constants: Any = None
 
     @classmethod
     def create(cls, module: torch.nn.Module, tx: AdamW,
-               ema_rates: tuple = ()) -> 'TrainState':
+               ema_rates: tuple = (), constants=None) -> 'TrainState':
         params = {k: p for k, p in module.named_parameters()
                   if p.requires_grad}
         ema = {name: {k: p.detach().clone() for k, p in params.items()}
                for name, _ in ema_rates}
         return cls(params=params, tx=tx, opt_state=tx.init(params),
-                   ema_params=ema, ema_rates=tuple(ema_rates))
+                   ema_params=ema, ema_rates=tuple(ema_rates),
+                   constants=constants)
 
     def apply_gradients(self, grads: dict):
         """One optimizer step, then the EMA of the new params."""
@@ -186,3 +191,55 @@ class TrainState:
         for name, rate in self.ema_rates:
             update_ema(self.ema_params[name], self.params, rate)
         self.step += 1
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def build_train_step(loss_fn: Callable, microbatch_steps: int = 1):
+    """The training step of ``loss_fn(params, constants, batch, draws) ->
+    (loss, metrics)`` (JAX ``build_train_step``'s ``step_fn``).
+
+    The returned ``step_fn(state, batch, draws=None) -> metrics`` runs the
+    loss and its backward pass, then the clip, AdamW and the EMA
+    (``TrainState.apply_gradients``).  With ``microbatch_steps`` S > 1,
+    every batch leaf of rank ≥ 2 (nested dicts included) is split along
+    its leading S axis and leaves of lower rank go to every microbatch
+    unchanged; ``draws`` is then a sequence of S draws (or None), the
+    grads are summed and divided by S and the metrics averaged, except the
+    ``per_sample*`` ones, which are concatenated in draw order.  The
+    metrics hold ``loss`` and ``grad_norm`` (of the unclipped grads)."""
+    steps = microbatch_steps
+
+    def step_fn(state: TrainState, batch, draws=None) -> dict:
+        if steps > 1 and draws is not None and len(draws) != steps:
+            raise ValueError(f'{len(draws)} draws for {steps} microbatches')
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        losses, metrics = [], {}
+        for i in range(steps):
+            micro = batch if steps == 1 else _tree_map(
+                lambda v: v[i] if np.ndim(v) >= 2 else v, batch)
+            d = draws if steps == 1 or draws is None else draws[i]
+            loss, terms = loss_fn(params, state.constants, micro, d)
+            loss.backward()
+            losses.append(loss.detach())
+            for k, v in terms.items():
+                metrics.setdefault(k, []).append(v.detach())
+        grads = {k: (torch.zeros_like(p) if p.grad is None
+                     else p.grad / steps) for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        gnorm = global_norm(list(grads.values()))
+        state.apply_gradients(grads)
+        out = {k: (torch.cat(v) if k.startswith('per_sample')
+                   else torch.stack(v).float().mean())
+               for k, v in metrics.items()}
+        out.update(loss=torch.stack(losses).float().mean(), grad_norm=gnorm)
+        return out
+
+    return step_fn

@@ -32,7 +32,6 @@ from typing import Callable, Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.sd_vae import MVAttn
 from ..models.vae import TriplaneVAE, TriplaneVAEConfig
 from ..pipeline import resolve_device
 from ..render.ray_sampler import (sample_patch_origins, sample_patch_rays,
@@ -85,20 +84,6 @@ def _crop(img: torch.Tensor, h0, w0, size: int) -> torch.Tensor:
     return torch.stack(crops)
 
 
-def zero_init_like_jax(model: torch.nn.Module) -> torch.nn.Module:
-    """Zero what the JAX modules zero-initialise: every DiT block's adaLN
-    modulation (adaLN-zero: each block starts as the identity) and the
-    multi-view attention's ``proj_out``."""
-    with torch.no_grad():
-        for mod in model.modules():
-            zeroed = (mod.proj_out if isinstance(mod, MVAttn)
-                      else getattr(mod, 'adaLN_modulation', None))
-            if zeroed is not None:
-                zeroed.weight.zero_()
-                zeroed.bias.zero_()
-    return model
-
-
 class VAETrainer:
     """Owns the model, the train state and the step; drives the loop
     (reference ``run_loop``).  Weights are random, from
@@ -113,7 +98,7 @@ class VAETrainer:
                  render_opts: Optional[RenderOptions] = None,
                  seed: int = 0, lpips_fn: Optional[Callable] = None,
                  device='cuda'):
-        from ..models.layers import random_init_
+        from ..models.layers import random_init_, zero_init_like_jax
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg

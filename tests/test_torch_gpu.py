@@ -834,3 +834,115 @@ def test_modulated_conv2d_card_matches_cpu(cuda, up, demodulate, k):
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale,
                                rtol=1e-4)
+
+
+# -- the stage-2 trainer (training/ldm_trainer.py, diffusion/edm.py) ----------
+
+def _small_ldm(objective, device, **cfg_kw):
+    """A small text DiT's trainer on ``device``, f32, every weight drawn
+    non-zero from seed 3 (the same on every device)."""
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.training.ldm_trainer import (LDMTrainConfig,
+                                                        LDMTrainer)
+    ddpm = objective == 'ddpm'
+    cfg = DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                    hidden_size=64, depth=2, num_heads=4, variant='text',
+                    context_dim=32, learn_sigma=ddpm, dtype=torch.float32,
+                    **cfg_kw)
+    kw = dict(var_type='learned_range', loss_type='rescaled_mse') \
+        if ddpm else {}
+    tr = LDMTrainer(DiT_TriLatent(cfg), LDMTrainConfig(
+        objective=objective, lr=2e-3, ema_rate=0.5, **kw), seed=3,
+        device=device)
+    ref = DiT_TriLatent(cfg)
+    random_init_(ref, torch.Generator().manual_seed(3))
+    tr.model.load_state_dict(ref.state_dict())
+    return tr
+
+
+def _ldm_inputs(objective, device, B=4, seed=4):
+    from ln3diff_tpu_torch.training.ldm_trainer import LDMDraws
+    g = torch.Generator().manual_seed(seed)
+    batch = {'latent': torch.randn((B, 8, 8, 12), generator=g),
+             'context': {'crossattn': torch.randn((B, 7, 32), generator=g)}}
+    t = (torch.rand((B,), generator=g) if objective == 'flow_matching'
+         else torch.randint(0, 1000, (B,), generator=g))
+    draws = LDMDraws(t, torch.randn((B, 8, 8, 12), generator=g))
+    return ({'latent': batch['latent'].to(device),
+             'context': {'crossattn': batch['context']['crossattn']
+                         .to(device)}},
+            LDMDraws(*(x.to(device) for x in draws)))
+
+
+def _ldm_loss_and_grads(tr, batch, draws):
+    loss, _ = tr._loss_fn(None, None, batch, draws)
+    loss.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for k, p in tr.model.named_parameters()}
+    tr.model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+@pytest.mark.parametrize('objective', ['flow_matching', 'ddpm', 'edm'])
+def test_ldm_step_card_matches_cpu(cuda, objective):
+    """One LDM training step of a small DiT on the card against the CPU,
+    f32 without TF32: the loss and every grad within 2e-3 of scale (a
+    floor of 1e-5 of the largest grad), the AdamW step within 2·lr."""
+    out = {}
+    for dev in ('cpu', cuda):
+        tr = _small_ldm(objective, dev)
+        batch, draws = _ldm_inputs(objective, dev)
+        loss, grads = _ldm_loss_and_grads(tr, batch, draws)
+        tr.train_step(batch, draws=draws)
+        out[str(dev)] = loss, grads, {k: p.detach().cpu() for k, p in
+                                      tr.state.params.items()}
+    (lc, gc, pc), (lg, gg, pg) = out['cpu'], out['cuda']
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    for k, want in gc.items():
+        tol = max(2e-3 * float(want.abs().max()), 1e-5 * gmax)
+        torch.testing.assert_close(gg[k], want, atol=tol, rtol=0)
+        assert float((pg[k] - pc[k]).abs().max()) <= 2 * 2e-3 + 1e-6, k
+
+
+@pytest.mark.parametrize('policy', ['full', 'dots'])
+def test_remat_grads_on_card(cuda, policy):
+    """Remat on the card recomputes the same kernels: the loss and every
+    grad equal those without remat to 1e-5 of scale (f32)."""
+    plain = _small_ldm('ddpm', cuda)
+    remat = _small_ldm('ddpm', cuda, remat=True, remat_policy=policy)
+    batch, draws = _ldm_inputs('ddpm', cuda)
+    l0, g0 = _ldm_loss_and_grads(plain, batch, draws)
+    l1, g1 = _ldm_loss_and_grads(remat, batch, draws)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for k, want in g0.items():
+        torch.testing.assert_close(g1[k], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_euler_edm_sample_card_matches_cpu(cuda):
+    """``euler_edm_sample`` through a small DiT, 10 CFG steps from the same
+    start noise, card against CPU, f32: within 2e-3 of the sample's
+    scale."""
+    from ln3diff_tpu_torch.diffusion.edm import (DiscreteDenoiser,
+                                                 euler_edm_sample)
+    g = torch.Generator().manual_seed(6)
+    x_init = torch.randn((2, 8, 8, 12), generator=g)
+    cond = {'crossattn': torch.randn((2, 7, 32), generator=g)}
+    out = {}
+    for dev in ('cpu', cuda):
+        model = _small_ldm('edm', dev).model
+
+        def network(x, c_noise, c):
+            return model(x, c_noise.float(), c)
+
+        out[str(dev)] = euler_edm_sample(
+            DiscreteDenoiser(), network, x_init.shape,
+            {k: v.to(dev) for k, v in cond.items()},
+            {k: torch.zeros_like(v).to(dev) for k, v in cond.items()},
+            num_steps=10, cfg_scale=4.0, device=dev, x_init=x_init).cpu()
+    want = out['cpu']
+    assert torch.isfinite(out['cuda']).all()
+    torch.testing.assert_close(out['cuda'], want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
