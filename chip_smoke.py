@@ -68,7 +68,17 @@ from a fixed seed:
   matching, and the grads of a twin without remat; ``edm_sample``: the
   EDM Euler sampler through that DiT, 25 CFG steps;
   ``controlnet_train``: ``ControlNetTrainer`` over the U-Net-320, batch
-  2, 256² hints, with the U-Net frozen.
+  2, 256² hints, with the U-Net frozen;
+* ``lsgm_train``: the LSGM joint trainer (``LSGMTrainer``) of the
+  Objaverse VAE with the U-Net-320 (VPSDE p term, the q term through the
+  frozen U-Net, one AdamW and EMA over both trees), bf16 over f32
+  parameters, one instance; ``lsgm_checkpoint``: a train state through
+  ``CheckpointManager`` and back;
+* ``adv_vae_train``: the adversarial VAE trainer (``train/objaverse-vae``
+  with ``use_fused_osg=True``, LPIPS and a 32² StyleGAN discriminator with
+  R1): the generator step (kernels 1 and 2) and the discriminator step
+  (its re-render through kernel 1), then a step with the vision-aided
+  discriminator (CLIP ViT-B/32).
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -81,7 +91,10 @@ models card against CPU (``small_reference``, ``small_reference_i23d``;
 ``small_reference_unet``: the ShapeNet and FFHQ paths and the int8 U-Net;
 ``small_reference_fgbg``: a small fg/bg VAE) and a small training
 step card against CPU (``small_train_reference``;
-``small_ldm_train_reference``: a small DiT's step per objective), and
+``small_ldm_train_reference``: a small DiT's step per objective;
+``small_lsgm_train_reference``: a small LSGM joint step;
+``small_adv_train_reference``: a small adversarial VAE step, kernels 1
+and 2 on the card), and
 profiles a
 sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
 ``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
@@ -164,6 +177,16 @@ TOL_TRAIN_ROUTES = 1e-2
 # relative, each grad to TOL_LDM_TRAIN of its tensor's scale (floor 1e-5 of
 # the largest grad), the AdamW step as TOL_TRAIN's
 TOL_LDM_TRAIN = 2e-3
+# the small LSGM joint step, card vs CPU, f32: the loss and each metric to
+# TOL_LSGM_TRAIN relative, each grad to TOL_LSGM_TRAIN of its tensor's
+# scale (floor 1e-5 of the largest grad), the AdamW step as TOL_TRAIN's
+TOL_LSGM_TRAIN = 2e-3
+# the small adversarial VAE step (kernels 1 and 2 on the card, the plain
+# versions on the CPU), f32: the losses and the re-render to TOL_ADV_TRAIN
+# relative, the VAE's and the discriminators' grads to TOL_ADV_TRAIN of
+# scale (floor 1e-5 of the largest grad; R1 is a double backward through
+# the discriminator), the AdamW steps as TOL_TRAIN's
+TOL_ADV_TRAIN = 2e-3
 # the full-width DiT-L/2's grads with remat 'dots' against no remat, bf16
 # autocast: each to TOL_REMAT of its tensor's scale (floor 1e-5 of the
 # largest grad); the recomputation runs the forward's kernels again, so
@@ -2337,26 +2360,11 @@ def small_ldm_train_reference():
         lc, lg = out['cpu']['loss'], out['cuda']['loss']
         check(abs(lg - lc) <= TOL_LDM_TRAIN * abs(lc),
               f'{objective}: loss {lg} vs CPU {lc}')
-        gmax = max(float(v.abs().max()) for v in out['cpu']['grads'].values())
-        worst, worst_step = 0.0, 0.0
-        for k, want in out['cpu']['grads'].items():
-            got = out['cuda']['grads'][k]
-            tol = max(TOL_LDM_TRAIN * float(want.abs().max()), 1e-5 * gmax)
-            err = float((got - want).abs().max())
-            worst = max(worst, err / tol)
-            check(err <= tol, f'{objective}: grad of {k}: card vs CPU '
-                  f'max|Δ| {err} > {tol}')
-            perr = (out['cuda']['params'][k] - out['cpu']['params'][k]).abs()
-            check(float(perr.max()) <= 2 * kw['lr'] + 1e-6,
-                  f'{objective}: {k}: step off by more than 2·lr')
-            resolved = want.abs() >= 10 * tol
-            ptol = (1e-5 * float(out['cpu']['params'][k].abs().max())
-                    + 1e-2 * kw['lr'])
-            check(bool((perr[resolved] <= ptol).all()),
-                  f'{objective}: {k}: the AdamW step differs where the grad '
-                  f'is resolved')
-            if resolved.any():
-                worst_step = max(worst_step, float(perr[resolved].max()))
+        worst = _worst_grad(out['cuda']['grads'], out['cpu']['grads'],
+                            TOL_LDM_TRAIN, objective)
+        worst_step = _check_step(out['cuda']['params'], out['cpu']['params'],
+                                 out['cpu']['grads'], TOL_LDM_TRAIN,
+                                 kw['lr'], objective)
         res[objective] = dict(loss_cpu=lc, loss_cuda=lg,
                               loss_rel_err=abs(lg - lc) / abs(lc),
                               grad_err_in_units_of_tol=worst,
@@ -2609,6 +2617,530 @@ def edm_sample(model, steps=25):
                 abs_max=float(x.abs().max()))
 
 
+# -- the LSGM joint trainer and the adversarial VAE trainer ----------------
+
+def _small_lsgm(device, lsgm_kw, seed=3):
+    """A small ``LSGMTrainer`` (the small VAE of ``_train_cfgs`` and a
+    U-Net of 32 channels with the spatial transformer over a (7, 32)
+    context, roll-out, mixed prediction), f32, lr 2e-3, EMA 0.5."""
+    import torch
+    from ln3diff_tpu_torch.models.unet import UNetConfig, UNetModel
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.lsgm_trainer import (LSGMConfig,
+                                                         LSGMTrainConfig,
+                                                         LSGMTrainer)
+    model_cfg, _, _, opts = _train_cfgs(small=True)
+    with torch.device(device):
+        unet = UNetModel(UNetConfig(
+            in_channels=4, model_channels=32, out_channels=4,
+            num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+            num_heads=2, context_dim=32, use_spatial_transformer=True,
+            roll_out=True, mixed_prediction=True, dtype=torch.float32))
+    return LSGMTrainer(
+        model_cfg, unet, LSGMTrainConfig(lr=2e-3, ema_rate=0.5,
+                                         patch_resolution=16,
+                                         render_resolution=32,
+                                         log_interval=10**9),
+        LossConfig(lpips_lambda=0.0, l1_lambda=0.3), LSGMConfig(**lsgm_kw),
+        render_opts=opts, seed=seed, device=device)
+
+
+def _to(tree, device):
+    """Tensors (in tuples, NamedTuples, dicts and AugmentDraws) on
+    ``device``."""
+    import torch
+    from ln3diff_tpu_torch.training.augment import AugmentDraws
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, AugmentDraws):
+        return AugmentDraws({k: v.to(device) for k, v in tree.values.items()})
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if hasattr(tree, '_fields'):
+        return type(tree)(*(_to(v, device) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def _grads(module):
+    """{name: grad on the CPU} (zeros where None), then clears them."""
+    import torch
+    out = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+           .detach().cpu() for k, p in module.named_parameters()
+           if p.requires_grad}
+    module.zero_grad(set_to_none=True)
+    return out
+
+
+def _worst_grad(got, want, tol, what):
+    """max over tensors of max|Δ| / (tol·scale, floor 1e-5 of the largest
+    grad), in units of ``tol``; fails above 1."""
+    gmax = max(float(v.abs().max()) for v in want.values())
+    worst = 0.0
+    check(sorted(got) == sorted(want), f'{what}: other grad names')
+    for k, w in want.items():
+        bound = max(tol * float(w.abs().max()), 1e-5 * gmax)
+        err = float((got[k] - w).abs().max())
+        worst = max(worst, err / bound)
+        check(err <= bound, f'{what}: grad of {k}: card vs CPU max|Δ| '
+              f'{err} > {bound}')
+    return worst
+
+
+def _check_step(p_card, p_cpu, grads_cpu, tol, lr, what):
+    """After one AdamW step from the same weights: every weight within
+    2·lr, and within 1e-5 of scale plus 1e-2·lr where its grad is
+    resolved (10× the grad's bound); returns the largest resolved
+    difference."""
+    gmax = max(float(v.abs().max()) for v in grads_cpu.values())
+    worst = 0.0
+    for k, want in grads_cpu.items():
+        perr = (p_card[k] - p_cpu[k]).abs()
+        check(float(perr.max()) <= 2 * lr + 1e-6,
+              f'{what}: {k}: step off by more than 2·lr')
+        resolved = want.abs() >= 10 * max(tol * float(want.abs().max()),
+                                          1e-5 * gmax)
+        ptol = 1e-5 * float(p_cpu[k].abs().max()) + 1e-2 * lr
+        check(bool((perr[resolved] <= ptol).all()),
+              f'{what}: {k}: the AdamW step differs where the grad is '
+              f'resolved')
+        if resolved.any():
+            worst = max(worst, float(perr[resolved].max()))
+    return worst
+
+
+def small_lsgm_train_reference():
+    """One joint LSGM step (``_small_lsgm``) on the card and on the CPU
+    from the same weights (the U-Net redrawn off JAX's zero output conv,
+    its mixing logit at 0 so that the U-Net's share is one half), batch
+    and draws, under ``LSGMConfig()`` and ``p_rendering_loss=True``: the
+    loss, each metric, every grad and the step (``TOL_LSGM_TRAIN``).
+    Returns the results and the card's trainer of the default config for
+    ``lsgm_checkpoint``."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.lsgm_trainer import LSGMDraws
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    raw['context'] = np.random.default_rng(6).standard_normal(
+        (1, 7, 32)).astype(np.float32)
+    res, keep = {}, None
+    for case, kw in (('default', {}), ('p_rendering', dict(
+            p_rendering_loss=True))):
+        cpu = _small_lsgm('cpu', kw)
+        random_init_(cpu.denoiser, torch.Generator().manual_seed(7))
+        with torch.no_grad():
+            cpu.denoiser.mixing_logit.zero_()
+        card = _small_lsgm('cuda', kw)
+        card.joint.load_state_dict(cpu.joint.state_dict())
+        g = torch.Generator().manual_seed(4)
+        lat = (1, 16, 16, 12)
+        draws = LSGMDraws(torch.randn((1, 16, 16, 4, 3), generator=g),
+                          draw_uniforms(2, 16**2, cpu.render_opts, g, 'cpu'),
+                          torch.rand((1,), generator=g),
+                          torch.randn(lat, generator=g),
+                          torch.rand((1,), generator=g),
+                          torch.randn(lat, generator=g))
+        out = {}
+        for name, tr in (('cpu', cpu), ('cuda', card)):
+            d = _to(draws, tr.device)
+            batch = tr.prepare_batch(raw)
+            tr.build()
+            loss, metrics = tr.loss_fn(None, None, batch, d)
+            loss.backward()
+            out[name] = dict(loss=loss.item(), grads=_grads(tr.joint),
+                             metrics={k: float(v.detach()) for k, v in
+                                      metrics.items()})
+            tr.train_step(batch, draws=d)
+            out[name]['params'] = {k: p.detach().cpu() for k, p in
+                                   tr.state.params.items()}
+        lc, lg = out['cpu']['loss'], out['cuda']['loss']
+        check(abs(lg - lc) <= TOL_LSGM_TRAIN * abs(lc),
+              f'lsgm {case}: loss {lg} vs CPU {lc}')
+        for k, v in out['cpu']['metrics'].items():
+            w = out['cuda']['metrics'][k]
+            check(abs(w - v) <= TOL_LSGM_TRAIN * max(abs(v), 1e-3),
+                  f'lsgm {case}: {k} {w} vs CPU {v}')
+        worst = _worst_grad(out['cuda']['grads'], out['cpu']['grads'],
+                            TOL_LSGM_TRAIN, f'lsgm {case}')
+        step = _check_step(out['cuda']['params'], out['cpu']['params'],
+                           out['cpu']['grads'], TOL_LSGM_TRAIN, 2e-3,
+                           f'lsgm {case}')
+        unet_g = max(float(v.abs().max()) for k, v in
+                     out['cpu']['grads'].items() if k.startswith('ddpm.'))
+        check(unet_g > 0, f'lsgm {case}: the U-Net got no grad')
+        res[case] = dict(loss_cpu=lc, loss_cuda=lg,
+                         loss_rel_err=abs(lg - lc) / abs(lc),
+                         metrics_cuda=out['cuda']['metrics'],
+                         grad_err_in_units_of_tol=worst,
+                         max_step_err_resolved=step,
+                         tensors=len(out['cpu']['grads']))
+        if case == 'default':
+            keep = card
+    return res, keep
+
+
+def lsgm_checkpoint(trainer):
+    """The card's LSGM train state through ``CheckpointManager``: saved
+    at two steps (retention 1), restored into a second trainer drawn from
+    another seed; every parameter, EMA and AdamW moment tensor and the
+    step equal bit for bit."""
+    import torch
+    from ln3diff_tpu_torch.training.checkpoint import CheckpointManager
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, max_to_keep=1)
+        mgr.save(0, trainer.state)
+        t0 = time.perf_counter()
+        mgr.save(int(trainer.state.step), trainer.state)
+        save_s = time.perf_counter() - t0
+        check(mgr.all_steps() == [int(trainer.state.step)],
+              f'retention kept {mgr.all_steps()}')
+        nbytes = os.path.getsize(os.path.join(
+            d, str(mgr.latest_step()), 'state.pt'))
+        twin = _small_lsgm('cuda', {}, seed=11)
+        twin.init_state()
+        t0 = time.perf_counter()
+        mgr.restore(twin.state)
+        restore_s = time.perf_counter() - t0
+    a, b = trainer.state, twin.state
+    pairs = [(a.params, b.params)] + [
+        (a.ema_params[n], b.ema_params[n]) for n in a.ema_params] + [
+        (a.opt_state[m], b.opt_state[m]) for m in ('mu', 'nu')]
+    n = 0
+    for x, y in pairs:
+        for k, v in x.items():
+            check(y[k].device.type == 'cuda', f'{k} restored off the card')
+            check(torch.equal(v, y[k]), f'checkpoint: {k} differs')
+            n += 1
+    check(b.step == a.step and b.opt_state['count'] ==
+          a.opt_state['count'], 'checkpoint: step or count differs')
+    return dict(tensors=n, bytes=nbytes, save_s=save_s, restore_s=restore_s,
+                step=int(b.step))
+
+
+def lsgm_train(steps=3, warmup=2):
+    """The LSGM joint step at full width: ``vae_preset('objaverse')`` (bf16
+    over f32 parameters; 4 views of 256², patch 32 of a 128² render, 64+64
+    samples) with the U-Net-320 of ``scripts/vit_triplane_diffusion_
+    train.py`` (``UNetConfig(in_channels=4, out_channels=4,
+    model_channels=320)``: roll-out, mixed prediction, the spatial
+    transformer over a (77, 768) context; bf16 autocast), one instance,
+    ``LSGMConfig()``, one AdamW (lr 1e-4, clip 0.5) and EMA over both
+    trees; weights from seed 0 (the U-Net redrawn off JAX's zero output
+    conv).  ``warmup`` steps, then ``steps`` timed steps (host clock,
+    synchronised) and one profiled step; resident memory after the state
+    is built and the peak above it."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.config import RENDER_PRESETS, vae_preset
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.unet import UNetConfig, UNetModel
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.lsgm_trainer import (LSGMConfig,
+                                                         LSGMTrainConfig,
+                                                         LSGMTrainer)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with torch.device('cuda'):
+        unet = UNetModel(UNetConfig(in_channels=4, out_channels=4,
+                                    model_channels=320))
+    tr = LSGMTrainer(
+        vae_preset('objaverse'), unet,
+        LSGMTrainConfig(lr=1e-4, patch_resolution=32, render_resolution=128,
+                        log_interval=10**9),
+        LossConfig(depth_lambda=0.5, lpips_lambda=0.0), LSGMConfig(),
+        render_opts=RENDER_PRESETS[
+            'objverse_tuneray_aug_resolution_64_64_auto'],
+        seed=0, device='cuda')
+    random_init_(tr.denoiser, torch.Generator(device='cuda').manual_seed(1))
+    tr.generator = torch.Generator(device='cuda').manual_seed(2)
+    tr.build()
+    resident = torch.cuda.memory_allocated() - base
+    raw = make_multiview_batch(4, 256, 128, seed=0)
+    raw['context'] = np.random.default_rng(3).standard_normal(
+        (1, 77, 768)).astype(np.float32)
+    sums0 = {k: float(p.detach().double().abs().sum())
+             for k, p in tr.state.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(warmup + steps):
+        batch = tr.prepare_batch(raw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            secs.append(time.perf_counter() - t0)
+        losses.append(float(m['loss']))
+    peak = torch.cuda.max_memory_allocated() - base - resident
+    last = {k: float(v) for k, v in m.items()}
+    profile = _train_step_profile(tr, tr.prepare_batch(raw))
+    check(all(math.isfinite(x) for x in losses), f'lsgm losses {losses}')
+    moved = {'vae': 0, 'ddpm': 0}
+    for k, p in tr.state.params.items():
+        if float(p.detach().double().abs().sum()) != sums0[k]:
+            moved[k.split('.', 1)[0]] += 1
+    check(moved['vae'] > 0 and moved['ddpm'] > 0,
+          f'lsgm: tensors moved per tree {moved}')
+    n_vae = sum(p.numel() for p in tr.vae.parameters())
+    n_unet = sum(p.numel() for p in tr.denoiser.parameters())
+    res = dict(s_per_step=sum(secs) / len(secs), s_per_step_runs=secs,
+               losses=losses, last_metrics=last,
+               vae_params=n_vae, unet_params=n_unet,
+               tensors_moved=moved, tensors=len(sums0),
+               resident_gib=round(resident / 2**30, 3),
+               peak_above_resident_gib=round(peak / 2**30, 3),
+               profile=profile)
+    del tr, unet, batch, m
+    torch.cuda.empty_cache()
+    return res
+
+
+def _aug_draws(shape, g):
+    """``AugmentDraws`` of a ``bgc_config()`` call on ``shape`` from the
+    CPU generator ``g``."""
+    import torch
+    from ln3diff_tpu_torch.training.augment import (AugmentDraws,
+                                                    augment_draw_plan,
+                                                    bgc_config)
+    return AugmentDraws({
+        i: (torch.rand if kind == 'uniform' else torch.randn)(
+            shp, generator=g)
+        for i, kind, shp in augment_draw_plan(shape, bgc_config())})
+
+
+def small_adv_train_reference():
+    """The small VAE (``_train_cfgs``) with LPIPS in the loss and an
+    ``AdversarialHead`` (a 16² StyleGAN discriminator, R1 γ 1, ADA
+    ``bgc_config()`` at p = 0.6) on the card with ``use_fused_osg=True``
+    and on the CPU with the plain versions, from the same weights, batch
+    and draws, f32: the VAE step's loss and grads, then the discriminator
+    step's inputs (a re-render), loss and grads (R1's double backward,
+    the augmentation's draws given) and its AdamW step; then one step with
+    a ``VisionAidedHead`` (a toy CLIP tower): its VAE grads and the
+    heads' grads.  The card run must launch kernels 1 and 2 in the VAE
+    step and kernel 1 in the re-render; the CPU run none."""
+    import torch
+    from ln3diff_tpu_torch.conditioning.clip import CLIPVisionConfig
+    from ln3diff_tpu_torch.conditioning.lpips import make_lpips_fn
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.stylegan import DiscriminatorConfig
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.augment import bgc_config
+    from ln3diff_tpu_torch.training.gan import AdversarialHead, GANConfig
+    from ln3diff_tpu_torch.training.vae_trainer import TrainDraws, VAETrainer
+    from ln3diff_tpu_torch.training.vision_aided import (VisionAidedConfig,
+                                                         VisionAidedHead)
+    model_cfg, train_cfg, loss_cfg, opts = _train_cfgs(small=True)
+    loss_cfg = dataclasses.replace(loss_cfg, lpips_lambda=0.5)
+    gan_cfg = GANConfig(disc=DiscriminatorConfig(
+        img_resolution=16, base_channels=16, max_channels=64),
+        ada=bgc_config())
+    va_cfg = VisionAidedConfig(clip=CLIPVisionConfig(
+        hidden_size=64, num_layers=4, num_heads=2, intermediate_size=128,
+        patch_size=8, image_size=32), taps=(2, 4), head_width=16)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    g = torch.Generator().manual_seed(4)
+    shape = (2, 16, 16, 3)
+    draws = TrainDraws(torch.randn((1, 16, 16, 4, 3), generator=g),
+                       draw_uniforms(2, 16**2, opts, g, 'cpu'),
+                       _aug_draws(shape, g))
+    d_draws = (_aug_draws(shape, g), _aug_draws(shape, g))
+    nets, out = {}, {}
+    for name, fused in (('cpu', False), ('cuda', True)):
+        head = AdversarialHead(gan_cfg, seed=3, device=name)
+        head.ada_p = 0.6
+        lpips = make_lpips_fn(device=name, seed=3)
+        va = VisionAidedHead(va_cfg, seed=3, device=name)
+        tr = VAETrainer(model_cfg, dataclasses.replace(
+            train_cfg, use_fused_osg=fused), loss_cfg, render_opts=opts,
+            seed=3, lpips_fn=lpips, adversarial=head, device=name)
+        nets[name] = (tr.model, head.model, lpips.model, va.model)
+        if name == 'cpu':
+            # the CPU's initial weights (its step below changes them)
+            init = [{k: v.clone() for k, v in n.state_dict().items()}
+                    for n in nets['cpu']]
+        else:
+            for net, sd in zip(nets['cuda'], init):
+                net.load_state_dict(sd)
+        dev = tr.device
+        batch = tr.prepare_batch(raw)
+        o = out[name] = {}
+        FusedOSG.launches = FusedOSG.backward_launches = 0
+        loss, terms = tr.loss_fn(batch, draws=_to(draws, dev))
+        loss.backward()
+        o.update(loss=loss.item(), g_adv=float(terms['g_adv'].detach()),
+                 lpips=float(terms['lpips'].detach()),
+                 grads=_grads(tr.model))
+        check(all(p.grad is None for p in head.model.parameters()),
+              f'{name}: the generator term trained the discriminator')
+        tr.train_step(batch, draws=_to(draws, dev))
+        o['params'] = {k: p.detach().cpu() for k, p in
+                       tr.state.params.items()}
+        o['g_launches'] = (FusedOSG.launches, FusedOSG.backward_launches)
+        real, fake = tr._disc_inputs(batch)
+        o['d_launches'] = (FusedOSG.launches - o['g_launches'][0],
+                           FusedOSG.backward_launches - o['g_launches'][1])
+        o['fake'] = fake.cpu()
+        d_loss, d_m = head.d_loss(real, fake, _to(d_draws, dev))
+        d_loss.backward()
+        o.update(d_loss=d_loss.item(), r1=float(d_m['r1'].detach()),
+                 d_grads=_grads(head.model))
+        head.disc_step(real, fake, _to(d_draws, dev))
+        o['d_params'] = {k: p.detach().cpu() for k, p in
+                         head.state.params.items()}
+        tr.adversarial = va
+        loss, terms = tr.loss_fn(batch, draws=_to(draws._replace(adv=None),
+                                                  dev))
+        loss.backward()
+        o.update(va_loss=loss.item(), va_grads=_grads(tr.model))
+        v_loss, _ = va.d_loss(real, fake)
+        v_loss.backward()
+        o.update(va_d_loss=v_loss.item(), va_d_grads=_grads(va.model))
+    c, k = out['cpu'], out['cuda']
+    check(c['g_launches'] == (0, 0) and c['d_launches'] == (0, 0),
+          'the CPU run launched kernels')
+    check(k['g_launches'][0] > 0 and k['g_launches'][1] > 0,
+          f'the card VAE step launched {k["g_launches"]}')
+    check(k['d_launches'][0] > 0 and k['d_launches'][1] == 0,
+          f'the card re-render launched {k["d_launches"]}')
+    for key in ('loss', 'g_adv', 'lpips', 'd_loss', 'r1', 'va_loss',
+                'va_d_loss'):
+        check(abs(k[key] - c[key]) <= TOL_ADV_TRAIN * max(abs(c[key]), 1e-3),
+              f'adv {key}: card {k[key]} vs CPU {c[key]}')
+    fake_err = float((k['fake'] - c['fake']).abs().max())
+    check(fake_err <= TOL_ADV_TRAIN * max(1.0, float(c['fake'].abs().max())),
+          f'adv re-render: card vs CPU max|Δ| {fake_err}')
+    worst = {w: _worst_grad(k[w], c[w], TOL_ADV_TRAIN, f'adv {w}')
+             for w in ('grads', 'd_grads', 'va_grads', 'va_d_grads')}
+    step = _check_step(k['params'], c['params'], c['grads'], TOL_ADV_TRAIN,
+                       train_cfg.lr, 'adv VAE')
+    d_step = _check_step(k['d_params'], c['d_params'], c['d_grads'],
+                         TOL_ADV_TRAIN, gan_cfg.disc_lr, 'adv D')
+    return dict(
+        {f'{key}_cpu': c[key] for key in ('loss', 'g_adv', 'd_loss', 'r1',
+                                          'va_loss', 'va_d_loss')},
+        **{f'{key}_cuda': k[key] for key in ('loss', 'g_adv', 'd_loss', 'r1',
+                                             'va_loss', 'va_d_loss')},
+        grad_err_in_units_of_tol=worst, max_step_err_resolved=step,
+        max_d_step_err_resolved=d_step, rerender_max_abs_err=fake_err,
+        vae_step_launches=dict(fused_osg=k['g_launches'][0],
+                               fused_osg_bwd=k['g_launches'][1]),
+        rerender_launches=dict(fused_osg=k['d_launches'][0],
+                               fused_osg_bwd=k['d_launches'][1]))
+
+
+def adv_vae_train(steps=3, warmup=2):
+    """The adversarial VAE trainer at full width: ``train/objaverse-vae``
+    (``_train_cfgs``'s VAE, render options and trainer settings) with
+    ``use_fused_osg=True``, ``LossConfig()`` and ``make_lpips_fn()`` (a
+    random VGG16) as ``lpips_fn``, and
+    ``AdversarialHead(GANConfig(disc=DiscriminatorConfig(img_resolution=
+    32)))`` as ``scripts/vit_triplane_cvD_train.py`` builds it; weights
+    from seed 0.  ``warmup`` steps, then ``steps`` timed steps, each the
+    VAE (generator) step and the discriminator step (host clock,
+    synchronised apart), with the launches of kernels 1 and 2 per step;
+    peak memory above what was resident before the phase.  Then one step
+    with a ``VisionAidedHead`` (CLIP ViT-B/32 at 224², f32)."""
+    import torch
+    from ln3diff_tpu_torch.conditioning.lpips import make_lpips_fn
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.stylegan import DiscriminatorConfig
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.training.gan import AdversarialHead, GANConfig
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+    from ln3diff_tpu_torch.training.vision_aided import (VisionAidedConfig,
+                                                         VisionAidedHead)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model_cfg, train_cfg, _, opts = _train_cfgs(small=False)
+    head = AdversarialHead(GANConfig(disc=DiscriminatorConfig(
+        img_resolution=32)), seed=0, device='cuda')
+    tr = VAETrainer(model_cfg, dataclasses.replace(
+        train_cfg, use_fused_osg=True), LossConfig(), render_opts=opts,
+        seed=0, lpips_fn=make_lpips_fn(), adversarial=head, device='cuda')
+    raw = make_multiview_batch(4, 256, 128, seed=0)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    g_secs, d_secs, losses, d_losses, launches = [], [], [], [], []
+    for i in range(warmup + steps):
+        batch = tr.prepare_batch(raw)
+        batch['step'] = float(i)
+        n0 = (FusedOSG.launches, FusedOSG.backward_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n1 = (FusedOSG.launches, FusedOSG.backward_launches)
+        d = tr._disc_step(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n2 = (FusedOSG.launches, FusedOSG.backward_launches)
+        losses.append(float(m['loss']))
+        d_losses.append(float(d['d_total']))
+        if i >= warmup:
+            g_secs.append(t1 - t0)
+            d_secs.append(t2 - t1)
+            launches.append(dict(
+                generator_step=[n1[0] - n0[0], n1[1] - n0[1]],
+                disc_step=[n2[0] - n1[0], n2[1] - n1[1]]))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(x) for x in losses + d_losses),
+          f'adv losses {losses} {d_losses}')
+    check(all(x['generator_step'][0] > 0 and x['generator_step'][1] > 0
+              and x['disc_step'][0] > 0 and x['disc_step'][1] == 0
+              for x in launches), f'adv launches {launches}')
+    check(math.isfinite(float(m['g_adv'])) and float(m['lpips']) > 0,
+          'adv: no generator term or no LPIPS term')
+    res = dict(generator_s_per_step=sum(g_secs) / len(g_secs),
+               disc_s_per_step=sum(d_secs) / len(d_secs),
+               generator_s_runs=g_secs, disc_s_runs=d_secs,
+               losses=losses, d_total=d_losses,
+               g_adv=float(m['g_adv']), lpips=float(m['lpips']),
+               r1=float(d['r1']), launches_per_step=launches[-1],
+               fused_osg_launches=sum(x['generator_step'][0]
+                                      + x['disc_step'][0] for x in launches),
+               fused_osg_backward_launches=sum(x['generator_step'][1]
+                                               for x in launches),
+               disc_params=sum(p.numel() for p in head.model.parameters()),
+               peak_mem_gib=round(peak / 2**30, 3))
+    # one step with the vision-aided head (CLIP ViT-B/32)
+    va = VisionAidedHead(VisionAidedConfig(), seed=0, device='cuda')
+    tr.adversarial = va
+    batch = tr.prepare_batch(raw)
+    batch['step'] = float(warmup + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = tr.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d = tr._disc_step(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(math.isfinite(float(m['loss'])) and math.isfinite(
+        float(d['d_loss'])), 'vision-aided step not finite')
+    res['vision_aided'] = dict(
+        generator_s=t1 - t0, disc_s=t2 - t1, loss=float(m['loss']),
+        g_adv=float(m['g_adv']), d_loss=float(d['d_loss']),
+        trainable_params=sum(p.numel() for p in va.state.params.values()),
+        frozen_params=sum(p.numel() for p in va.model.parameters()
+                          if not p.requires_grad),
+        peak_mem_gib=round((torch.cuda.max_memory_allocated() - base)
+                           / 2**30, 3))
+    del tr, head, va, batch, m, d
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -2849,6 +3381,27 @@ def main():
     cldm = controlnet_train()
     phase_done('controlnet_train', t0, **cldm)
 
+    # 16. the LSGM joint trainer: a small joint step card vs CPU (two
+    # configs), the checkpoint round trip of its state, the full-width
+    # step; the adversarial VAE trainer: a small step card vs CPU (kernels
+    # 1 and 2 on the card), the full-width steps
+    t0 = time.perf_counter()
+    small_lsgm, small_lsgm_trainer = small_lsgm_train_reference()
+    phase_done('small_lsgm_train_reference', t0, **small_lsgm)
+    t0 = time.perf_counter()
+    ckpt = lsgm_checkpoint(small_lsgm_trainer)
+    del small_lsgm_trainer
+    phase_done('lsgm_checkpoint', t0, **ckpt)
+    t0 = time.perf_counter()
+    lsgm = lsgm_train()
+    phase_done('lsgm_train', t0, **lsgm)
+    t0 = time.perf_counter()
+    small_adv = small_adv_train_reference()
+    phase_done('small_adv_train_reference', t0, **small_adv)
+    t0 = time.perf_counter()
+    adv = adv_vae_train()
+    phase_done('adv_vae_train', t0, **adv)
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
     osg_fgbg = next(c for c in checks if c['case'] == 'fgbg_frame')
@@ -2869,6 +3422,7 @@ def main():
     attn_by_path = {k: r['fused_attention_launches']
                     for k, r in calls.items()}
     osg_by_path['ffhq_fgbg_render'] = fgbg['kernel_1']['fused_osg_launches']
+    osg_by_path['adv_vae_train'] = adv['fused_osg_launches']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
@@ -2908,6 +3462,9 @@ def main():
              source='ln3diff_tpu_torch/ops/csrc/fused_osg_bwd.cu',
              replaces='ln3diff_tpu/ops/fused_render.py:219',
              launches=train['fused']['fused_osg_backward_launches'],
+             launches_by_path={
+                 'vae_train': train['fused']['fused_osg_backward_launches'],
+                 'adv_vae_train': adv['fused_osg_backward_launches']},
              max_abs_err=max(e for c in bwd_checks
                              for e in c['max_abs_err'].values()),
              ms=bwd_main['ms'], device_ms=bwd_main['device_ms'],

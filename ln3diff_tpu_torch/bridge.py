@@ -37,7 +37,10 @@ Every map is linear (transposes, splits and renames only), so it also
 carries a JAX grad tree (``jax.grad`` of a trainer's loss) onto the port's
 parameter names: ``dit_state_dict`` for the LDM trainer (a
 ``learn_sigma`` head is a wider final ``linear``), ``vae_state_dict`` for
-the VAE trainer and ``controlnet_state_dict`` for the ControlNet trainer.
+the VAE trainer, ``controlnet_state_dict`` for the ControlNet trainer,
+``lsgm_state_dict`` for the LSGM trainer's joint tree and
+``discriminator_state_dict`` / ``vision_aided_state_dict`` for the
+adversarial heads.
 """
 
 from __future__ import annotations
@@ -141,6 +144,17 @@ def unet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 controlnet_state_dict = confnet_state_dict = unet_state_dict
 
 
+def lsgm_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """The LSGM trainer's joint ``{'vae': ..., 'ddpm': ...}`` tree (its
+    params, EMA or grads) → the names of ``LSGMTrainer.joint``:
+    ``vae.*`` through ``vae_state_dict`` and ``ddpm.*`` through
+    ``unet_state_dict``."""
+    out = {f'vae.{k}': v for k, v in vae_state_dict(params['vae']).items()}
+    out.update({f'ddpm.{k}': v
+                for k, v in unet_state_dict(params['ddpm']).items()})
+    return out
+
+
 def clip_text_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """``CLIPTextModel`` params → the port's state dict."""
     out = {}
@@ -151,3 +165,30 @@ def clip_text_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 # CLIPVisionModel's layers are named as the text tower's
 clip_vision_state_dict = clip_text_state_dict
+
+# the adversarial trainer's networks keep the JAX names: the StyleGAN and
+# dual discriminators (``d.*``) and LPIPS (``vgg.conv{i}``, the heads
+# ``lin{i}`` in their (1, 1, 1, C) shape) map leaf by leaf
+discriminator_state_dict = lpips_state_dict = unet_state_dict
+
+
+def mapping_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """``MappingNetwork`` variables → the port's state dict: the params
+    and the 'stats' collection's ``w_avg`` as the buffer of that name."""
+    out = _convert(variables['params'], {})
+    out['w_avg'] = torch.from_numpy(np.array(
+        variables['stats']['w_avg'], np.float32))
+    return out
+
+
+def vision_aided_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """``VisionAidedDiscriminator`` params → the port's state dict: the
+    CLIP backbone through ``clip_vision_state_dict``, the level heads,
+    ``cls_fc`` and ``head_cls`` leaf by leaf."""
+    if 'params' in params:
+        params = params['params']
+    out = {f'backbone.{k}': v for k, v in
+           clip_vision_state_dict(params['backbone']).items()}
+    out.update(_convert({k: v for k, v in params.items()
+                         if k != 'backbone'}, {}))
+    return out

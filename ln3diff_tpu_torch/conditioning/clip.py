@@ -151,11 +151,16 @@ def pooled_text_context(pooled: torch.Tensor, n_repeat: int = 1,
 
 
 class CLIPVisionModel(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig()):
+    """``in_channels``: 3, or 6 for the vision-aided discriminator's SR
+    variant (rgb + raw)."""
+
+    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig(),
+                 in_channels: int = 3):
         super().__init__()
         self.cfg = cfg
         D, p = cfg.hidden_size, cfg.patch_size
-        self.patch_embedding = nn.Conv2d(3, D, p, stride=p, bias=False)
+        self.patch_embedding = nn.Conv2d(in_channels, D, p, stride=p,
+                                         bias=False)
         self.class_embedding = nn.Parameter(torch.randn(D) * 0.02)
         n_pos = (cfg.image_size // p)**2 + 1
         self.position_embedding = nn.Parameter(torch.randn(n_pos, D) * 0.02)

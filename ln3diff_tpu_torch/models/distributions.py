@@ -8,9 +8,12 @@ channels-last moments; mean and logvar are the caller's split.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def soft_clamp20(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +51,22 @@ class DiagonalGaussian(NamedTuple):
         dims = tuple(range(1, self.mean.ndim))
         return 0.5 * torch.sum(
             torch.square(self.mean) + self.var - 1.0 - self.logvar, dim=dims)
+
+    def log_p(self, samples: torch.Tensor) -> torch.Tensor:
+        """Elementwise log-density surrogate of the reference's ``log_p``:
+        it divides by var, not std, and subtracts logvar, not ½·logvar
+        (kept as the reference and the JAX package have it)."""
+        normalized = (samples - self.mean) / self.var
+        return -0.5 * normalized * normalized - 0.5 * _LOG_2PI - self.logvar
+
+    def normal_entropy(self) -> torch.Tensor:
+        return self.logvar + 0.5 * (_LOG_2PI + 1.0)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(1, self.mean.ndim))
+        return 0.5 * torch.sum(
+            _LOG_2PI + self.logvar
+            + torch.square(sample - self.mean) / self.var, dim=dims)
 
 
 def make_gaussian(moments_mean: torch.Tensor, moments_logvar: torch.Tensor,

@@ -10,14 +10,18 @@ reference ``nsr/superresolution.py:181-446``), ``filtered_lrelu`` :450 and
 ``PixelUnshuffleUpsample`` :474.  The functions take NCHW tensors and OIHW
 weights (PyTorch's conv layout); the heads take and return channels-last
 images, as the JAX modules do, and the StyleGAN heads compute in f32
-whatever the caller's dtype.  The discriminators and the mapping network
-(only the adversarial trainer calls them) are not ported.
+whatever the caller's dtype.  For the adversarial VAE trainer:
+``filtered_resizing`` :93, ``MappingNetwork`` :321 (``w_avg`` a buffer,
+truncation), ``minibatch_stddev`` :378, ``DiscriminatorConfig`` :392,
+``StyleGANDiscriminator`` :400 and ``DualDiscriminator`` :434 (these take
+channels-last images, as the JAX modules do).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -30,11 +34,17 @@ W_DIM = 512          # the w latent's width
 CONV_CLAMP = 256.0   # the released head's conv_clamp
 
 
-def setup_filter(device=None) -> torch.Tensor:
-    """The released head's 2-D FIR filter: the outer product of the taps
-    [1, 3, 3, 1], normalised to sum 1, f32."""
-    f = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32)
-    return torch.as_tensor(f / f.sum(), device=device)
+def setup_filter(f=(1, 3, 3, 1), normalize: bool = True,
+                 device=None) -> torch.Tensor:
+    """A 2-D FIR filter, f32: 1-D taps become their outer product
+    (computed in f32, as the JAX function does), optionally normalised to
+    sum 1.  The default is the released heads' [1, 3, 3, 1] filter."""
+    f = np.asarray(f, np.float32)
+    if f.ndim == 1:
+        f = np.outer(f, f)
+    if normalize:
+        f = f / f.sum()
+    return torch.as_tensor(f, device=device)
 
 
 def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
@@ -53,24 +63,40 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
     return x[:, :, ::down, ::down] if down > 1 else x
 
 
-def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2
-               ) -> torch.Tensor:
+def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2,
+               gain: float = 1.0) -> torch.Tensor:
     """FIR upsampling by ``up`` with the padding that keeps the (up·H,
     up·W) size."""
     fh, fw = f.shape
     p = ((fw + up - 1) // 2, (fw - up) // 2, (fh + up - 1) // 2,
          (fh - up) // 2)
-    return upfirdn2d(x, f, up=up, padding=p)
+    return upfirdn2d(x, f, up=up, padding=p, gain=gain)
 
 
-def downsample2d(x: torch.Tensor, f: torch.Tensor, down: int = 2
-                 ) -> torch.Tensor:
+def downsample2d(x: torch.Tensor, f: torch.Tensor, down: int = 2,
+                 gain: float = 1.0) -> torch.Tensor:
     """FIR downsampling by ``down`` with the padding that gives the (H /
     down, W / down) size."""
     fh, fw = f.shape
     p = ((fw - down + 1) // 2, (fw - down) // 2, (fh - down + 1) // 2,
          (fh - down) // 2)
-    return upfirdn2d(x, f, down=down, padding=p)
+    return upfirdn2d(x, f, down=down, padding=p, gain=gain)
+
+
+def filtered_resizing(img: torch.Tensor, size: int, f: torch.Tensor
+                      ) -> torch.Tensor:
+    """Antialiased resize of NCHW ``img`` to ``size``² (reference
+    ``dual_discriminator.py``): FIR up- or downsampling by an integer
+    ratio, else the antialiased bilinear resize of ``jax.image.resize``."""
+    H = img.shape[2]
+    if size == H:
+        return img
+    if size > H and size % H == 0:
+        return upsample2d(img, f, up=size // H)
+    if size < H and H % size == 0:
+        return downsample2d(img, f, down=H // size)
+    return F.interpolate(img, size=(size, size), mode='bilinear',
+                         align_corners=False, antialias=True)
 
 
 def filtered_lrelu(x: torch.Tensor, fu: Optional[torch.Tensor] = None,
@@ -338,3 +364,150 @@ class PixelUnshuffleUpsample(nn.Module):
             x = x.permute(0, 3, 4, 1, 5, 2).reshape(B, self.num_feat, 2 * H,
                                                     2 * W)
         return self.conv_last(x).permute(0, 2, 3, 1)
+
+
+class MappingNetwork(nn.Module):
+    """z (and an optional label c) → w latents (reference
+    ``nsr/networks_stylegan2.py:246-334``): second-moment-normalised
+    inputs, ``num_layers`` equalized-lr FCs at ``lr_multiplier`` with
+    leaky ReLU (0.2) × √2, broadcast to ``num_ws``.  ``w_avg`` (the JAX
+    module's 'stats' collection) is a buffer: ``update_emas`` moves it
+    toward the batch's mean w before the truncation reads it."""
+
+    def __init__(self, z_dim: int = 512, c_dim: int = 0, w_dim: int = 512,
+                 num_ws: Optional[int] = 14, num_layers: int = 8,
+                 lr_multiplier: float = 0.01, w_avg_beta: float = 0.998):
+        super().__init__()
+        self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
+        self.num_ws, self.num_layers = num_ws, num_layers
+        self.w_avg_beta = w_avg_beta
+        if c_dim > 0:
+            self.embed = EqualDense(c_dim, w_dim)
+        cin = (z_dim if z_dim > 0 else 0) + (w_dim if c_dim > 0 else 0)
+        for i in range(num_layers):
+            self.add_module(f'fc{i}', EqualDense(cin if i == 0 else w_dim,
+                                                 w_dim, lr_multiplier))
+        self.register_buffer('w_avg', torch.zeros(w_dim))
+
+    def forward(self, z, c=None, truncation_psi: float = 1.0,
+                truncation_cutoff: Optional[int] = None,
+                update_emas: bool = False):
+        def norm2(v):
+            return v * torch.rsqrt(v.square().mean(-1, keepdim=True) + 1e-8)
+
+        parts = []
+        if self.z_dim > 0:
+            parts.append(norm2(z.float()))
+        if self.c_dim > 0:
+            parts.append(norm2(self.embed(c.float())))
+        x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+        for i in range(self.num_layers):
+            x = F.leaky_relu(getattr(self, f'fc{i}')(x), 0.2) * math.sqrt(2)
+        if update_emas:
+            with torch.no_grad():
+                mean = x.detach().mean(0)
+                self.w_avg.copy_(mean + self.w_avg_beta
+                                 * (self.w_avg - mean))
+        if self.num_ws is not None:
+            x = x[:, None].expand(x.shape[0], self.num_ws, self.w_dim)
+        if truncation_psi != 1.0:
+            w_avg = self.w_avg
+            if self.num_ws is None or truncation_cutoff is None:
+                x = w_avg + truncation_psi * (x - w_avg)
+            else:
+                head = w_avg + truncation_psi * (
+                    x[:, :truncation_cutoff] - w_avg)
+                x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
+        return x
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4) -> torch.Tensor:
+    """One channel more on NCHW ``x``: the std over each group of samples
+    (the largest size ≤ ``group_size`` dividing B; sample b in group
+    member b // (B/g)), averaged over C, H and W."""
+    B, C, H, W = x.shape
+    g = min(group_size, B)
+    while B % g:
+        g -= 1
+    y = x.reshape(g, B // g, C, H, W)
+    y = y - y.mean(dim=0, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
+    y = y.mean(dim=(1, 2, 3), keepdim=True)             # (B//g, 1, 1, 1)
+    y = y.repeat(g, 1, H, W)
+    return torch.cat([x, y], dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    img_resolution: int = 128
+    img_channels: int = 3
+    base_channels: int = 64
+    max_channels: int = 512
+    dtype: Any = torch.float32
+
+
+class StyleGANDiscriminator(nn.Module):
+    """Residual conv discriminator with minibatch stddev (reference
+    ``nsr/dual_discriminator.py``, ``nsr/losses/disc.py``): a 1x1
+    ``from_rgb``, log2(res) − 2 blocks (a FIR-downsampled 1x1 skip, a 3x3
+    conv, a stride-2 3x3 conv, (lrelu + skip)/√2), the stddev channel, a
+    3x3 conv and two dense layers.  Images (B, H, W, C) channels-last →
+    logits (B, 1), computed under autocast to ``cfg.dtype`` over f32
+    parameters.  The stride-2 convs pad (0, 1) as 'SAME' does on an even
+    input, not (1, 1)."""
+
+    def __init__(self, cfg: DiscriminatorConfig = DiscriminatorConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.n_down = int(math.log2(cfg.img_resolution)) - 2
+        ch = cfg.base_channels
+        self.from_rgb = nn.Conv2d(cfg.img_channels, ch, 1)
+        for i in range(self.n_down):
+            cout = min(ch * 2, cfg.max_channels)
+            self.add_module(f'skip_{i}', nn.Conv2d(ch, cout, 1, bias=False))
+            self.add_module(f'conv0_{i}', nn.Conv2d(ch, ch, 3, padding=1))
+            self.add_module(f'conv1_{i}', nn.Conv2d(ch, cout, 3, stride=2))
+            ch = cout
+        self.final_conv = nn.Conv2d(ch + 1, ch, 3, padding=1)
+        side = cfg.img_resolution >> self.n_down
+        self.fc = nn.Linear(ch * side * side, ch)
+        self.out = nn.Linear(ch, 1)
+        self.register_buffer('fir', setup_filter(), persistent=False)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        with torch.autocast(img.device.type, dtype=dt,
+                            enabled=dt != torch.float32):
+            x = img.permute(0, 3, 1, 2).to(self.from_rgb.weight.dtype)
+            x = F.leaky_relu(self.from_rgb(x), 0.2)
+            for i in range(self.n_down):
+                y = getattr(self, f'skip_{i}')(downsample2d(x, self.fir))
+                x = F.leaky_relu(getattr(self, f'conv0_{i}')(x), 0.2)
+                x = getattr(self, f'conv1_{i}')(F.pad(x, (0, 1, 0, 1)))
+                x = (F.leaky_relu(x, 0.2) + y) / math.sqrt(2)
+            x = minibatch_stddev(x)
+            x = F.leaky_relu(self.final_conv(x), 0.2)
+            # flatten in the channels-last order of the JAX module's fc
+            x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+            x = F.leaky_relu(self.fc(x), 0.2)
+            return self.out(x)
+
+
+class DualDiscriminator(nn.Module):
+    """EG3D dual discriminator (reference ``nsr/dual_discriminator.py:
+    22-180``): the raw render, filter-resized to the SR image's size, is
+    concatenated to the SR image (channels-last, SR first) for a
+    ``StyleGANDiscriminator`` of twice the channels, ``d``."""
+
+    def __init__(self, cfg: DiscriminatorConfig = DiscriminatorConfig()):
+        super().__init__()
+        self.d = StyleGANDiscriminator(dataclasses.replace(
+            cfg, img_channels=2 * cfg.img_channels))
+        self.register_buffer('fir', setup_filter(), persistent=False)
+
+    def forward(self, img_sr: torch.Tensor, img_raw: torch.Tensor
+                ) -> torch.Tensor:
+        raw = filtered_resizing(img_raw.permute(0, 3, 1, 2).float(),
+                                img_sr.shape[1], self.fir)
+        x = torch.cat([img_sr.float(), raw.permute(0, 2, 3, 1)], dim=-1)
+        return self.d(x)

@@ -5,7 +5,9 @@ Port of ``ln3diff_tpu/training/train_state.py``: ``make_optimizer`` :65
 rates and the warmup-cosine schedule), the EMA of ``apply_gradients``
 :38-52, the frozen ``constants`` of the train state and the generic step
 ``build_train_step`` :107-195 on one device (microbatch gradient
-averaging, the ``per_sample*`` metrics flattened in draw order).
+averaging, the ``per_sample*`` metrics flattened in draw order), and
+``frozen_apply``, a module run on detached parameters (the frozen prior
+of the LSGM q term, the discriminator in a generator term).
 Written out with optax's arithmetic rather than taken from ``torch.optim``,
 so that one step matches the JAX trainer's:
 
@@ -28,6 +30,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 
 def warmup_cosine(base_lr: float, warmup_steps: int = 0,
@@ -191,6 +194,13 @@ class TrainState:
         for name, rate in self.ema_rates:
             update_ema(self.ema_params[name], self.params, rate)
         self.step += 1
+
+
+def frozen_apply(model: torch.nn.Module, *args):
+    """``model(*args)`` with its parameters detached: grads reach the
+    inputs, not the parameters."""
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    return functional_call(model, params, args)
 
 
 def _tree_map(fn, tree):

@@ -20,8 +20,19 @@ Randomness: the patch origins come from ``numpy.random.default_rng([seed,
 0])``, the host RNG of the JAX trainer on process 0, so both crop the same
 windows; the posterior's ε and the render's uniform draws come from a
 ``torch.Generator`` or are passed in (:class:`TrainDraws`, so that a test
-can feed JAX's).  Not ported yet: the data-parallel mesh, the adversarial
-head, the preemption guard and the logger (metrics are printed).
+can feed JAX's).
+
+``adversarial=``: an ``AdversarialHead`` (``training/gan.py``) or a
+``VisionAidedHead`` (``training/vision_aided.py``).  The generator term
+``g_adv`` on the rendered patches (JAX :196-199) joins the loss; after
+each step ``_disc_step`` (:211) encodes the batch again with the updated
+parameters (the posterior's mean), renders the input views
+deterministically without grad (through kernel 1 under
+``use_fused_osg``) and trains the discriminator on (real crops, those
+renders).  The generator term reads the live discriminator, ADA strength
+and draw; the JAX trainer reads the ones of its first trace
+(``ROADMAP.md`` §3).  Not ported yet: the data-parallel mesh and the
+logger (metrics go to ``log``).
 """
 
 from __future__ import annotations
@@ -65,10 +76,13 @@ class VAETrainConfig:
 
 class TrainDraws(NamedTuple):
     """The random draws of one loss evaluation: the posterior's ε ``(B, h,
-    w, z, 3)`` and the render's uniforms, used for every supervised
-    source."""
+    w, z, 3)``, the render's uniforms, used for every supervised source,
+    and with an ``AdversarialHead`` under ADA the generator term's
+    augmentation draws (``augment.AugmentDraws``; None: the head's
+    generator)."""
     eps: torch.Tensor
     render: RenderDraws
+    adv: Optional[object] = None
 
 
 def _crop(img: torch.Tensor, h0, w0, size: int) -> torch.Tensor:
@@ -84,6 +98,79 @@ def _crop(img: torch.Tensor, h0, w0, size: int) -> torch.Tensor:
     return torch.stack(crops)
 
 
+def crop_targets(batch: dict, prefix: str, size: int) -> dict:
+    """The ``{prefix}`` views' image, depth and depth-mask crops at their
+    patch origins: the targets of ``render_patches``."""
+    h0, w0 = batch[f'{prefix}patch_h'], batch[f'{prefix}patch_w']
+    return {'img': _crop(batch[f'{prefix}img'], h0, w0, size),
+            'depth': _crop(batch[f'{prefix}depth'][..., None], h0, w0, size),
+            'depth_mask': _crop(batch[f'{prefix}depth_mask'][..., None],
+                                h0, w0, size)}
+
+
+def render_patches(model: TriplaneVAE, planes: torch.Tensor, batch: dict,
+                   prefix: str, opts: RenderOptions, patch: int,
+                   render_resolution: int, use_fused_osg: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[RenderDraws] = None) -> dict:
+    """Render each instance's ``planes`` as ``patch²`` patches of its
+    ``{prefix}c`` views (an instance's views are adjacent) at the batch's
+    patch origins in a ``render_resolution²`` image."""
+    cams = batch[f'{prefix}c']
+    h0, w0 = batch[f'{prefix}patch_h'], batch[f'{prefix}patch_w']
+    cam2world, intrinsics = unpack_25d_camera(cams)
+    ray_o, ray_d = sample_patch_rays(
+        cam2world, intrinsics, h0.to(cams.device), w0.to(cams.device),
+        patch, render_resolution)
+    planes_v = planes.repeat_interleave(cams.shape[0] // planes.shape[0],
+                                        dim=0)
+    return model.render(planes_v, None, opts, patch,
+                        use_fused_osg=use_fused_osg, ray_origins=ray_o,
+                        ray_directions=ray_d, generator=generator,
+                        draws=draws)
+
+
+def prepare_patch_batch(raw: dict, rng: np.random.Generator, device,
+                        patch_resolution: int, render_resolution: int,
+                        keys: tuple, bbox_scale: float = 1.0) -> dict:
+    """The ``keys`` of ``raw`` on the device, with foreground-biased patch
+    origins (host RNG, int32 on the host) for the input views and, when
+    ``nv_c`` is kept, the paired nv_* views.  A bbox is scaled by
+    ``bbox_scale`` into render-resolution coords."""
+    out = {k: torch.as_tensor(np.asarray(v), device=device)
+           for k, v in raw.items() if k in keys}
+    for prefix in ('', 'nv_'):
+        if f'{prefix}c' not in out:
+            continue
+        bbox = raw.get(f'{prefix}bbox')
+        if bbox is not None:
+            bbox = (np.asarray(bbox) * bbox_scale).astype(np.int32)
+        h0, w0 = sample_patch_origins(rng, out[f'{prefix}c'].shape[0],
+                                      patch_resolution, render_resolution,
+                                      bbox)
+        out[f'{prefix}patch_h'] = torch.from_numpy(h0)
+        out[f'{prefix}patch_w'] = torch.from_numpy(w0)
+    return out
+
+
+def train_loop(step_fn: Callable, data: Iterator[dict], num_steps: int,
+               log_interval: int, step_offset: int, log: Callable,
+               guard=None):
+    """``num_steps`` calls of ``step_fn(raw batch, step index) ->
+    metrics`` over ``data``; every ``log_interval`` steps the metrics go to
+    ``log`` as a dict of floats.  A ``guard`` (anything with
+    ``should_stop()``, such as ``preemption.PreemptionGuard``) stops the
+    loop at the next step boundary."""
+    for i in range(num_steps):
+        metrics = step_fn(next(data), step_offset + i)
+        step = step_offset + i + 1
+        if (i + 1) % log_interval == 0:
+            log(dict({k: float(v) for k, v in metrics.items()}, step=step))
+        if guard is not None and guard.should_stop():
+            log({'stopped_after_step': step})
+            break
+
+
 class VAETrainer:
     """Owns the model, the train state and the step; drives the loop
     (reference ``run_loop``).  Weights are random, from
@@ -97,7 +184,7 @@ class VAETrainer:
                  loss_cfg: LossConfig = LossConfig(),
                  render_opts: Optional[RenderOptions] = None,
                  seed: int = 0, lpips_fn: Optional[Callable] = None,
-                 device='cuda'):
+                 adversarial=None, device='cuda'):
         from ..models.layers import random_init_, zero_init_like_jax
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -116,6 +203,7 @@ class VAETrainer:
         # process 0
         self.rng = np.random.default_rng([int(seed), 0])
         self.lpips_fn = lpips_fn
+        self.adversarial = adversarial
         self.state: Optional[TrainState] = None
 
     # -- state -------------------------------------------------------------
@@ -143,7 +231,6 @@ class VAETrainer:
         render's draws come from ``draws`` or from ``generator``."""
         cfg = self.cfg
         model = self.model
-        opts = self.render_opts
         patch = cfg.patch_resolution
 
         with self._autocast():
@@ -152,7 +239,6 @@ class VAETrainer:
                 moments, True, eps=None if draws is None else draws.eps,
                 generator=generator)
             planes = model.decode_latent(latent)
-        B = planes.shape[0]
 
         use_nv = 'nv_c' in batch and cfg.supervise_views != 'input'
         sources = []
@@ -161,34 +247,47 @@ class VAETrainer:
         if not use_nv or cfg.supervise_views == 'both':
             sources.append('')
 
-        preds, targets = [], []
-        for prefix in sources:
-            cams = batch[f'{prefix}c']
-            h0 = batch[f'{prefix}patch_h']
-            w0 = batch[f'{prefix}patch_w']
-            n = cams.shape[0] // B
-            planes_v = planes.repeat_interleave(n, dim=0)
-            cam2world, intrinsics = unpack_25d_camera(cams)
-            ray_o, ray_d = sample_patch_rays(
-                cam2world, intrinsics, h0.to(cams.device),
-                w0.to(cams.device), patch, cfg.render_resolution)
-            preds.append(model.render(
-                planes_v, None, opts, patch,
-                use_fused_osg=cfg.use_fused_osg, ray_origins=ray_o,
-                ray_directions=ray_d, generator=generator,
-                draws=None if draws is None else draws.render))
-            targets.append({
-                'img': _crop(batch[f'{prefix}img'], h0, w0, patch),
-                'depth': _crop(batch[f'{prefix}depth'][..., None], h0, w0,
-                               patch),
-                'depth_mask': _crop(batch[f'{prefix}depth_mask'][..., None],
-                                    h0, w0, patch),
-            })
+        preds = [render_patches(
+            model, planes, batch, prefix, self.render_opts, patch,
+            cfg.render_resolution, use_fused_osg=cfg.use_fused_osg,
+            generator=generator,
+            draws=None if draws is None else draws.render)
+            for prefix in sources]
+        targets = [crop_targets(batch, prefix, patch) for prefix in sources]
         pred = {k: torch.cat([p[k] for p in preds]) for k in preds[0]}
         target = {k: torch.cat([t[k] for t in targets]) for k in targets[0]}
-        return reconstruction_losses(
+        total, terms = reconstruction_losses(
             pred, target, self.loss_cfg, kl=posterior.kl(),
             step=batch.get('step'), lpips_fn=self.lpips_fn)
+        if self.adversarial is not None:
+            g_adv = self.adversarial.generator_loss(
+                pred['image_raw'], draws=None if draws is None else draws.adv)
+            total = total + g_adv
+            terms = dict(terms, g_adv=g_adv)
+        return total, terms
+
+    @torch.no_grad()
+    def _disc_inputs(self, batch: dict):
+        """(real, fake) of the discriminator step: the input views' crops
+        and their deterministic renders from the posterior's mean under
+        the current parameters, without grad."""
+        cfg = self.cfg
+        model = self.model
+        patch = cfg.patch_resolution
+        with self._autocast():
+            moments = model.encode(batch['img_to_encoder'])
+            latent, _ = model.reparameterize(moments, False)
+            planes = model.decode_latent(latent)
+        fake = render_patches(model, planes, batch, '', self.render_opts,
+                              patch, cfg.render_resolution,
+                              use_fused_osg=cfg.use_fused_osg)['image_raw']
+        return (_crop(batch['img'], batch['patch_h'], batch['patch_w'],
+                      patch), fake)
+
+    def _disc_step(self, batch: dict, draws=None) -> dict:
+        """One discriminator update on ``_disc_inputs``; ``draws``: the
+        head's (real, fake) augmentation draws, or None."""
+        return self.adversarial.disc_step(*self._disc_inputs(batch), draws)
 
     # -- the step ----------------------------------------------------------
 
@@ -232,47 +331,38 @@ class VAETrainer:
     # -- host-side batch prep ---------------------------------------------
 
     def prepare_batch(self, raw: dict) -> dict:
-        """The batch on the device, with foreground-biased patch origins
-        (host RNG, int32 on the host) for the input views and, when
-        present, the paired nv_* views."""
-        cfg = self.cfg
-        keep = ('img_to_encoder', 'img', 'depth', 'depth_mask', 'c',
-                'nv_img', 'nv_depth', 'nv_depth_mask', 'nv_c')
-        out = {k: torch.as_tensor(np.asarray(v), device=self.device)
-               for k, v in raw.items() if k in keep}
-        for prefix in ('', 'nv_'):
-            if f'{prefix}c' not in raw:
-                continue
-            n = raw[f'{prefix}c'].shape[0]
-            # bbox in render-resolution coords
-            bbox = raw.get(f'{prefix}bbox')
-            if bbox is not None:
-                bbox = np.asarray(bbox, np.int32)
-            h0, w0 = sample_patch_origins(self.rng, n, cfg.patch_resolution,
-                                          cfg.render_resolution, bbox)
-            out[f'{prefix}patch_h'] = torch.from_numpy(h0)
-            out[f'{prefix}patch_w'] = torch.from_numpy(w0)
-        return out
+        """The batch on the device with its patch origins (a bbox is in
+        render-resolution coords)."""
+        return prepare_patch_batch(
+            raw, self.rng, self.device, self.cfg.patch_resolution,
+            self.cfg.render_resolution,
+            keys=('img_to_encoder', 'img', 'depth', 'depth_mask', 'c',
+                  'nv_img', 'nv_depth', 'nv_depth_mask', 'nv_c'))
 
     # -- loop --------------------------------------------------------------
 
     def run_loop(self, data: Iterator[dict], num_steps: Optional[int] = None,
                  step_offset: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 log: Callable = print) -> TrainState:
-        """``num_steps`` (default ``total_steps``) steps over ``data``;
-        every ``log_interval`` steps the metrics go to ``log`` as a dict
-        of floats.  ε and the render's draws come from ``generator``
-        (default: a generator on the device seeded with 1234)."""
-        num_steps = num_steps or self.cfg.total_steps
+                 log: Callable = print, guard=None) -> TrainState:
+        """``num_steps`` (default ``total_steps``) steps over ``data``
+        (:func:`train_loop`, with its logging and ``guard``); with an
+        adversarial head each step is followed by a discriminator step
+        (its metrics join the step's).  ε and the render's draws come from
+        ``generator`` (default: a generator on the device seeded with
+        1234)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(1234)
-        for i in range(num_steps):
-            batch = self.prepare_batch(next(data))
+
+        def step_fn(raw, i):
+            batch = self.prepare_batch(raw)
             # the live step of the KL anneal (losses.kl_coeff)
-            batch['step'] = float(step_offset + i)
+            batch['step'] = float(i)
             metrics = self.train_step(batch, generator=generator)
-            if (i + 1) % self.cfg.log_interval == 0:
-                log(dict({k: float(v) for k, v in metrics.items()},
-                         step=step_offset + i + 1))
+            if self.adversarial is not None:
+                metrics.update(self._disc_step(batch))
+            return metrics
+
+        train_loop(step_fn, data, num_steps or self.cfg.total_steps,
+                   self.cfg.log_interval, step_offset, log, guard)
         return self.state

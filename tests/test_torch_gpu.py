@@ -946,3 +946,230 @@ def test_euler_edm_sample_card_matches_cpu(cuda):
     assert torch.isfinite(out['cuda']).all()
     torch.testing.assert_close(out['cuda'], want, rtol=0,
                                atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.fixture
+def cuda_f32(cuda):
+    """``cuda`` with cuDNN's TF32 convolutions off as well: the training
+    checks hold the f32 arithmetic of both sides, as ``chip_smoke.py``
+    does."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _small_vae_cfgs(fused):
+    """The small VAE of ``chip_smoke.py``'s training checks (the kernels'
+    32 plane and colour channels, the rest tiny), f32, patch 16 of 32²."""
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainConfig
+    model = TriplaneVAEConfig(
+        encoder_ch=8, encoder_ch_mult=(1, 2), img_resolution=32,
+        num_views=2, latent_size=16,
+        dit2=DiT2Config(tokens_per_plane=64, hidden_size=32, depth=2,
+                        num_heads=2, dtype=torch.float32),
+        conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=torch.float32)
+    train = VAETrainConfig(lr=2e-3, patch_resolution=16, render_resolution=32,
+                           ema_rate=0.5, use_fused_osg=fused)
+    opts = RenderOptions(depth_resolution=16, depth_resolution_importance=16,
+                         filter_out_of_bbox=True)
+    return model, train, opts
+
+
+def _grads_of(module):
+    out = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+           .detach().cpu() for k, p in module.named_parameters()
+           if p.requires_grad}
+    module.zero_grad(set_to_none=True)
+    return out
+
+
+def _assert_grads_close(got, want, rel=2e-3):
+    gmax = max(float(g.abs().max()) for g in want.values())
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        torch.testing.assert_close(got[k], w, rtol=0, atol=max(
+            rel * float(w.abs().max()), 1e-5 * gmax), msg=k)
+
+
+@pytest.mark.parametrize('p_rendering', [False, True])
+def test_lsgm_step_card_matches_cpu(cuda_f32, p_rendering):
+    """One LSGM joint step (a small VAE and a 32-channel U-Net with the
+    spatial transformer), card against CPU, f32, the same weights and
+    draws: the loss and every grad within 2e-3 of scale (floor 1e-5 of
+    the largest grad), the AdamW step within 2·lr."""
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.unet import UNetConfig, UNetModel
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.lsgm_trainer import (
+        LSGMConfig, LSGMDraws, LSGMTrainConfig, LSGMTrainer)
+    model_cfg, _, opts = _small_vae_cfgs(False)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    raw['context'] = torch.randn(
+        (1, 7, 32), generator=torch.Generator().manual_seed(6)).numpy()
+    g = torch.Generator().manual_seed(4)
+    lat = (1, 16, 16, 12)
+    draws = LSGMDraws(torch.randn((1, 16, 16, 4, 3), generator=g),
+                      draw_uniforms(2, 256, opts, g, 'cpu'),
+                      torch.rand((1,), generator=g),
+                      torch.randn(lat, generator=g),
+                      torch.rand((1,), generator=g),
+                      torch.randn(lat, generator=g))
+    out, state = {}, None
+    for dev in ('cpu', cuda_f32):
+        unet = UNetModel(UNetConfig(
+            in_channels=4, model_channels=32, out_channels=4,
+            num_res_blocks=1, attention_resolutions=(2,),
+            channel_mult=(1, 2), num_heads=2, context_dim=32,
+            dtype=torch.float32))
+        tr = LSGMTrainer(model_cfg, unet, LSGMTrainConfig(
+            lr=2e-3, ema_rate=0.5, patch_resolution=16,
+            render_resolution=32), LossConfig(lpips_lambda=0.0),
+            LSGMConfig(p_rendering_loss=p_rendering), render_opts=opts,
+            seed=3, device=dev)
+        if state is None:
+            from ln3diff_tpu_torch.models.layers import random_init_
+            random_init_(tr.denoiser, torch.Generator().manual_seed(7))
+            with torch.no_grad():
+                tr.denoiser.mixing_logit.zero_()
+            state = {k: v.clone() for k, v in tr.joint.state_dict().items()}
+        tr.joint.load_state_dict(state)
+        d = LSGMDraws(*(x.to(dev) if torch.is_tensor(x)
+                        else type(x)(*(y.to(dev) for y in x))
+                        for x in draws))
+        batch = tr.prepare_batch(raw)
+        tr.build()
+        loss, _ = tr.loss_fn(None, None, batch, d)
+        loss.backward()
+        grads = _grads_of(tr.joint)
+        tr.train_step(batch, draws=d)
+        out[str(dev)] = loss.item(), grads, {
+            k: p.detach().cpu() for k, p in tr.state.params.items()}
+    (lc, gc, pc), (lg, gg, pg) = out['cpu'], out['cuda']
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    _assert_grads_close(gg, gc)
+    for k in pc:
+        assert float((pg[k] - pc[k]).abs().max()) <= 2 * 2e-3 + 1e-6, k
+
+
+def _adv_draws(g):
+    from ln3diff_tpu_torch.training.augment import (
+        AugmentDraws, augment_draw_plan, bgc_config)
+    return AugmentDraws({
+        i: (torch.rand if kind == 'uniform' else torch.randn)(
+            shp, generator=g)
+        for i, kind, shp in augment_draw_plan((2, 16, 16, 3), bgc_config())})
+
+
+@pytest.mark.parametrize('head_kind', ['stylegan', 'vision_aided'])
+def test_adversarial_step_card_matches_cpu(cuda_f32, head_kind):
+    """The adversarial VAE step with LPIPS (the card through kernels 1 and
+    2, the CPU plain) and the discriminator's loss on the re-render
+    (kernel 1 on the card): the losses and the VAE's and the
+    discriminator's grads within 2e-3 of scale, f32.  The StyleGAN head
+    runs ADA (``bgc_config()`` at p = 0.6, the same draws) and R1."""
+    from ln3diff_tpu_torch.conditioning.clip import CLIPVisionConfig
+    from ln3diff_tpu_torch.conditioning.lpips import make_lpips_fn
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.stylegan import DiscriminatorConfig
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.augment import bgc_config
+    from ln3diff_tpu_torch.training.gan import AdversarialHead, GANConfig
+    from ln3diff_tpu_torch.training.losses import LossConfig
+    from ln3diff_tpu_torch.training.vae_trainer import TrainDraws, VAETrainer
+    from ln3diff_tpu_torch.training.vision_aided import (VisionAidedConfig,
+                                                         VisionAidedHead)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    g = torch.Generator().manual_seed(4)
+    _, _, opts = _small_vae_cfgs(False)
+    eps = torch.randn((1, 16, 16, 4, 3), generator=g)
+    render = draw_uniforms(2, 256, opts, g, 'cpu')
+    stylegan = head_kind == 'stylegan'
+    adv, d_draws = (_adv_draws(g), (_adv_draws(g), _adv_draws(g))) \
+        if stylegan else (None, None)
+    out, ref = {}, None
+    for dev in ('cpu', cuda_f32):
+        model_cfg, train_cfg, opts = _small_vae_cfgs(dev != 'cpu')
+        if stylegan:
+            head = AdversarialHead(GANConfig(
+                disc=DiscriminatorConfig(img_resolution=16, base_channels=16,
+                                         max_channels=64),
+                ada=bgc_config()), seed=3, device=dev)
+            head.ada_p = 0.6
+        else:
+            head = VisionAidedHead(VisionAidedConfig(
+                clip=CLIPVisionConfig(hidden_size=64, num_layers=2,
+                                      num_heads=2, intermediate_size=128,
+                                      patch_size=8, image_size=32),
+                taps=(1, 2), head_width=16), seed=3, device=dev)
+        lpips = make_lpips_fn(device=dev, seed=3)
+        tr = VAETrainer(model_cfg, train_cfg, LossConfig(lpips_lambda=0.5),
+                        render_opts=opts, seed=3, lpips_fn=lpips,
+                        adversarial=head, device=dev)
+        nets = (tr.model, head.model, lpips.model)
+        if ref is None:
+            ref = [{k: v.clone() for k, v in n.state_dict().items()}
+                   for n in nets]
+        for n, sd in zip(nets, ref):
+            n.load_state_dict(sd)
+        mv = (lambda x: None if x is None else type(x)(
+            {k: v.to(dev) for k, v in x.values.items()}))
+        draws = TrainDraws(eps.to(dev), type(render)(
+            *(t.to(dev) for t in render)), mv(adv))
+        batch = tr.prepare_batch(raw)
+        launches = (FusedOSG.launches, FusedOSG.backward_launches)
+        loss, _ = tr.loss_fn(batch, draws=draws)
+        loss.backward()
+        grads = _grads_of(tr.model)
+        real, fake = tr._disc_inputs(batch)
+        d_loss, _ = (head.d_loss(real, fake, tuple(mv(x) for x in d_draws))
+                     if stylegan else head.d_loss(real, fake))
+        d_loss.backward()
+        out[str(dev)] = (loss.item(), grads, d_loss.item(),
+                         _grads_of(head.model), fake.cpu(),
+                         (FusedOSG.launches - launches[0],
+                          FusedOSG.backward_launches - launches[1]))
+    (lc, gc, dc, dgc, fc, nc), (lg, gg, dg, dgg, fg, ng) = (out['cpu'],
+                                                            out['cuda'])
+    assert nc == (0, 0) and ng[0] > 0 and ng[1] > 0
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    assert abs(dg - dc) <= 2e-3 * abs(dc)
+    torch.testing.assert_close(fg, fc, rtol=0, atol=2e-3)
+    _assert_grads_close(gg, gc)
+    _assert_grads_close(dgg, dgc)
+
+
+def test_augment_and_grid_sample_card_match_cpu(cuda):
+    """The ADA pipeline (every group on, the same draws) and the grid
+    samplers, card against CPU, f32: within 1e-4 of scale."""
+    from ln3diff_tpu_torch.ops.grid_sample import (grid_sample_2d_batched,
+                                                   grid_sample_3d)
+    from ln3diff_tpu_torch.training.augment import (
+        AugmentConfig, AugmentDraws, augment_draw_plan, augment_pipe)
+    cfg = AugmentConfig(xflip=1, rotate90=1, xint=1, scale=1, rotate=1,
+                        aniso=1, xfrac=1, brightness=1, contrast=1,
+                        lumaflip=1, hue=1, saturation=1, imgfilter=1,
+                        noise=1, cutout=1)
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand((3, 32, 32, 3), generator=g) * 2 - 1
+    values = {i: (torch.rand if kind == 'uniform' else torch.randn)(
+        shp, generator=g)
+        for i, kind, shp in augment_draw_plan(x.shape, cfg)}
+    feats = torch.randn((2, 9, 7, 4), generator=g)
+    coords = torch.rand((2, 50, 2), generator=g) * 2.4 - 1.2
+    grid = torch.randn((5, 6, 7, 3), generator=g)
+    c3 = torch.rand((40, 3), generator=g) * 2.4 - 1.2
+    out = {}
+    for dev in ('cpu', cuda):
+        out[str(dev)] = [
+            augment_pipe(x.to(dev), cfg, 0.7, draws=AugmentDraws(
+                {k: v.to(dev) for k, v in values.items()})),
+            grid_sample_2d_batched(feats.to(dev), coords.to(dev)),
+            grid_sample_3d(grid.to(dev), c3.to(dev))]
+    for got, want in zip(out['cuda'], out['cpu']):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
