@@ -78,7 +78,17 @@ from a fixed seed:
   with ``use_fused_osg=True``, LPIPS and a 32² StyleGAN discriminator with
   R1): the generator step (kernels 1 and 2) and the discriminator step
   (its re-render through kernel 1), then a step with the vision-aided
-  discriminator (CLIP ViT-B/32).
+  discriminator (CLIP ViT-B/32);
+* ``eg3d_warmup``: the EG3D-distillation warm-up through its entry point
+  (``python -m ln3diff_tpu_torch.training.eg3d_warmup``'s ``main``): the
+  ``ffhq`` VAE (bf16 over f32 parameters) against the default EG3D
+  ``TriPlaneGenerator`` teacher, batch 4, 64² renders with 48+48
+  samples, a few steps and the final checkpoint, restored;
+* ``lgm_encode``: the Objaverse VAE with the LGM multi-view U-Net
+  encoder (``encoder_type='lgm'``) over 4 views of 256² × 10;
+* ``stylegan3``: ``GeneratorSG3`` at its defaults (256², 14 layers),
+  batch 4.  No kernel runs on these three paths (none does in JAX):
+  each reads the four kernels' launch counters at 0.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -94,7 +104,8 @@ step card against CPU (``small_train_reference``;
 ``small_ldm_train_reference``: a small DiT's step per objective;
 ``small_lsgm_train_reference``: a small LSGM joint step;
 ``small_adv_train_reference``: a small adversarial VAE step, kernels 1
-and 2 on the card), and
+and 2 on the card; ``small_eg3d_warmup_reference``: a small warm-up
+step), and
 profiles a
 sampler step of each denoiser (``dit_profile``, ``i23d_dit_profile``,
 ``mv23d_dit_profile``).  It prints one JSON line per phase as the phase
@@ -113,6 +124,7 @@ arithmetic of both sides; the full-width path itself runs bf16.
 import copy
 import dataclasses
 import faulthandler
+import gc
 import json
 import math
 import os
@@ -187,6 +199,10 @@ TOL_LSGM_TRAIN = 2e-3
 # scale (floor 1e-5 of the largest grad; R1 is a double backward through
 # the discriminator), the AdamW steps as TOL_TRAIN's
 TOL_ADV_TRAIN = 2e-3
+# the small EG3D warm-up step, card vs CPU, f32: the loss and each term to
+# TOL_EG3D_TRAIN relative, each grad to TOL_EG3D_TRAIN of its tensor's
+# scale (floor 1e-5 of the largest grad), the AdamW step as TOL_TRAIN's
+TOL_EG3D_TRAIN = 2e-3
 # the full-width DiT-L/2's grads with remat 'dots' against no remat, bf16
 # autocast: each to TOL_REMAT of its tensor's scale (floor 1e-5 of the
 # largest grad); the recomputation runs the forward's kernels again, so
@@ -3141,6 +3157,348 @@ def adv_vae_train(steps=3, warmup=2):
     return res
 
 
+# -- the EG3D warm-up, the 'lgm' encoder and StyleGAN3 -----------------------
+
+
+
+def kernel_launches():
+    """The four kernels' launch counters."""
+    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
+                                                       FusedQKVAttention)
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    return dict(fused_osg=FusedOSG.launches,
+                fused_osg_bwd=FusedOSG.backward_launches,
+                fused_attention=FusedAttention.launches,
+                fused_qkv_attention=FusedQKVAttention.launches)
+
+
+def zero_kernel_launches():
+    from ln3diff_tpu_torch.ops.fused_attention import (FusedAttention,
+                                                       FusedQKVAttention)
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    FusedOSG.launches = FusedOSG.backward_launches = 0
+    FusedAttention.launches = FusedQKVAttention.launches = 0
+
+
+def no_kernel_launches(phase):
+    """The counters after a path on which the JAX package runs no Pallas
+    kernel: all four must read 0."""
+    counts = kernel_launches()
+    check(not any(counts.values()), f'{phase}: kernels launched {counts}')
+    return counts
+
+
+def _small_warmup(device, seed=3):
+    """A small ``EG3DWarmupTrainer``: a toy ``FFHQVAE`` (a 2-block ViT at
+    56², the v3 fusion decoder over 4² tokens, 32² planes of 8 channels,
+    the 8XDC head's ``sr_ws``) under a teacher with w 512 and 32² planes,
+    f32, batch 2, 16² renders with 8+8 samples, lr 2e-3, EMA 0.5."""
+    import torch
+    from ln3diff_tpu_torch.models.eg3d import TriPlaneGeneratorConfig
+    from ln3diff_tpu_torch.models.vae_shapenet import FFHQVAE, FFHQVAEConfig
+    from ln3diff_tpu_torch.models.vit import vit_registry
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    from ln3diff_tpu_torch.training.eg3d_warmup import (EG3DWarmupTrainer,
+                                                        WarmupConfig)
+    cfg = FFHQVAEConfig(
+        encoder_vit=vit_registry('dinov2-s/14', img_size=56, embed_dim=32,
+                                 depth=2, num_heads=2),
+        token_size=4, decoder_embed_dim=32, decoder_fusion_depth=2,
+        decoder_num_heads=2, channel_multiplier=2, plane_channels=8,
+        triplane_resolution=32, decoder_output_dim=8, dtype=torch.float32)
+    with torch.device(device):
+        model = FFHQVAE(cfg, encoder=True)
+    return EG3DWarmupTrainer(
+        cfg, TriPlaneGeneratorConfig(z_dim=16, w_dim=512,
+                                     plane_resolution=32, plane_channels=8,
+                                     decoder_output_dim=8),
+        WarmupConfig(lr=2e-3, ema_rate=0.5, batch_size=2,
+                     render_resolution=16, num_shape_points=256,
+                     log_interval=10**9),
+        render_opts=RenderOptions(depth_resolution=8,
+                                  depth_resolution_importance=8,
+                                  ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                                  white_back=False),
+        seed=seed, model=model, device=device)
+
+
+def small_eg3d_warmup_reference():
+    """One small warm-up step (``_small_warmup``) on the card and on the
+    CPU from the same weights (the student's off JAX's zero inits: the
+    adaLN-free ViT, ``sr_ws`` drawn), cameras and draws: the loss, each
+    term, every grad and the AdamW step (``TOL_EG3D_TRAIN``)."""
+    import torch
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.eg3d_warmup import WarmupDraws
+    cpu = _small_warmup('cpu')
+    with torch.no_grad():
+        cpu.model.sr_ws.copy_(torch.randn(
+            512, generator=torch.Generator().manual_seed(8)) * 0.3)
+    card = _small_warmup('cuda')
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.teacher.load_state_dict(cpu.teacher.state_dict())
+    cam = torch.from_numpy(cpu._sample_cameras(2))
+    g = torch.Generator().manual_seed(4)
+    draws = WarmupDraws(torch.randn((2, 16), generator=g),
+                        torch.rand((2, 256, 3), generator=g) - 0.5,
+                        torch.randn((2, 4, 4, 4, 3), generator=g),
+                        draw_uniforms(2, 16**2, cpu.opts, g, 'cpu'))
+    out = {}
+    for name, tr in (('cpu', cpu), ('cuda', card)):
+        d, c = _to(draws, tr.device), cam.to(tr.device)
+        loss, terms = tr.loss_fn(None, None, {'c': c}, d)
+        loss.backward()
+        out[name] = dict(loss=loss.item(), grads=_grads(tr.model),
+                         terms={k: float(v) for k, v in terms.items()})
+        tr.train_step(c, draws=d)
+        out[name]['params'] = {k: p.detach().cpu() for k, p in
+                               tr.state.params.items()}
+    lc, lg = out['cpu']['loss'], out['cuda']['loss']
+    check(abs(lg - lc) <= TOL_EG3D_TRAIN * abs(lc),
+          f'warm-up: loss {lg} vs CPU {lc}')
+    check(sorted(out['cpu']['terms']) == ['depth', 'img', 'plane', 'shape',
+                                          'ws'], 'warm-up terms')
+    for k, v in out['cpu']['terms'].items():
+        w = out['cuda']['terms'][k]
+        check(abs(w - v) <= TOL_EG3D_TRAIN * abs(v),
+              f'warm-up: {k} {w} vs CPU {v}')
+    worst = _worst_grad(out['cuda']['grads'], out['cpu']['grads'],
+                        TOL_EG3D_TRAIN, 'warm-up')
+    step = _check_step(out['cuda']['params'], out['cpu']['params'],
+                       out['cpu']['grads'], TOL_EG3D_TRAIN, 2e-3, 'warm-up')
+    return dict(loss_cpu=lc, loss_cuda=lg, loss_rel_err=abs(lg - lc) / lc,
+                terms_cuda=out['cuda']['terms'],
+                grad_err_in_units_of_tol=worst, max_step_err_resolved=step,
+                tensors=len(out['cpu']['grads']))
+
+
+def eg3d_warmup(steps=5, warmup=2):
+    """The EG3D warm-up at full width through its entry point
+    (``python -m ln3diff_tpu_torch.training.eg3d_warmup``'s ``main``):
+    ``vae_preset('ffhq')`` (bf16 over f32 parameters) against the default
+    ``TriPlaneGenerator`` teacher (z 512, w 512, 256² planes of 3 × 32
+    channels), ``WarmupConfig`` defaults (batch 4, 64² renders, 4,096
+    shape points, ψ 0.7) under ``RENDER_PRESETS['ffhq']`` (48+48 samples),
+    random weights from seed 0, ``warmup + steps`` steps and the final
+    checkpoint in a temporary directory.  Each step is timed (host clock,
+    synchronised; the mean over the steps after ``warmup``); the memory
+    resident when the first step starts and the peak above it; the
+    per-term losses, finite; the checkpoint restored into a second trainer
+    (another seed), every tensor bit for bit; then one profiled step."""
+    import torch
+    from ln3diff_tpu_torch.config import build_vae
+    from ln3diff_tpu_torch.training import eg3d_warmup as ew
+    from ln3diff_tpu_torch.training.checkpoint import CheckpointManager
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    rec = dict(secs=[], metrics=[])
+    plain_step = ew.EG3DWarmupTrainer.train_step
+
+    def timed_step(self, camera25, draws=None):
+        if not rec['metrics']:
+            torch.cuda.synchronize()
+            rec['resident'] = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = plain_step(self, camera25, draws)
+        torch.cuda.synchronize()
+        rec['secs'].append(time.perf_counter() - t0)
+        rec['metrics'].append({k: float(v) for k, v in m.items()})
+        return m
+
+    n = warmup + steps
+    with tempfile.TemporaryDirectory() as d:
+        ew.EG3DWarmupTrainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            tr = ew.main(['--outdir', d, '--total_steps', str(n),
+                          '--save_interval', str(n),
+                          '--log_interval', str(10**6)])
+            main_s = time.perf_counter() - t0
+        finally:
+            ew.EG3DWarmupTrainer.train_step = plain_step
+        peak = torch.cuda.max_memory_allocated() - base - rec['resident']
+        mgr = CheckpointManager(os.path.join(d, 'ckpt'))
+        check(mgr.all_steps() == [n], f'checkpoints {mgr.all_steps()}')
+        nbytes = os.path.getsize(os.path.join(d, 'ckpt', str(n),
+                                              'state.pt'))
+        with torch.device('cuda'):
+            model = build_vae(tr.model_cfg, encoder=True)
+        twin = ew.EG3DWarmupTrainer(tr.model_cfg, warm_cfg=tr.cfg,
+                                    render_opts=tr.opts, seed=1, model=model,
+                                    device='cuda')
+        t0 = time.perf_counter()
+        mgr.restore(twin.state)
+        restore_s = time.perf_counter() - t0
+    a, b = tr.state, twin.state
+    tensors = 0
+    for x, y in [(a.params, b.params), (a.ema_params['ema'],
+                                       b.ema_params['ema'])] + [
+            (a.opt_state[m], b.opt_state[m]) for m in ('mu', 'nu')]:
+        for k, v in x.items():
+            check(torch.equal(v, y[k]), f'warm-up checkpoint: {k} differs')
+            tensors += 1
+    check(b.step == a.step == n and b.opt_state['count'] == n,
+          'warm-up checkpoint: step or count differs')
+    del twin, b, model
+    torch.cuda.empty_cache()
+    profile = _train_step_profile(tr, torch.as_tensor(
+        tr._sample_cameras(tr.cfg.batch_size), device='cuda'))
+    terms = rec['metrics'][-1]
+    check(len(rec['secs']) == n, f'{len(rec["secs"])} steps timed')
+    check(all(math.isfinite(v) for m in rec['metrics'] for v in m.values()),
+          f'warm-up metrics {rec["metrics"]}')
+    check(sorted(terms) == ['depth', 'grad_norm', 'img', 'loss', 'plane',
+                            'shape', 'ws'], f'warm-up terms {sorted(terms)}')
+    timed = rec['secs'][warmup:]
+    res = dict(
+        s_per_step=sum(timed) / len(timed), s_per_step_runs=timed,
+        warmup_step_s=rec['secs'][:warmup], main_seconds=main_s,
+        losses=[m['loss'] for m in rec['metrics']], last_metrics=terms,
+        teacher_params=sum(p.numel() for p in tr.teacher.parameters()),
+        student_params=sum(p.numel() for p in tr.model.parameters()),
+        resident_gib=round(rec['resident'] / 2**30, 3),
+        peak_above_resident_gib=round(peak / 2**30, 3),
+        checkpoint=dict(step=n, tensors=tensors, bytes=nbytes,
+                        restore_s=restore_s),
+        profile=profile)
+    del tr
+    # the trainer holds a reference cycle (its step closes over its loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _small_lgm_vae(device):
+    """A small VAE with the ``'lgm'`` encoder: two views of 32² × 10, down
+    channels (32, 64) with the attention at the second level, f32."""
+    import torch
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    cfg = TriplaneVAEConfig(
+        encoder_ch=8, encoder_ch_mult=(1, 2), img_resolution=32,
+        num_views=2, latent_size=16, encoder_type='lgm',
+        lgm_down_channels=(32, 64), lgm_down_attention=(False, True),
+        dit2=DiT2Config(tokens_per_plane=64, hidden_size=32, depth=2,
+                        num_heads=2, dtype=torch.float32),
+        conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=torch.float32)
+    with torch.device(device):
+        return TriplaneVAE(cfg, encoder=True)
+
+
+def lgm_encode():
+    """The ``'lgm'`` encoder at full width: ``vae_preset('objaverse')``
+    with ``encoder_type='lgm'`` (down channels 64-128-256-512, joint-view
+    attention at 64² and 32² over 4 × 64² = 16,384 and 4,096 tokens, 16
+    heads, in query chunks) under bf16 autocast, 4 views of 256² × 10,
+    batch 1, no grad: ms per encode (CUDA events) and peak memory; then a
+    small one card vs CPU (``TOL_PIPE``)."""
+    import torch
+    from ln3diff_tpu_torch.config import vae_preset
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(vae_preset('objaverse'), encoder_type='lgm')
+    with torch.device('cuda'):
+        vae = TriplaneVAE(cfg, encoder=True)
+    random_init_(vae, torch.Generator(device='cuda').manual_seed(0))
+    x = torch.randn((4, 256, 256, 10), device='cuda',
+                    generator=torch.Generator(device='cuda').manual_seed(1))
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+
+    def encode():
+        with torch.no_grad(), torch.autocast('cuda', dtype=cfg.dtype):
+            return vae.encode(x)
+
+    moments = encode()
+    with torch.no_grad(), torch.autocast('cuda', dtype=cfg.dtype):
+        h = vae.encoder(x)
+    check(tuple(h.shape) == (1, 32, 32, 24), f'lgm encoder {tuple(h.shape)}')
+    check(tuple(moments.shape) == (1, 32, 32, 8, 3),
+          f'lgm moments {tuple(moments.shape)}')
+    check(bool(torch.isfinite(moments).all()), 'lgm moments not finite')
+    ms = cuda_time_ms(encode, warmup=1, iters=5)
+    peak = torch.cuda.max_memory_allocated() - base - resident
+    enc_params = sum(p.numel() for p in vae.encoder.parameters())
+    del vae, x, moments, h
+    torch.cuda.empty_cache()
+    # a small one, card vs CPU
+    cpu = _small_lgm_vae('cpu')
+    random_init_(cpu, torch.Generator().manual_seed(2))
+    card = _small_lgm_vae('cuda')
+    card.load_state_dict(cpu.state_dict())
+    xs = torch.randn((4, 32, 32, 10), generator=torch.Generator()
+                     .manual_seed(3))
+    with torch.no_grad():
+        want = cpu.encode(xs)
+        got = card.encode(xs.cuda()).cpu()
+    err = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    check(err <= TOL_PIPE, f'small lgm encode: card vs CPU {err}')
+    return dict(ms=ms, peak_above_resident_gib=round(peak / 2**30, 3),
+                resident_gib=round(resident / 2**30, 3),
+                encoder_params=enc_params,
+                moments_shape=[1, 32, 32, 8, 3],
+                small_card_vs_cpu=err,
+                moments_abs_max=float(want.abs().max()))
+
+
+def stylegan3():
+    """``GeneratorSG3`` at its defaults (z 512, w 512, 256² × 3, 14
+    layers, channel base 32768, f32) at batch 4, random weights from seed
+    0, ψ 0.7: ms per forward (CUDA events) and peak memory; then a small
+    one (32², 6 layers, channel base 1024 and max 32) card vs CPU
+    (``TOL_PIPE``)."""
+    import torch
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.stylegan3 import GeneratorSG3
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with torch.device('cuda'):
+        g = GeneratorSG3()
+    random_init_(g, torch.Generator(device='cuda').manual_seed(0))
+    z = torch.randn((4, 512), device='cuda',
+                    generator=torch.Generator(device='cuda').manual_seed(1))
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward():
+        with torch.no_grad():
+            return g(z, truncation_psi=0.7)
+
+    img = forward()
+    check(tuple(img.shape) == (4, 256, 256, 3), f'sg3 {tuple(img.shape)}')
+    check(bool(torch.isfinite(img).all()), 'sg3 image not finite')
+    ms = cuda_time_ms(forward, warmup=1, iters=5)
+    peak = torch.cuda.max_memory_allocated() - base - resident
+    n_params = sum(p.numel() for p in g.parameters())
+    img_range = [float(img.min()), float(img.max())]
+    del g, z, img
+    torch.cuda.empty_cache()
+    kw = dict(z_dim=32, w_dim=32, img_resolution=32, num_layers=6,
+              channel_base=1024, channel_max=32)
+    cpu = GeneratorSG3(**kw)
+    random_init_(cpu, torch.Generator().manual_seed(2))
+    with torch.device('cuda'):
+        card = GeneratorSG3(**kw)
+    card.load_state_dict(cpu.state_dict())
+    zs = torch.randn((2, 32), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cpu(zs, truncation_psi=0.7)
+        got = card(zs.cuda(), truncation_psi=0.7).cpu()
+    err = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    check(err <= TOL_PIPE, f'small sg3: card vs CPU {err}')
+    return dict(ms=ms, batch=4, params=n_params, image_range=img_range,
+                resident_gib=round(resident / 2**30, 3),
+                peak_above_resident_gib=round(peak / 2**30, 3),
+                small_card_vs_cpu=err)
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -3401,6 +3759,19 @@ def main():
     t0 = time.perf_counter()
     adv = adv_vae_train()
     phase_done('adv_vae_train', t0, **adv)
+
+    # 17. the EG3D warm-up (a small step card vs CPU, then its entry point
+    # at full width), the 'lgm' encoder and StyleGAN3: the JAX package
+    # runs no Pallas kernel on these paths, and neither does the port
+    for phase, fn in (('small_eg3d_warmup_reference',
+                       small_eg3d_warmup_reference),
+                      ('eg3d_warmup', eg3d_warmup),
+                      ('lgm_encode', lgm_encode), ('stylegan3', stylegan3)):
+        t0 = time.perf_counter()
+        zero_kernel_launches()
+        res = fn()
+        phase_done(phase, t0, **res, kernel_launches=no_kernel_launches(
+            phase))
 
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')

@@ -7,7 +7,10 @@ arrays (``variables['params']`` or the whole ``variables``).  The port's
 modules keep the JAX modules' names, so each leaf maps by its path:
 
 * Dense ``kernel (in, out)`` → Linear ``weight (out, in)`` (EqualDense too:
-  its scaling stays a runtime scale, as in JAX);
+  its scaling stays a runtime scale, as in JAX); the multi-view
+  attention's ``DenseGeneral``s (the ``'lgm'`` encoder) → Linear too: the
+  ``qkv`` kernel ``(C, 3, heads, hd)`` flattened to ``(C, 3·heads·hd)``,
+  the ``proj`` kernel ``(heads, hd, C)`` to ``(heads·hd, C)``;
 * Conv ``kernel`` HWIO → OIHW, grouped convs included (Linen's
   ``(kh, kw, in/groups, out)`` becomes torch's ``(out, in/groups, kh, kw)``),
   and StyleGAN's raw modulated-conv ``weight`` (kh, kw, Cin, Cout) → (Cout,
@@ -41,6 +44,11 @@ the VAE trainer, ``controlnet_state_dict`` for the ControlNet trainer,
 ``lsgm_state_dict`` for the LSGM trainer's joint tree and
 ``discriminator_state_dict`` / ``vision_aided_state_dict`` for the
 adversarial heads.
+
+Generators carry their ``'stats'`` collection too: ``w_avg`` of the
+mapping and, in StyleGAN3, the Fourier ``freqs``/``phases``/``transform``
+and each layer's ``magnitude_ema`` become the buffers of those names
+(``eg3d_generator_state_dict``, ``sg3_generator_state_dict``).
 """
 
 from __future__ import annotations
@@ -71,6 +79,14 @@ def _leaf(path: tuple, arr: np.ndarray, int8_dense: bool = False):
     if name == 'kernel':
         if arr.ndim == 2:
             arr = arr.T
+        elif arr.ndim == 3 or (arr.ndim == 4 and path[-2] == 'qkv'
+                               and arr.shape[1] == 3
+                               and arr.shape[0] == arr.shape[2]
+                               * arr.shape[3]):
+            # DenseGeneral: proj (heads, hd, C), qkv (C, 3, heads, hd)
+            fan_in = arr.shape[0] * arr.shape[1] if arr.ndim == 3 \
+                else arr.shape[0]
+            arr = arr.reshape(fan_in, -1).T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         else:
@@ -172,13 +188,20 @@ clip_vision_state_dict = clip_text_state_dict
 discriminator_state_dict = lpips_state_dict = unet_state_dict
 
 
-def mapping_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """``MappingNetwork`` variables → the port's state dict: the params
-    and the 'stats' collection's ``w_avg`` as the buffer of that name."""
+def eg3d_generator_state_dict(variables: Mapping
+                              ) -> dict[str, torch.Tensor]:
+    """A generator's variables (``TriPlaneGenerator``, ``GeneratorSG3`` or
+    a bare ``MappingNetwork``) → the port's state dict: the params leaf by
+    leaf and every leaf of the 'stats' collection as the buffer of its
+    path (``mapping.w_avg``; StyleGAN3's ``synthesis.input.freqs`` …,
+    ``synthesis.L0_36_512.magnitude_ema`` …)."""
     out = _convert(variables['params'], {})
-    out['w_avg'] = torch.from_numpy(np.array(
-        variables['stats']['w_avg'], np.float32))
+    for path, v in _flatten(variables.get('stats', {})):
+        out['.'.join(path)] = torch.from_numpy(np.array(v, np.float32))
     return out
+
+
+sg3_generator_state_dict = mapping_state_dict = eg3d_generator_state_dict
 
 
 def vision_aided_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

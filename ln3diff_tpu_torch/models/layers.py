@@ -104,14 +104,15 @@ def random_init_(module: nn.Module,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Fill every parameter from ``generator`` (for runs with no released
     weights): Linear and Conv weights ~ N(0, 1/fan_in), :class:`EqualDense`
-    weights ~ N(0, 1) (they are scaled at run time) and biases
-    ``bias_init``, normalisation scales 1, biases 0, embeddings and other
-    tables ~ N(0, 0.02²).  A module with a ``reset_free_parameters(
-    generator)`` method then sets its free parameters to their JAX initial
-    values (layerscale gains, the U-Net's mixing logit, sin-cos tables,
-    StyleGAN weights).  An ``Int8Linear`` or ``Int8Conv`` quantizes the
-    draw a Linear or Conv2d of its shape would get, so a quantized model
-    holds the int8 form of its float twin's weights."""
+    weights ~ N(0, 1/lr_multiplier²) as JAX draws them (they are scaled at
+    run time) and biases ``bias_init``, normalisation scales 1, biases 0,
+    embeddings and other tables ~ N(0, 0.02²).  A module with a
+    ``reset_free_parameters(generator)`` method then sets its free
+    parameters to their JAX initial values (layerscale gains, the U-Net's
+    mixing logit, sin-cos tables, StyleGAN weights).  An ``Int8Linear`` or
+    ``Int8Conv`` quantizes the draw a Linear or Conv2d of its shape would
+    get, so a quantized model holds the int8 form of its float twin's
+    weights."""
     from ..ops.int8 import Int8Module
 
     def draw(shape, std, device):
@@ -138,7 +139,7 @@ def random_init_(module: nn.Module,
                 elif name == 'bias':
                     p.zero_()
                 elif isinstance(mod, EqualDense):
-                    normal(p, 1.0)
+                    normal(p, 1.0 / mod.lr_multiplier)
                 elif isinstance(mod, (nn.Linear, nn.Conv2d)):
                     normal(p, 1.0 / math.sqrt(p[0].numel()))
                 else:

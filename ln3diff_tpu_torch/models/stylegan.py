@@ -233,16 +233,17 @@ class SuperresolutionHybrid(nn.Module):
 
 
 class SynthesisLayerSG2(nn.Module):
-    """StyleGAN2 ``SynthesisLayer``: affine style, modulated conv (optional
-    2x up with the FIR), bias, leaky ReLU (0.2) × √2, clamp to ±256.  The
-    constant noise input is carried for the weights; ``noise_mode='none'``
-    (the released SR head) does not add it."""
+    """StyleGAN2 ``SynthesisLayer``: affine style from a ``w_dim`` latent,
+    modulated conv (optional 2x up with the FIR), bias, leaky ReLU (0.2) ×
+    √2, clamp to ±256.  The constant noise input is carried for the
+    weights; ``noise_mode='none'`` (the released SR head, the EG3D
+    backbone) does not add it."""
 
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
-                 up: int = 1):
+                 up: int = 1, w_dim: int = W_DIM):
         super().__init__()
         self.up = up
-        self.affine = EqualDense(W_DIM, in_channels, bias_init=1.0)
+        self.affine = EqualDense(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(
             torch.randn(out_channels, in_channels, 3, 3))
         self.noise_strength = nn.Parameter(torch.zeros(()))
@@ -264,14 +265,17 @@ class SynthesisLayerSG2(nn.Module):
 
 
 class ToRGBSG2(nn.Module):
-    """StyleGAN2 ``ToRGBLayer`` to 3 channels: styles / √Cin, 1x1
-    modulated conv without demodulation, bias, clamp to ±256."""
+    """StyleGAN2 ``ToRGBLayer`` to ``out_channels`` (3; the EG3D backbone
+    96): styles from a ``w_dim`` latent / √Cin, 1x1 modulated conv without
+    demodulation, bias, clamp to ±256."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, out_channels: int = 3,
+                 w_dim: int = W_DIM):
         super().__init__()
-        self.affine = EqualDense(W_DIM, in_channels, bias_init=1.0)
-        self.weight = nn.Parameter(torch.randn(3, in_channels, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(3))
+        self.affine = EqualDense(w_dim, in_channels, bias_init=1.0)
+        self.weight = nn.Parameter(torch.randn(out_channels, in_channels,
+                                               1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def reset_free_parameters(self, generator=None):
         self.weight.copy_(torch.randn(self.weight.shape, generator=generator,
@@ -287,22 +291,25 @@ class ToRGBSG2(nn.Module):
 
 class SynthesisBlockSG2(nn.Module):
     """Skip-architecture ``SynthesisBlock``: conv0 (2x up) → conv1, the
-    image skip FIR-upsampled plus ToRGB.  (x, img) NCHW → (x, img) at
-    twice the resolution."""
+    image skip (``img_channels`` wide; None: none yet) FIR-upsampled plus
+    ToRGB.  (x, img) NCHW → (x, img) at twice the resolution."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 resolution: int):
+                 resolution: int, img_channels: int = 3, w_dim: int = W_DIM):
         super().__init__()
         self.conv0 = SynthesisLayerSG2(in_channels, out_channels, resolution,
-                                       up=2)
+                                       up=2, w_dim=w_dim)
         self.conv1 = SynthesisLayerSG2(out_channels, out_channels,
-                                       resolution)
-        self.torgb = ToRGBSG2(out_channels)
+                                       resolution, w_dim=w_dim)
+        self.torgb = ToRGBSG2(out_channels, img_channels, w_dim=w_dim)
 
     def forward(self, x, img, w_latent):
         x = self.conv1(self.conv0(x, w_latent), w_latent)
+        y = self.torgb(x, w_latent)
+        if img is None:
+            return x, y
         img = upsample2d(img.float(), setup_filter(device=x.device))
-        return x, img + self.torgb(x, w_latent)
+        return x, img + y
 
 
 class SuperresolutionHybrid8XDC(nn.Module):

@@ -4,14 +4,15 @@
 Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
 :194, ``decode_latent`` :213-238, ``_fused_osg`` :245-251, ``render``
 :253-306 with the render-space SR heads of :156-178, ``render_rays_flat``
-:307, ``__call__`` :328, ``query_points`` :359-378) for the SD encoders
-(``encoder_type='sd'``).  The SR heads are ``'nearest'``
-(``NearestConvSR``), ``'stylegan-8xdc'`` (``SuperresolutionHybrid8XDC``)
-and ``'stylegan'`` (``SuperresolutionHybrid``), the StyleGAN ones
-conditioned on ``sr_ws``.  ``use_background`` splits the planes' channels
-into fg | bg halves, rendered by ``render/background.py`` with a second
-point decoder ``bg_decoder`` (the ``'ffhq-fgbg'`` preset).  Still
-missing: the ``'lgm'`` encoder.
+:307, ``__call__`` :328, ``query_points`` :359-378) with the SD encoders
+(``encoder_type='sd'``) and the LGM multi-view U-Net encoder
+(``encoder_type='lgm'``, ``models/mv_unet.py``).  The SR heads are
+``'nearest'`` (``NearestConvSR``), ``'stylegan-8xdc'``
+(``SuperresolutionHybrid8XDC``) and ``'stylegan'``
+(``SuperresolutionHybrid``), the StyleGAN ones conditioned on ``sr_ws``.
+``use_background`` splits the planes' channels into fg | bg halves,
+rendered by ``render/background.py`` with a second point decoder
+``bg_decoder`` (the ``'ffhq-fgbg'`` preset).
 
 Latent layout ``(B, h, w, z*3)`` channels-last with plane fastest, and the
 absorbed channel interleaves of the reference are reproduced exactly: the
@@ -35,6 +36,7 @@ from ..render.renderer import (RenderDraws, RenderOptions, pack_corner_table,
                                render_rays, sample_from_planes)
 from .dit import DiT2, DiT2Config
 from .distributions import make_gaussian
+from .mv_unet import LGMMVEncoder, MVUNetConfig
 from .osg_decoder import OSGDecoder
 from .sd_vae import (AutoencoderConfig, Decoder, Encoder, MVEncoder,
                      MVEncoderDynamic)
@@ -44,8 +46,8 @@ from .stylegan import SuperresolutionHybrid, SuperresolutionHybrid8XDC
 
 @dataclasses.dataclass(frozen=True)
 class TriplaneVAEConfig:
-    """The fields of the JAX ``TriplaneVAEConfig`` for the SD encoder, the
-    bottleneck and the decode side."""
+    """The fields of the JAX ``TriplaneVAEConfig``: the encoder (SD or
+    LGM), the bottleneck and the decode side."""
     # encoder
     encoder_in_channels: int = 10      # RGB + 6 Plücker + depth
     encoder_ch: int = 64
@@ -53,6 +55,11 @@ class TriplaneVAEConfig:
     encoder_res_blocks: int = 1
     img_resolution: int = 256
     num_views: int = 4                 # 0 → mono encoder; >4 → dynamic mean
+    # 'sd' (the SD conv MVEncoder of the released archs) or 'lgm' (the LGM
+    # MVUNet encoder with joint-view attention)
+    encoder_type: str = 'sd'
+    lgm_down_channels: tuple = (64, 128, 256, 512)
+    lgm_down_attention: tuple = (False, False, True, True)
     # bottleneck
     ldm_z_channels: int = 4            # per-plane latent channels
     latent_size: int = 32              # latent h = w
@@ -155,7 +162,7 @@ class TriplaneVAE(nn.Module):
             self.sr_ws.zero_()
 
     def _build_encoder(self):
-        """The SD encoder chosen as JAX's ``setup`` chooses it
+        """The encoder chosen as JAX's ``setup`` chooses it
         (``vae.py:104-122``) and the ``quant_conv``."""
         cfg = self.cfg
         enc_cfg = AutoencoderConfig(
@@ -164,7 +171,14 @@ class TriplaneVAE(nn.Module):
             z_channels=cfg.latent_channels, double_z=True,
             in_channels=cfg.encoder_in_channels,
             resolution=cfg.img_resolution)
-        if cfg.num_views == 0:
+        if cfg.encoder_type == 'lgm':
+            self.encoder = LGMMVEncoder(
+                MVUNetConfig(in_channels=cfg.encoder_in_channels,
+                             down_channels=tuple(cfg.lgm_down_channels),
+                             down_attention=tuple(cfg.lgm_down_attention),
+                             num_frames=max(cfg.num_views, 1)),
+                z_channels=cfg.latent_channels, double_z=True)
+        elif cfg.num_views == 0:
             self.encoder = Encoder(enc_cfg)
         elif cfg.num_views > 4:
             self.encoder = MVEncoderDynamic(enc_cfg,
@@ -254,16 +268,17 @@ class TriplaneVAE(nn.Module):
                ray_origins: Optional[torch.Tensor] = None,
                ray_directions: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               draws: Optional[RenderDraws] = None) -> dict:
+               draws: Optional[RenderDraws] = None,
+               apply_sr: bool = True) -> dict:
         """Volume-render planes for 25-dim cameras (full ``resolution²``
         images) or for given square ray bundles.  Sampling is jittered
         when ``draws`` or a ``generator`` is given (see
         :func:`~ln3diff_tpu_torch.render.renderer.render_rays`).  Returns
         image_raw (B, res, res, 3), feature_image, image_depth,
-        image_mask and, with an SR head, image_sr (an unbounded conv
-        output: ``NearestConvSR`` in the head's dtype, the StyleGAN heads
-        in f32).  With ``use_background`` the fg half of the planes goes
-        through the two-pass renderer (and kernel 1 with
+        image_mask and, with an SR head and ``apply_sr``, image_sr (an
+        unbounded conv output: ``NearestConvSR`` in the head's dtype, the
+        StyleGAN heads in f32).  With ``use_background`` the fg half of
+        the planes goes through the two-pass renderer (and kernel 1 with
         ``use_fused_osg``), the bg half through ``bg_decoder``
         (``render_rays_fg_bg``; ``draws`` are the fg pass's)."""
         if ray_origins is None:
@@ -295,7 +310,7 @@ class TriplaneVAE(nn.Module):
         ret = dict(feature_image=feature_image, image_raw=rgb,
                    image_depth=depth_image,
                    image_mask=weights * 1.002 - 0.001)
-        if self.cfg.use_sr:
+        if self.cfg.use_sr and apply_sr:
             if self.cfg.sr_module.startswith('stylegan'):
                 ws = self.sr_ws.expand(B, self.sr_ws.shape[0])
                 ret['image_sr'] = self.superresolution(feature_image, rgb,

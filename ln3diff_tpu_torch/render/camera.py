@@ -4,10 +4,14 @@ The port's own copy of the functions of ``ln3diff_tpu/render/camera.py``
 that it needs (reference ``nsr/camera_utils.py``): G-Objaverse z-up
 pitch/yaw cameras packed as 25-dim labels for the orbit render
 (``generate_input_camera`` :84, reference :221-263), the loader of the
-release's pose assets (``load_pose_asset`` :112), and the look-at
+release's pose assets (``load_pose_asset`` :112), the look-at
 poses and FOV intrinsics of the synthetic training scene
 (``create_cam2world_matrix`` :20, ``lookat_pose`` :46,
-``fov_to_intrinsics`` :77; reference :23-219).
+``fov_to_intrinsics`` :77; reference :23-219), and the Gaussian and
+uniform pose samplers of the EG3D warm-up (``gaussian_pose`` :56,
+``uniform_pose`` :66; reference ``GaussianCameraPoseSampler``,
+``UniformCameraPoseSampler``) over a ``numpy.random.Generator``, so that
+one seed gives the JAX package's cameras bit for bit.
 """
 
 from __future__ import annotations
@@ -57,6 +61,31 @@ def lookat_pose(horizontal: np.ndarray, vertical: np.ndarray,
     lookat = np.broadcast_to(np.asarray(lookat_position, np.float32),
                              origins.shape)
     return create_cam2world_matrix(lookat - origins, origins)
+
+
+def gaussian_pose(rng: np.random.Generator, horizontal_mean, vertical_mean,
+                  horizontal_stddev=0.0, vertical_stddev=0.0,
+                  radius: float = 1.0, batch_size: int = 1):
+    """Cameras looking at the origin from azimuth ~ N(horizontal_mean,
+    horizontal_stddev²) and polar angle ~ N(vertical_mean,
+    vertical_stddev²) at ``radius``: ``(B, 4, 4)`` f32."""
+    h = rng.standard_normal((batch_size,)) * horizontal_stddev \
+        + horizontal_mean
+    v = rng.standard_normal((batch_size,)) * vertical_stddev + vertical_mean
+    origins = _spherical_origin(h, v, radius)
+    return create_cam2world_matrix(-origins, origins)
+
+
+def uniform_pose(rng: np.random.Generator, horizontal_mean, vertical_mean,
+                 horizontal_stddev=0.0, vertical_stddev=0.0,
+                 radius: float = 1.0, batch_size: int = 1):
+    """As :func:`gaussian_pose`, the angles uniform in mean ± stddev."""
+    h = (rng.uniform(size=(batch_size,)) * 2 - 1) * horizontal_stddev \
+        + horizontal_mean
+    v = (rng.uniform(size=(batch_size,)) * 2 - 1) * vertical_stddev \
+        + vertical_mean
+    origins = _spherical_origin(h, v, radius)
+    return create_cam2world_matrix(-origins, origins)
 
 
 def fov_to_intrinsics(fov_degrees: float) -> np.ndarray:

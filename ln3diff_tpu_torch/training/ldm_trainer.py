@@ -47,6 +47,7 @@ from ..models.layers import random_init_, zero_init_like_jax
 from ..models.unet import UNetModel
 from ..pipeline import resolve_device
 from .train_state import TrainState, build_train_step, make_optimizer
+from .vae_trainer import train_loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,40 +238,39 @@ class LDMTrainer:
                  step_offset: int = 0, eval_fn: Optional[Callable] = None,
                  eval_interval: int = 0, guard=None,
                  log: Callable = print) -> TrainState:
-        """``num_steps`` steps over ``data`` (dicts of arrays).  Every
-        ``log_interval`` steps the metrics go to ``log`` as floats;
-        ``eval_fn(state, step)`` runs every ``eval_interval`` steps; a
-        ``guard`` (anything with ``should_stop()``, such as a preemption
-        guard) stops the loop at the next step boundary."""
+        """``num_steps`` steps over ``data`` (dicts of arrays) through
+        ``vae_trainer.train_loop``: every ``log_interval`` steps the
+        metrics go to ``log`` as floats; ``eval_fn(state, step)`` runs
+        every ``eval_interval`` steps; a ``guard`` (anything with
+        ``should_stop()``, such as a preemption guard) stops the loop at
+        the next step boundary."""
         if self._step_fn is None:
             self.build()
-        for i in range(num_steps):
-            batch = _to_device(next(data), self.device)
-            if self.resampler is not None:
-                # t for every sample, shaped like the batch's leading axes
-                # so that the microbatch split slices it
-                lead = batch['latent'].shape[
-                    :1 if self.cfg.microbatch_steps == 1 else 2]
-                t_np, w_np = self.resampler.sample(self._resampler_rng,
-                                                   int(np.prod(lead)))
-                batch['t'] = torch.as_tensor(
-                    t_np, device=self.device).reshape(lead)
-                batch['t_weights'] = torch.as_tensor(
-                    w_np, device=self.device).reshape(lead)
+
+        def step_fn(raw, i):
+            batch = _to_device(raw, self.device)
+            if self.resampler is None:
+                return self.train_step(batch)
+            # t for every sample, shaped like the batch's leading axes so
+            # that the microbatch split slices it
+            lead = batch['latent'].shape[
+                :1 if self.cfg.microbatch_steps == 1 else 2]
+            t_np, w_np = self.resampler.sample(self._resampler_rng,
+                                               int(np.prod(lead)))
+            batch['t'] = torch.as_tensor(t_np,
+                                         device=self.device).reshape(lead)
+            batch['t_weights'] = torch.as_tensor(
+                w_np, device=self.device).reshape(lead)
             metrics = self.train_step(batch)
-            if self.resampler is not None:
-                self.resampler.update_with_losses(
-                    t_np, metrics.pop('per_sample_loss').cpu().numpy())
-            step = step_offset + i + 1
-            if (i + 1) % self.cfg.log_interval == 0:
-                log(dict({k: float(v) for k, v in metrics.items()},
-                         step=step))
-            if eval_fn is not None and eval_interval \
-                    and (i + 1) % eval_interval == 0:
-                eval_fn(self.state, step)
-            if guard is not None and guard.should_stop():
-                log({'stopped_after_step': step})
-                break
+            self.resampler.update_with_losses(
+                t_np, metrics.pop('per_sample_loss').cpu().numpy())
+            return metrics
+
+        train_loop(step_fn, data, num_steps, self.cfg.log_interval,
+                   step_offset, log, guard,
+                   eval_fn=eval_fn and (lambda step: eval_fn(self.state,
+                                                             step)),
+                   eval_interval=eval_interval)
         return self.state
 
 

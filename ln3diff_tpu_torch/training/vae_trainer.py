@@ -153,19 +153,26 @@ def prepare_patch_batch(raw: dict, rng: np.random.Generator, device,
     return out
 
 
-def train_loop(step_fn: Callable, data: Iterator[dict], num_steps: int,
+def train_loop(step_fn: Callable, data: Iterator, num_steps: int,
                log_interval: int, step_offset: int, log: Callable,
-               guard=None):
+               guard=None, eval_fn: Optional[Callable] = None,
+               eval_interval: int = 0):
     """``num_steps`` calls of ``step_fn(raw batch, step index) ->
     metrics`` over ``data``; every ``log_interval`` steps the metrics go to
-    ``log`` as a dict of floats.  A ``guard`` (anything with
-    ``should_stop()``, such as ``preemption.PreemptionGuard``) stops the
-    loop at the next step boundary."""
+    ``log`` as a dict of floats, and every ``eval_interval`` steps
+    ``eval_fn(step)`` runs (the in-training evaluation hook of JAX's
+    ``run_loop``; the trainers pass it their state).  A ``guard``
+    (anything with ``should_stop()``, such as
+    ``preemption.PreemptionGuard``) stops the loop at the next step
+    boundary."""
     for i in range(num_steps):
         metrics = step_fn(next(data), step_offset + i)
         step = step_offset + i + 1
         if (i + 1) % log_interval == 0:
             log(dict({k: float(v) for k, v in metrics.items()}, step=step))
+        if eval_fn is not None and eval_interval \
+                and (i + 1) % eval_interval == 0:
+            eval_fn(step)
         if guard is not None and guard.should_stop():
             log({'stopped_after_step': step})
             break
@@ -344,11 +351,14 @@ class VAETrainer:
     def run_loop(self, data: Iterator[dict], num_steps: Optional[int] = None,
                  step_offset: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 log: Callable = print, guard=None) -> TrainState:
+                 log: Callable = print, guard=None,
+                 eval_fn: Optional[Callable] = None,
+                 eval_interval: int = 0) -> TrainState:
         """``num_steps`` (default ``total_steps``) steps over ``data``
-        (:func:`train_loop`, with its logging and ``guard``); with an
-        adversarial head each step is followed by a discriminator step
-        (its metrics join the step's).  ε and the render's draws come from
+        (:func:`train_loop`, with its logging, ``eval_fn(state, step)``
+        every ``eval_interval`` steps and ``guard``); with an adversarial
+        head each step is followed by a discriminator step (its metrics
+        join the step's).  ε and the render's draws come from
         ``generator`` (default: a generator on the device seeded with
         1234)."""
         if generator is None:
@@ -364,5 +374,8 @@ class VAETrainer:
             return metrics
 
         train_loop(step_fn, data, num_steps or self.cfg.total_steps,
-                   self.cfg.log_interval, step_offset, log, guard)
+                   self.cfg.log_interval, step_offset, log, guard,
+                   eval_fn=eval_fn and (lambda step: eval_fn(self.state,
+                                                             step)),
+                   eval_interval=eval_interval)
         return self.state

@@ -1173,3 +1173,138 @@ def test_augment_and_grid_sample_card_match_cpu(cuda):
     for got, want in zip(out['cuda'], out['cpu']):
         torch.testing.assert_close(got.cpu(), want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def _small_warmup(dev):
+    """A small EG3D warm-up trainer: a toy ``FFHQVAE`` (a 2-block ViT at
+    56², 32² planes of 8 channels, the 8XDC head's ``sr_ws``) under a
+    teacher with w 512 and 32² planes, f32, 16² renders."""
+    from ln3diff_tpu_torch.models.eg3d import TriPlaneGeneratorConfig
+    from ln3diff_tpu_torch.models.vae_shapenet import FFHQVAE, FFHQVAEConfig
+    from ln3diff_tpu_torch.models.vit import vit_registry
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    from ln3diff_tpu_torch.training.eg3d_warmup import (EG3DWarmupTrainer,
+                                                        WarmupConfig)
+    cfg = FFHQVAEConfig(
+        encoder_vit=vit_registry('dinov2-s/14', img_size=56, embed_dim=32,
+                                 depth=2, num_heads=2),
+        token_size=4, decoder_embed_dim=32, decoder_fusion_depth=2,
+        decoder_num_heads=2, channel_multiplier=2, plane_channels=8,
+        triplane_resolution=32, decoder_output_dim=8, dtype=torch.float32)
+    with torch.device(dev):
+        model = FFHQVAE(cfg, encoder=True)
+    return EG3DWarmupTrainer(
+        cfg, TriPlaneGeneratorConfig(z_dim=16, w_dim=512,
+                                     plane_resolution=32, plane_channels=8,
+                                     decoder_output_dim=8),
+        WarmupConfig(lr=2e-3, ema_rate=0.5, batch_size=2,
+                     render_resolution=16, num_shape_points=256),
+        render_opts=RenderOptions(depth_resolution=8,
+                                  depth_resolution_importance=8,
+                                  ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                                  white_back=False),
+        seed=3, model=model, device=dev)
+
+
+def test_eg3d_warmup_step_card_matches_cpu(cuda_f32):
+    """One warm-up step, card against CPU, f32, the same weights, cameras
+    and draws: the loss and each term within 2e-3 relative, every grad
+    within 2e-3 of scale (floor 1e-5 of the largest grad), the AdamW step
+    within 2·lr; no kernel launches (the JAX step runs none)."""
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.render.renderer import draw_uniforms
+    from ln3diff_tpu_torch.training.eg3d_warmup import WarmupDraws
+    g = torch.Generator().manual_seed(4)
+    draws = WarmupDraws(torch.randn((2, 16), generator=g),
+                        torch.rand((2, 256, 3), generator=g) - 0.5,
+                        torch.randn((2, 4, 4, 4, 3), generator=g), None)
+    out, state = {}, None
+    before = FusedOSG.launches
+    for dev in ('cpu', cuda_f32):
+        tr = _small_warmup(dev)
+        if state is None:
+            with torch.no_grad():
+                tr.model.sr_ws.normal_(0, 0.3, generator=g)
+            state = tuple({k: v.clone() for k, v in m.state_dict().items()}
+                          for m in (tr.model, tr.teacher))
+            cam = torch.from_numpy(tr._sample_cameras(2))
+            draws = draws._replace(render=draw_uniforms(2, 256, tr.opts, g,
+                                                        'cpu'))
+        tr.model.load_state_dict(state[0])
+        tr.teacher.load_state_dict(state[1])
+        d = WarmupDraws(*(x.to(dev) if torch.is_tensor(x)
+                          else type(x)(*(y.to(dev) for y in x))
+                          for x in draws))
+        loss, terms = tr.loss_fn(None, None, {'c': cam.to(dev)}, d)
+        loss.backward()
+        grads = _grads_of(tr.model)
+        tr.train_step(cam.to(dev), draws=d)
+        out[str(dev)] = loss.item(), terms, grads, {
+            k: p.detach().cpu() for k, p in tr.state.params.items()}
+    (lc, tc, gc, pc), (lg, tg, gg, pg) = out['cpu'], out['cuda']
+    assert FusedOSG.launches == before
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    assert sorted(tc) == ['depth', 'img', 'plane', 'shape', 'ws']
+    for k in tc:
+        assert abs(float(tg[k]) - float(tc[k])) <= 2e-3 * abs(float(tc[k]))
+    _assert_grads_close(gg, gc)
+    for k in pc:
+        assert float((pg[k] - pc[k]).abs().max()) <= 2 * 2e-3 + 1e-6, k
+
+
+def test_lgm_encode_card_matches_cpu(cuda_f32):
+    """``TriplaneVAE(encoder_type='lgm').encode`` of two views of 32² ×
+    10 (the joint-view attention at the second level, in query chunks on
+    the card), card against CPU, f32, within 2e-4 of scale."""
+    from ln3diff_tpu_torch.models.dit import DiT2Config
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE, TriplaneVAEConfig
+    cfg = TriplaneVAEConfig(
+        encoder_ch=8, encoder_ch_mult=(1, 2), img_resolution=32,
+        num_views=2, latent_size=16, encoder_type='lgm',
+        lgm_down_channels=(32, 64), lgm_down_attention=(False, True),
+        dit2=DiT2Config(tokens_per_plane=64, hidden_size=32, depth=2,
+                        num_heads=2, dtype=torch.float32),
+        conv_sr_ch=8, conv_sr_ch_mult=(1, 2), dtype=torch.float32)
+    cpu = TriplaneVAE(cfg, encoder=True)
+    random_init_(cpu, torch.Generator().manual_seed(2))
+    with torch.device(cuda_f32):
+        card = TriplaneVAE(cfg, encoder=True)
+    card.load_state_dict(cpu.state_dict())
+    for m in card.modules():
+        if hasattr(m, 'query_chunk'):
+            m.query_chunk = 100
+    x = torch.randn((4, 32, 32, 10), generator=torch.Generator()
+                    .manual_seed(3))
+    with torch.no_grad():
+        want = cpu.encode(x)
+        got = card.encode(x.to(cuda_f32)).cpu()
+    assert tuple(got.shape) == (2, 16, 16, 8, 3)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-4 * float(want.abs().max()))
+
+
+def test_stylegan3_card_matches_cpu(cuda_f32):
+    """A small ``GeneratorSG3`` (32², 6 layers), card against CPU, f32,
+    ψ = 0.7 and with ``update_emas`` (the magnitude EMAs too), within
+    2e-4 of scale."""
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.stylegan3 import GeneratorSG3
+    kw = dict(z_dim=32, w_dim=32, img_resolution=32, num_layers=6,
+              channel_base=1024, channel_max=32)
+    cpu = GeneratorSG3(**kw)
+    random_init_(cpu, torch.Generator().manual_seed(2))
+    with torch.device(cuda_f32):
+        card = GeneratorSG3(**kw)
+    card.load_state_dict(cpu.state_dict())
+    z = torch.randn((2, 32), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for kwargs in (dict(truncation_psi=0.7), dict(update_emas=True)):
+            want = cpu(z, **kwargs)
+            got = card(z.to(cuda_f32), **kwargs).cpu()
+            assert tuple(got.shape) == (2, 32, 32, 3)
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=2e-4 * float(want.abs().max()))
+    for k, v in cpu.state_dict().items():
+        torch.testing.assert_close(card.state_dict()[k].cpu(), v, rtol=1e-4,
+                                   atol=1e-6, msg=k)
