@@ -88,7 +88,20 @@ from a fixed seed:
   encoder (``encoder_type='lgm'``) over 4 views of 256² × 10;
 * ``stylegan3``: ``GeneratorSG3`` at its defaults (256², 14 layers),
   batch 4.  No kernel runs on these three paths (none does in JAX):
-  each reads the four kernels' launch counters at 0.
+  each reads the four kernels' launch counters at 0;
+* ``reference_checkpoint``: the ``objaverse/t23d-dit`` release's joint
+  checkpoint (DiT-L/2 + the Objaverse VAE, about 1.03 B random f32
+  values) under the reference's ``ddpm_model.*`` / ``rec_model.*`` names,
+  as ``.safetensors`` and ``.pt``, each through the port's convert CLI
+  with ``--verify``: 0 mismatches and the same converted bytes;
+* ``sample_entry``: the port's sample CLI on that conversion with
+  ``--preset objaverse/t23d-dit`` (DDIM 250, CFG 6.5, 24 frames of 128²,
+  the 192³ mesh): 75 launches of kernel 1, the loaded weights bit for bit,
+  frames, OBJ and AVI checked, then a small converted model card vs CPU;
+* ``eg3d_teacher_pickle``: a persistence-format pickle of the default EG3D
+  ``G_ema`` through ``legacy_pkl_to_npz`` into 2 warm-up steps of its
+  entry point, the teacher's tensors and ``w_avg`` equal to the
+  pickle's.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -1528,14 +1541,15 @@ def serving_pipeline(modules, prompt):
     return _serving_call(pipe, encode, prompt, 'text_encode')
 
 
-def image_pipeline(build, modules, inputs):
+def image_pipeline(build, modules, inputs, repeat=True):
     """The image→3D or multi-view→3D call at full width
     (``_serving_call``): ``build`` is ``build_i23d_pipeline`` or
     ``build_mv23d_pipeline``, the denoiser in ``modules`` has plain or
     fused attention, ``inputs`` are the image or the views."""
     pipe, encode, _ = build('cuda', den_cfg=modules['denoiser'].cfg,
                             modules=modules)
-    return _serving_call(pipe, encode, inputs, 'image_encode')[0]
+    return _serving_call(pipe, encode, inputs, 'image_encode',
+                         repeat=repeat)[0]
 
 
 def t23d_samplers(modules, prompt):
@@ -1596,7 +1610,7 @@ def t23d_int8(modules, fused_modules, cond, uncond, prompt, bf16_latents):
     four denoisers (bf16 and int8, plain and fused) under the profiler,
     and the qkv GEMM alone.  ``latents_rel_to_bf16``: the int8 call's
     latents against ``bf16_latents[attn]``, the bf16 call's from the same
-    noise."""
+    noise.  Each call runs once, timed by phase (``repeat=False``)."""
     from ln3diff_tpu_torch.ops.int8 import Int8Linear, quantize_dit
     from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
     res, dens = {}, {}
@@ -1610,7 +1624,8 @@ def t23d_int8(modules, fused_modules, cond, uncond, prompt, bf16_latents):
               f'quantize_dit gave {n_int8} int8 layers')
         pipe, encode, _ = build_t23d_pipeline(
             'cuda', den_cfg=q.cfg, modules=dict(mods, denoiser=q))
-        r, lat = _serving_call(pipe, encode, prompt, 'text_encode')
+        r, lat = _serving_call(pipe, encode, prompt, 'text_encode',
+                               repeat=False)
         ref = bf16_latents[attn]
         r['latents_rel_to_bf16'] = float((lat - ref).norm() / ref.norm())
         r['quantize_seconds'] = round(quant_s, 3)
@@ -1697,12 +1712,14 @@ def orbit_options(modules, cond, uncond):
 
 
 def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
-                  call_kw=None, shapes=None, mesh=True, sr_head=None):
+                  call_kw=None, shapes=None, mesh=True, sr_head=None,
+                  repeat=True):
     """A serving call at full width: ``__call__`` (with a ``mesh_path``
     unless ``mesh`` is False) on the conditioning ``encode(inputs)``.  The
     call runs twice from the same noise: once as a user runs it (its wall
-    time, ``call_seconds``), then with every stage under a synchronising
-    timer, so the seconds by phase (``encode_key`` for the conditioning,
+    time, ``call_seconds``; skipped with ``repeat=False``, which keeps
+    every check of the second run), then with every stage under a
+    synchronising timer, so the seconds by phase (``encode_key`` for the conditioning,
     ``sample_key`` for the denoiser) add up without the overlap of march
     and orbit; launches are counted per phase in the second run, kernel 3
     once per block and denoiser call with fused attention and never
@@ -1738,14 +1755,18 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
                     generator=torch.Generator(device='cuda').manual_seed(1),
                     **kw)
 
-    cond, uncond = encode(inputs)
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        untimed = call(os.path.join(tmp, 'untimed.obj'),
-                       video_uint8=sr_head is not None)
-        torch.cuda.synchronize()
-        call_s = time.perf_counter() - t0
+    check(repeat or sr_head is None, 'the SR frames are checked against '
+          'the first run')
+    untimed, call_s = None, None
+    if repeat:
+        cond, uncond = encode(inputs)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            untimed = call(os.path.join(tmp, 'untimed.obj'),
+                           video_uint8=sr_head is not None)
+            torch.cuda.synchronize()
+            call_s = round(time.perf_counter() - t0, 3)
 
     secs, osg, last, calls = {}, {}, {}, {}
 
@@ -1802,7 +1823,7 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
 
     video, latents, planes = out['video'], out['latents'], out['planes']
     verts, faces = out['mesh'] if mesh else ((), ())
-    check(bool(torch.equal(untimed['latents'], latents)),
+    check(untimed is None or bool(torch.equal(untimed['latents'], latents)),
           'the timed and the untimed call sample different latents')
     for key, t in (('latents', latents), ('planes', planes),
                    ('video', video)):
@@ -1868,7 +1889,7 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
         by_phase['render_rays'] = round(secs['render'] - secs['sr_head'], 3)
     return dict(
         seconds_by_phase=by_phase,
-        call_seconds=round(call_s, 3), timed_call_seconds=round(timed_s, 3),
+        call_seconds=call_s, timed_call_seconds=round(timed_s, 3),
         sampler=f'{pipe.spec.kind}{pipe.spec.num_steps}',
         denoiser_calls=den_calls,
         quantized=getattr(den_cfg, 'quantized', False),
@@ -1941,11 +1962,12 @@ def dit_profile(denoisers, cond, uncond, steps=10, t_value=500,
 def i23d_int8(build, modules, inputs, cond, uncond):
     """The image→3D serving call at full width (250 FM steps, no cut) with
     ``quantize_dit`` of the plain-attention DiT-I23D-L/2 (``bench.py``'s
-    ``LN3DIFF_BENCH_INT8`` for i23d), and an FM step of it and of the bf16
-    denoiser under the profiler."""
+    ``LN3DIFF_BENCH_INT8`` for i23d), run once, timed by phase, and an
+    FM step of it and of the bf16 denoiser under the profiler."""
     from ln3diff_tpu_torch.ops.int8 import quantize_dit
     q = quantize_dit(modules['denoiser'])
-    res = image_pipeline(build, dict(modules, denoiser=q), inputs)
+    res = image_pipeline(build, dict(modules, denoiser=q), inputs,
+                         repeat=False)
     res['step_profile'] = dit_profile(
         {'bf16_plain_attention': modules['denoiser'],
          'int8_plain_attention': q}, cond, uncond, t_value=0.5)
@@ -1957,7 +1979,8 @@ def image_families():
     """The image→3D and multi-view→3D serving calls at full width, each
     family's models built once (random weights, seed 0) and freed before
     the next family's: the call with plain attention (as ``bench.py``
-    runs it) and with ``fused_attention=True``, then one flow-matching
+    runs it, twice) and with ``fused_attention=True`` (once, timed by
+    phase), then one flow-matching
     step of both denoisers under the profiler.  The inputs are drawn in
     [-1, 1] from a seeded ``torch.Generator``: one 224² image for i23d,
     four 224² views for mv23d."""
@@ -1988,7 +2011,10 @@ def image_families():
         plain_denoiser = modules['denoiser']
         fused_modules = dict(modules,
                              denoiser=fused_denoiser(plain_denoiser))
-        res['fused_attention'] = image_pipeline(build, fused_modules, inputs)
+        # the timed run only: the plain call above repeats as a user runs
+        # it
+        res['fused_attention'] = image_pipeline(build, fused_modules, inputs,
+                                                repeat=False)
         phase_done(f'{family}_pipeline', t0, **res)
         t0 = time.perf_counter()
         profile = dit_profile({'plain_attention': plain_denoiser,
@@ -3499,6 +3525,470 @@ def stylegan3():
                 small_card_vs_cpu=err)
 
 
+# -- the entry layer: reference checkpoints, the sample CLI, legacy pickles --
+
+def _reference_sd_module():
+    """``tests/_torch_reference_sd.py``: the reference-named state dicts
+    (the inverse of each converter with the bridge) and the persistence
+    pickle writer, the same module the CPU tests use."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, 'tests'))
+    import _torch_reference_sd
+    return _torch_reference_sd
+
+
+class HostPeak:
+    """The peak resident host memory of the process over a phase: a
+    thread reads ``/proc/self/statm`` every 10 ms from ``start()`` to
+    ``stop()`` (the kernel's own high-water mark cannot be reset on every
+    machine).  Without ``/proc`` it reports the process's lifetime peak
+    (``ru_maxrss``) and says so."""
+
+    def __init__(self):
+        import threading
+        self.scope = 'phase' if os.path.exists('/proc/self/statm') \
+            else 'process'
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _rss(self):
+        if self.scope == 'phase':
+            with open('/proc/self/statm') as f:
+                return int(f.read().split()[1]) * os.sysconf('SC_PAGE_SIZE')
+        import resource
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def stop(self):
+        """Stop sampling → the phase's memory fields (device peak since the
+        phase's ``reset_peak_memory_stats``)."""
+        import torch
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        return dict(peak_device_gib=round(torch.cuda.max_memory_allocated()
+                                          / 2**30, 3),
+                    peak_host_gib=round(self.peak / 2**30, 3),
+                    peak_host_scope=self.scope)
+
+
+def write_safetensors(sd, path):
+    """A few lines of ``.safetensors`` writer: u64 header length, the JSON
+    header (``dtype``, ``shape``, ``data_offsets``), the raw buffers."""
+    import struct
+    import torch
+    names = {torch.float32: 'F32', torch.float16: 'F16',
+             torch.bfloat16: 'BF16'}
+    header, offset = {}, 0
+    for k, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[k] = dict(dtype=names[t.dtype],
+                         shape=list(t.shape), data_offsets=[offset,
+                                                            offset + n])
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b' ' * (-len(blob) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(blob)) + blob)
+        for t in sd.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().data)
+
+
+def _same_bytes(a, b, block=1 << 26):
+    with open(a, 'rb') as fa, open(b, 'rb') as fb:
+        while True:
+            x, y = fa.read(block), fb.read(block)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _run_cli(main, argv):
+    """An entry's ``main(argv)`` in process, its standard output kept
+    (and echoed to the run's standard error)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    sys.stderr.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def reference_checkpoint(workdir):
+    """The released ``objaverse/t23d-dit`` joint checkpoint, written at
+    full width from random weights and converted by the port's CLI.  The
+    DiT-L/2 (``denoiser_preset('t23d-dit-l2')``) and the Objaverse VAE
+    with its encoder (``vae_preset('objaverse')``) draw their weights on
+    the card (``random_init_``, seeds 11 and 12); ``_torch_reference_sd``
+    renames them to the reference's ``ddpm_model.*`` / ``rec_model.*``
+    keys (with the DiT's top-level ``mixing_logit``), about 1.03 B f32
+    values.  The dict goes to ``model_joint_denoise_rec_model.pt``
+    (``torch.save``) and ``.safetensors`` (``write_safetensors``); the
+    convert CLI (``python -m ln3diff_tpu_torch.scripts.convert_checkpoint
+    --kind joint-objaverse --verify``) runs in process on each, with 0
+    mismatches against the port's modules, and the two output directories
+    must hold the same bytes.  Each step is timed.  Returns the phase's
+    fields and what ``sample_entry`` reads."""
+    import shutil
+    import torch
+    from ln3diff_tpu_torch.config import denoiser_preset, vae_preset
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    from ln3diff_tpu_torch.scripts import convert_checkpoint as cc
+    R = _reference_sd_module()
+    host = HostPeak()
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    t0 = time.perf_counter()
+    with torch.device('cuda'):
+        den = DiT_TriLatent(denoiser_preset('t23d-dit-l2'))
+        vae = TriplaneVAE(vae_preset('objaverse'), encoder=True)
+    den_sd = R.port_state_dict(den, 11)
+    vae_sd = R.port_state_dict(vae, 12)
+    del den, vae
+    torch.cuda.empty_cache()
+    ml = torch.full((1, 12, 1, 1), -6.0)
+    ref = R.joint_objaverse_reference(den_sd, vae_sd, mixing_logit=ml)
+    secs['draw'] = time.perf_counter() - t0
+    params = dict(denoiser=sum(t.numel() for t in den_sd.values()),
+                  vae=sum(t.numel() for t in vae_sd.values()))
+    params['total'] = params['denoiser'] + params['vae']
+    check(1.0e9 < params['total'] < 1.1e9, f'joint params {params}')
+    check(all(t.dtype == torch.float32 for t in ref.values()),
+          'the reference dict is not all f32')
+    outs, verify, sizes = {}, {}, {}
+    for ext, write in (('safetensors', write_safetensors), ('pt', torch.save)):
+        src = os.path.join(workdir, f'model_joint_denoise_rec_model.{ext}')
+        t0 = time.perf_counter()
+        write(ref, src)
+        secs[f'write_{ext}'] = time.perf_counter() - t0
+        sizes[os.path.basename(src)] = os.path.getsize(src)
+        outs[ext] = os.path.join(workdir, f'converted_{ext}')
+        t0 = time.perf_counter()
+        written, log = _run_cli(cc.main, [
+            '--src', src, '--kind', 'joint-objaverse', '--outdir',
+            outs[ext], '--verify'])
+        secs[f'convert_{ext}'] = time.perf_counter() - t0
+        os.remove(src)
+        lines = [ln.strip() for ln in log.splitlines() if 'leaves' in ln]
+        check(len(lines) == 2 and all(ln.endswith(' 0 mismatches')
+                                      for ln in lines),
+              f'--verify of the {ext} conversion: {lines}')
+        files = sorted(os.listdir(outs[ext]))
+        check(sorted(written) == ['denoiser', 'mixing_logit', 'vae'] and
+              files == ['denoiser.npz', 'mixing_logit.npy', 'vae.npz'],
+              f'converted files {files}')
+        verify[ext] = lines
+    t0 = time.perf_counter()
+    for f in files:
+        check(_same_bytes(os.path.join(outs['pt'], f),
+                          os.path.join(outs['safetensors'], f)),
+              f'{f} differs between the .pt and .safetensors conversions')
+    secs['compare'] = time.perf_counter() - t0
+    shutil.rmtree(outs['safetensors'])
+    sizes.update({f: os.path.getsize(os.path.join(outs['pt'], f))
+                  for f in files})
+    res = dict(seconds_by_step={k: round(v, 3) for k, v in secs.items()},
+               params=params, tensors=len(ref), bytes=sizes,
+               verify=verify['pt'], outputs_equal=True, **host.stop())
+    # a sample of the reference tensors, by the port's names, for
+    # sample_entry's weight check
+    def pick(to_reference, prefix, names):
+        return {k: ref[next(iter(to_reference({k: None}, prefix)))]
+                for k in names}
+    sample = dict(
+        denoiser=pick(R.dit_reference, 'ddpm_model.', (
+            'blocks.0.attn.qkv.weight', 'blocks.23.mlp.fc2.weight',
+            'final_layer.linear.weight', 'x_embedder.proj.weight')),
+        vae=pick(R.vae_objaverse_reference, 'rec_model.', (
+            'dit2.blocks.0.within.attn.qkv.weight',
+            'conv_sr.conv_out.weight', 'osg_decoder.EqualDense_0.weight',
+            'ldm_upsample.weight')))
+    del ref, den_sd, vae_sd
+    gc.collect()
+    return res, dict(dir=outs['pt'], sample=sample)
+
+
+def _toy_sample_cfgs(torch):
+    """A small text→3D model for the card-vs-CPU check of the sample
+    entry: a depth-2 DiT of width 64, a VAE with the release's channel
+    multipliers at 32² views and 8² latents, 32 plane channels (kernel
+    1's), a one-layer CLIP text tower; f32."""
+    from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
+    from ln3diff_tpu_torch.models.dit import DiT2Config, DiTConfig
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    return (DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                      hidden_size=64, depth=2, num_heads=2, context_dim=64,
+                      dtype=torch.float32),
+            TriplaneVAEConfig(
+                encoder_ch=8, encoder_ch_mult=(1, 2, 4, 4),
+                img_resolution=32, num_views=4, ldm_z_channels=4,
+                latent_size=8, patch_size=2, conv_sr_ch=8,
+                conv_sr_ch_mult=(1, 2, 2, 4), conv_sr_res_blocks=1,
+                plane_channels=32, decoder_output_dim=32,
+                dit2=DiT2Config(tokens_per_plane=16, hidden_size=32,
+                                depth=2, num_heads=2, dtype=torch.float32),
+                dtype=torch.float32),
+            CLIPTextConfig(hidden_size=64, num_layers=1, num_heads=2,
+                           intermediate_size=128))
+
+
+def _small_sample_reference(workdir):
+    """The sample entry on a small converted model, on the card and on the
+    CPU: a toy joint checkpoint through the convert CLI, then
+    ``main([...])`` with ``model_configs`` set to the toy configs and one
+    start latent for both devices; DDIM 8 at CFG 6.5, 8 frames of 32²,
+    a 32³ mesh grid; the random text tower drawn on the CPU for both.
+    The frames and latents within ``TOL_PIPE`` of scale (the card's render
+    through kernel 1, the CPU's plain)."""
+    import torch
+    from ln3diff_tpu_torch.models import layers
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    from ln3diff_tpu_torch.scripts import convert_checkpoint as cc
+    from ln3diff_tpu_torch.scripts import vit_triplane_diffusion_sample as vs
+    R = _reference_sd_module()
+    den_cfg, vae_cfg, text_cfg = _toy_sample_cfgs(torch)
+    den = R.port_state_dict(DiT_TriLatent(den_cfg), 21)
+    vae = R.port_state_dict(TriplaneVAE(vae_cfg, encoder=True), 22)
+    src = os.path.join(workdir, 'toy_joint.pt')
+    torch.save(R.joint_objaverse_reference(den, vae), src)
+    out = os.path.join(workdir, 'toy_converted')
+
+    def toy_module(kind, which, args):
+        with torch.device('meta'):
+            return (DiT_TriLatent(den_cfg) if which == 'denoiser'
+                    else TriplaneVAE(vae_cfg, encoder=True))
+
+    x0 = torch.randn((1, 8, 8, 12), generator=torch.Generator()
+                     .manual_seed(23))
+    plain_init = layers.random_init_
+
+    def cpu_init(module, generator=None):
+        twin = copy.deepcopy(module).cpu()
+        plain_init(twin, torch.Generator().manual_seed(24))
+        module.load_state_dict(twin.state_dict())
+        return module
+
+    saved = (cc.target_module, vs.model_configs, vs.start_noise)
+    cc.target_module = toy_module
+    vs.model_configs = lambda args: (den_cfg, vae_cfg, text_cfg)
+    vs.start_noise = lambda shape, gen, device: x0.to(device)
+    layers.random_init_ = cpu_init
+    try:
+        _run_cli(cc.main, ['--src', src, '--kind', 'joint-objaverse',
+                           '--outdir', out, '--verify', '--dit_depth', '2',
+                           '--dit2_depth', '2'])
+        runs = {}
+        for device in ('cuda', 'cpu'):
+            runs[device], _ = _run_cli(vs.main, [
+                '--prompts', 'a red wooden chair', '--vae', 'objaverse',
+                '--outdir', os.path.join(workdir, f'toy_{device}'),
+                '--denoiser_ckpt', os.path.join(out, 'denoiser.npz'),
+                '--vae_ckpt', os.path.join(out, 'vae.npz'),
+                '--num_steps', '8', '--num_frames', '8',
+                '--render_resolution', '32', '--mesh_grid', '32',
+                '--video_format', 'png', '--device', device])
+    finally:
+        cc.target_module, vs.model_configs, vs.start_noise = saved
+        layers.random_init_ = plain_init
+    errs = {}
+    for key in ('latents', 'video'):
+        a = torch.as_tensor(runs['cuda']['outputs'][0][key]).float().cpu()
+        b = torch.as_tensor(runs['cpu']['outputs'][0][key]).float()
+        scale = max(1.0, float(b.abs().max()))
+        errs[key] = float((a - b).abs().max()) / scale
+        check(errs[key] <= TOL_PIPE, f'small sample entry: {key} card vs '
+              f'CPU {errs[key]} of scale, tolerance {TOL_PIPE}')
+    return dict(rel_err=errs, tolerance=TOL_PIPE)
+
+
+def sample_entry(ckpt, workdir):
+    """The sample CLI (``python -m
+    ln3diff_tpu_torch.scripts.vit_triplane_diffusion_sample``) in process
+    as a user runs the release: ``--preset objaverse/t23d-dit`` (DDIM 250,
+    CFG 6.5, divider 0.96806, the DiT-L/2 at exact GELU stored in bf16,
+    the Objaverse VAE), ``--denoiser_ckpt`` / ``--vae_ckpt`` from
+    ``reference_checkpoint``'s conversion, one prompt, the script's
+    default 24-frame orbit of 128² renders (64+64 samples, f32 planes,
+    kernel 1) and 192³ mesh grid, ``--device cuda``.  Kernel 1's counter
+    must read 48 render launches (24 frames × coarse and importance
+    passes) + 27 σ chunks (+ the vertex colours' launches when the mesh
+    has vertices); kernels 2–4 read 0.  A sample of loaded weights must
+    equal the reference tensors cast to the stored dtype, bit for bit;
+    the frames finite and in [-1, 1]; the OBJ must parse; the ``.avi``
+    must hold 24 frames when Pillow imports (the line ``pillow: ...``
+    says whether it does).  Then ``_small_sample_reference``."""
+    import torch
+    from ln3diff_tpu_torch.scripts import vit_triplane_diffusion_sample as vs
+    try:
+        import PIL
+        pillow = f'pillow {PIL.__version__}'
+    except ImportError as e:
+        pillow = f'no pillow ({e})'
+    print(f'pillow: {pillow}', flush=True)
+    fmt = 'avi' if pillow.startswith('pillow ') else 'png'
+    host = HostPeak()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    outdir = os.path.join(workdir, 'samples')
+    prompt = 'a red wooden chair with four legs'
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    res, log = _run_cli(vs.main, [
+        '--preset', 'objaverse/t23d-dit', '--prompts', prompt,
+        '--denoiser_ckpt', os.path.join(ckpt['dir'], 'denoiser.npz'),
+        '--vae_ckpt', os.path.join(ckpt['dir'], 'vae.npz'),
+        '--outdir', outdir, '--device', 'cuda', '--video_format', fmt])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = kernel_launches()
+    out = res['outputs'][0]
+    nv, nf = obj_counts(out['mesh_path'])
+    verts, faces = out['mesh']
+    check((nv, nf) == (len(verts), len(faces)),
+          f'OBJ parses to {nv} / {nf}, the call returned {len(verts)} / '
+          f'{len(faces)}')
+    vertex_launches = counts['fused_osg'] - 75
+    check(counts['fused_osg'] == 75 if nv == 0 else vertex_launches > 0,
+          f'kernel 1 launched {counts["fused_osg"]} times, expected 48 + 27')
+    check(counts['fused_osg_bwd'] == counts['fused_attention']
+          == counts['fused_qkv_attention'] == 0,
+          f'sample entry: other kernels launched {counts}')
+    video = torch.as_tensor(out['video'])
+    check(tuple(video.shape) == (24, 128, 128, 3),
+          f'video shape {tuple(video.shape)}')
+    check(bool(torch.isfinite(video).all()), 'frames not finite')
+    vmin, vmax = float(video.min()), float(video.max())
+    check(-1.0 <= vmin and vmax <= 1.0, f'frames in [{vmin}, {vmax}]')
+    check(bool(torch.isfinite(out['latents']).all()), 'latents not finite')
+    if fmt == 'avi':
+        with open(out['video_path'], 'rb') as f:
+            data = f.read()
+        i = data.rindex(b'idx1')
+        n = int.from_bytes(data[i + 4:i + 8], 'little') // 16
+        frames = sum(data[i + 8 + 16 * e:i + 12 + 16 * e] == b'00dc'
+                     for e in range(n))
+        check(frames == 24, f'the .avi holds {frames} frames')
+    mods = res['modules']
+    checked = 0
+    for part, picks in ckpt['sample'].items():
+        own = mods[part].state_dict()
+        for k, ref_t in picks.items():
+            got = own[k].detach().cpu()
+            check(torch.equal(got, ref_t.to(got.dtype)),
+                  f'loaded {part}.{k} differs from the reference tensor '
+                  f'cast to {got.dtype}')
+            checked += 1
+    check(str(mods['denoiser'].t_embedder.fc1.weight.dtype)
+          == 'torch.bfloat16', 'the denoiser is not stored in bf16')
+    wall, load_s = out['sample_wall_s'], res['load_seconds']
+    mem = host.stop()
+    del res, mods, out, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = _small_sample_reference(workdir)
+    return dict(
+        main_seconds=round(main_s, 3), sample_wall_s=round(wall, 3),
+        load_seconds={k: round(v, 3) for k, v in load_s.items()},
+        fused_osg_launches=dict(total=counts['fused_osg'], render=48,
+                                sigma_query=27,
+                                vertex_colors=vertex_launches),
+        kernel_launches=counts, frames_range=[vmin, vmax],
+        mesh=dict(vertices=nv, faces=nf), video_format=fmt, pillow=pillow,
+        weights_checked=checked, small_reference=small, **mem)
+
+
+EG3D_G_EMA_PARAMS = 30_763_230
+
+
+def eg3d_teacher_pickle(workdir):
+    """A persistence-format pickle (``legacy.py``'s ``{'G', 'D', 'G_ema',
+    'training_set_kwargs'}``) of the default-size EG3D ``G_ema``
+    (``TriPlaneGeneratorConfig()``, 30,763,230 parameters; random draws,
+    seed 13, and a drawn ``w_avg``) under the reference's names, with a
+    ``module_src`` that would create a flag file if it were executed;
+    ``legacy_pkl_to_npz`` (``python -m
+    ln3diff_tpu_torch.scripts.legacy_pkl_to_npz``) in process; then 2
+    steps of ``ln3diff_tpu_torch.training.eg3d_warmup.main([...,
+    '--teacher_ckpt', npz])``.  The teacher's parameters and ``w_avg``
+    must equal the pickle's, the losses be finite and the flag absent."""
+    import torch
+    from ln3diff_tpu_torch.models.eg3d import (TriPlaneGenerator,
+                                               TriPlaneGeneratorConfig)
+    from ln3diff_tpu_torch.scripts import legacy_pkl_to_npz as lp
+    from ln3diff_tpu_torch.training import eg3d_warmup as ew
+    R = _reference_sd_module()
+    host = HostPeak()
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    t0 = time.perf_counter()
+    with torch.device('cuda'):
+        gen = TriPlaneGenerator(TriPlaneGeneratorConfig())
+    n_params = sum(p.numel() for p in gen.parameters())
+    check(n_params == EG3D_G_EMA_PARAMS, f'G_ema has {n_params} params')
+    sd = R.port_state_dict(gen, 13)
+    del gen
+    sd['mapping.w_avg'] = torch.randn(sd['mapping.w_avg'].shape,
+                                      generator=torch.Generator()
+                                      .manual_seed(14))
+    flag = os.path.join(workdir, 'PICKLED_SOURCE_RAN')
+    pkl = os.path.join(workdir, 'network-snapshot.pkl')
+    R.write_persistence_pickle(pkl, {
+        'G_ema': R.eg3d_reference(sd, prefix=''), 'G': None, 'D': None},
+        f'open({flag!r}, "w").write("executed")\n')
+    secs['write_pickle'] = time.perf_counter() - t0
+    npz = os.path.join(workdir, 'network-snapshot.npz')
+    t0 = time.perf_counter()
+    flat, _ = _run_cli(lp.main, [pkl, npz, '--keys', 'G_ema'])
+    secs['legacy_pkl_to_npz'] = time.perf_counter() - t0
+    check(len(flat) == len(sd), f'{len(flat)} arrays from the pickle, '
+          f'{len(sd)} in the generator')
+    check(not os.path.exists(flag), 'the pickled source was executed')
+    metrics = []
+    plain_step = ew.EG3DWarmupTrainer.train_step
+
+    def recorded(self, camera25, draws=None):
+        m = plain_step(self, camera25, draws)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return m
+
+    ew.EG3DWarmupTrainer.train_step = recorded
+    try:
+        t0 = time.perf_counter()
+        tr = ew.main(['--outdir', os.path.join(workdir, 'warmup'),
+                      '--teacher_ckpt', npz, '--total_steps', '2',
+                      '--save_interval', '2', '--log_interval', str(10**6)])
+        secs['warmup_main'] = time.perf_counter() - t0
+    finally:
+        ew.EG3DWarmupTrainer.train_step = plain_step
+    got = tr.teacher.state_dict()
+    for k, v in sd.items():
+        check(torch.equal(got[k].cpu(), v), f'teacher {k} differs from the '
+              f'pickle')
+    check(len(metrics) == 2 and all(math.isfinite(v) for m in metrics
+                                    for v in m.values()),
+          f'warm-up metrics {metrics}')
+    res = dict(seconds_by_step={k: round(v, 3) for k, v in secs.items()},
+               params=n_params, arrays=len(flat),
+               pickle_bytes=os.path.getsize(pkl),
+               teacher_tensors_equal=len(sd),
+               w_avg_equal=True, losses=[m['loss'] for m in metrics],
+               **host.stop())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -3773,6 +4263,25 @@ def main():
         phase_done(phase, t0, **res, kernel_launches=no_kernel_launches(
             phase))
 
+    # 18. the entry layer: the objaverse/t23d-dit release's joint
+    # checkpoint under the reference's names, converted by the port's CLI
+    # from .pt and .safetensors; the sample CLI on the conversion (kernel
+    # 1 on the orbit and the σ grid); a legacy EG3D pickle into the
+    # warm-up through its entry point (no kernel, as in JAX)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ref_ckpt, ckpt = reference_checkpoint(workdir)
+        phase_done('reference_checkpoint', t0, **ref_ckpt)
+        t0 = time.perf_counter()
+        entry = sample_entry(ckpt, workdir)
+        del ckpt
+        phase_done('sample_entry', t0, **entry)
+        t0 = time.perf_counter()
+        zero_kernel_launches()
+        teacher = eg3d_teacher_pickle(workdir)
+        phase_done('eg3d_teacher_pickle', t0, **teacher,
+                   kernel_launches=no_kernel_launches('eg3d_teacher_pickle'))
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
     osg_fgbg = next(c for c in checks if c['case'] == 'fgbg_frame')
@@ -3794,6 +4303,7 @@ def main():
                     for k, r in calls.items()}
     osg_by_path['ffhq_fgbg_render'] = fgbg['kernel_1']['fused_osg_launches']
     osg_by_path['adv_vae_train'] = adv['fused_osg_launches']
+    osg_by_path['sample_entry'] = entry['fused_osg_launches']['total']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']

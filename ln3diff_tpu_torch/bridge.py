@@ -48,7 +48,13 @@ adversarial heads.
 Generators carry their ``'stats'`` collection too: ``w_avg`` of the
 mapping and, in StyleGAN3, the Fourier ``freqs``/``phases``/``transform``
 and each layer's ``magnitude_ema`` become the buffers of those names
-(``eg3d_generator_state_dict``, ``sg3_generator_state_dict``).
+(``eg3d_generator_state_dict``, ``sg3_generator_state_dict``); so do the
+converters' ``_``-prefixed leaves (``mapping/_w_avg`` → ``mapping.w_avg``).
+
+Reference checkpoints: :func:`reference_trees` runs the converters of
+``conditioning/convert_ln3diff.py`` for each kind of the convert CLI
+(``KINDS``) and :func:`reference_state_dicts` carries their trees onto
+the port's modules.
 """
 
 from __future__ import annotations
@@ -96,6 +102,8 @@ def _leaf(path: tuple, arr: np.ndarray, int8_dense: bool = False):
         arr = arr.transpose(3, 2, 0, 1)
     elif name == 'embedding' or (name == 'scale' and not int8_dense):
         name = 'weight'
+    elif name.startswith('_'):          # a converter's 'stats' leaf
+        name = name[1:]
     key = '.'.join(path[:-1] + (name,))
     return key, torch.from_numpy(np.array(arr, np.float32, order='C'))
 
@@ -215,3 +223,68 @@ def vision_aided_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     out.update(_convert({k: v for k, v in params.items()
                          if k != 'backbone'}, {}))
     return out
+
+
+# -- reference checkpoints ---------------------------------------------------
+
+# the kinds of the convert CLI (``scripts/convert_checkpoint.py:30-31``)
+KINDS = ('joint-objaverse', 'joint-shapenet', 'vae-objaverse',
+         'vae-shapenet', 'vae-ffhq')
+
+
+def reference_trees(kind: str, sd: Mapping, dit_depth: int = 24,
+                    dit2_depth: int = 24, denoiser_variant: str = 'text',
+                    fusion_depth: int = 6, encoder_depth: int = 12,
+                    unet_cfg=None) -> dict:
+    """A reference state dict of ``kind`` → the JAX package's trees,
+    ``{'denoiser': ..., 'vae': ..., 'mixing_logit': ...}`` (the entries
+    the kind holds), as ``scripts/convert_checkpoint.py`` ``convert``
+    builds them.  ``unet_cfg``: the U-Net of ``joint-shapenet`` (default
+    ``denoiser_preset('shapenet-unet')``)."""
+    from .conditioning import convert_ln3diff as C
+    if kind == 'joint-objaverse':
+        return C.convert_joint_objaverse(
+            sd, dit_depth=dit_depth, dit2_depth=dit2_depth,
+            denoiser_variant=denoiser_variant)
+    if kind == 'joint-shapenet':
+        if unet_cfg is None:
+            from .config import denoiser_preset
+            unet_cfg = denoiser_preset('shapenet-unet')
+        return C.convert_joint_shapenet(sd, unet_cfg=unet_cfg,
+                                        fusion_depth=fusion_depth,
+                                        encoder_depth=encoder_depth)
+    if kind == 'vae-objaverse':
+        return {'vae': C.convert_vae_objaverse(sd, dit2_depth=dit2_depth)}
+    if kind == 'vae-shapenet':
+        return {'vae': C.convert_vae_shapenet(sd, fusion_depth=fusion_depth,
+                                              encoder_depth=encoder_depth)}
+    if kind == 'vae-ffhq':
+        return {'vae': C.convert_vae_ffhq(sd, fusion_depth=fusion_depth,
+                                          encoder_depth=encoder_depth)}
+    raise ValueError(f'unknown kind {kind!r} (choices: {KINDS})')
+
+
+def trees_state_dicts(kind: str, trees: Mapping) -> dict:
+    """:func:`reference_trees`' output → the port's state dicts: the
+    denoiser through ``unet_state_dict`` (``joint-shapenet``) or
+    ``dit_state_dict``, the VAE through ``vae_state_dict`` and the DiT
+    checkpoints' ``mixing_logit`` as an f32 tensor."""
+    out = {}
+    if 'denoiser' in trees:
+        to_sd = unet_state_dict if kind == 'joint-shapenet' \
+            else dit_state_dict
+        out['denoiser'] = to_sd(trees['denoiser'])
+    if 'vae' in trees:
+        out['vae'] = vae_state_dict(trees['vae'])
+    if 'mixing_logit' in trees:
+        out['mixing_logit'] = torch.tensor(
+            np.asarray(trees['mixing_logit'], np.float32))
+    return out
+
+
+def reference_state_dicts(kind: str, sd: Mapping, **depths) -> dict:
+    """A reference state dict of one of ``KINDS`` → ``{'denoiser': state
+    dict, 'vae': state dict, 'mixing_logit': tensor}`` (the entries the
+    kind holds) under the port's names, every leaf f32.  ``depths``:
+    :func:`reference_trees`' depths, variant and ``unet_cfg``."""
+    return trees_state_dicts(kind, reference_trees(kind, sd, **depths))

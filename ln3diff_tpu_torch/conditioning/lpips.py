@@ -2,15 +2,16 @@
 heads.
 
 Port of ``ln3diff_tpu/conditioning/lpips.py`` (``VGG16Features`` :31,
-``LPIPS`` :51, ``make_lpips_fn`` :109), ``lpips.LPIPS(net='vgg',
+``LPIPS`` :51, ``convert_lpips_torch`` :76, ``make_lpips_fn`` :109),
+``lpips.LPIPS(net='vgg',
 spatial=False)``'s arithmetic: inputs shifted and scaled, features after
 the last ReLU of each of the five stages, unit-normalised over channels,
 squared differences weighted by the heads' absolute weights, averaged
 over space and summed over layers.  Without converted weights
 ``make_lpips_fn`` draws the VGG16 at random (``random_init_``) and sets
-the heads to 1, as the JAX init does.  Loading ``lpips``' torch
-state dict (``convert_lpips_torch``) waits for the port's state-dict
-loader (``ROADMAP.md`` §1 item 4).
+the heads to 1, as the JAX init does.  ``lpips``' own torch weights
+load through ``convert_lpips_torch`` and ``bridge.lpips_state_dict``:
+``make_lpips_fn(lpips_state_dict(convert_lpips_torch(sd)))``.
 """
 
 from __future__ import annotations
@@ -90,6 +91,32 @@ class LPIPS(nn.Module):
             d = torch.sum(torch.abs(w) * (a - b)**2, dim=1, keepdim=True)
             total = total + d.mean(dim=(1, 2, 3))
         return total
+
+
+def convert_lpips_torch(state_dict) -> dict:
+    """``lpips.LPIPS(net='vgg')``'s torch weights → the JAX package's
+    LPIPS params (numpy): the VGG convs ``net.slice{s}.{idx}.weight``
+    (OIHW, in feature-stack order) as ``vgg/conv{i}`` HWIO kernels, the
+    1x1 heads ``lin{i}.model.1.weight`` (1, C, 1, 1) as ``lin{i}`` (1, 1,
+    1, C)."""
+    from .convert import _np
+    params: dict = {'vgg': {}}
+    conv_keys = [k for k in state_dict
+                 if k.startswith('net.') and k.endswith('.weight')
+                 and state_dict[k].ndim == 4]
+    conv_keys.sort(key=lambda k: [int(s) for s in k.split('.')
+                                  if s.isdigit()])
+    for i, k in enumerate(conv_keys):
+        b = k.replace('.weight', '.bias')
+        params['vgg'][f'conv{i}'] = {
+            'kernel': _np(state_dict[k]).transpose(2, 3, 1, 0),
+            'bias': _np(state_dict[b]),
+        }
+    for i in range(5):
+        k = f'lin{i}.model.1.weight'
+        if k in state_dict:
+            params[f'lin{i}'] = _np(state_dict[k]).reshape(1, 1, 1, -1)
+    return params
 
 
 def make_lpips_fn(state_dict: Optional[dict] = None, device='cuda',

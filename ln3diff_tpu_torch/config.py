@@ -1,18 +1,28 @@
-"""The presets of the serving paths and the VAE trainer, as plain
-dataclasses.
+"""The presets of the serving paths, the trainers and the release
+scripts, as plain dataclasses.
 
-The port's copy of the presets of ``ln3diff_tpu/config.py`` (that module
-imports JAX and every model) that those paths use: the render options of
-the Objaverse, ShapeNet and FFHQ releases (``RENDER_PRESETS`` :35-54), the
-evaluation cameras (``CAMERA_PRESETS`` :156-160), the Objaverse, ShapeNet,
-FFHQ and fg/bg FFHQ VAEs (``vae_preset`` :167-232, encoder fields
-included),
-``build_vae`` (:236) and the denoisers of the text→3D, image→3D,
-multi-view→3D and ShapeNet/FFHQ checkpoints (``denoiser_preset``
-:250-270).
+The port's copy of ``ln3diff_tpu/config.py`` (that module imports JAX and
+every model): the render options of the Objaverse, ShapeNet and FFHQ
+releases (``RENDER_PRESETS`` :35-54), the evaluation cameras
+(``CAMERA_PRESETS`` :156-160), the Objaverse (DiT2-L/2 and the smaller
+'objaverse-s', DiT2-B/2), ShapeNet, FFHQ and fg/bg FFHQ VAEs
+(``vae_preset`` :167-232, encoder fields included), ``build_vae`` (:236),
+the denoisers of the text→3D, image→3D, multi-view→3D and ShapeNet/FFHQ
+checkpoints (``denoiser_preset`` :250-270), one entry per release script
+(``RELEASE_PRESETS`` :280-354, ``release_preset`` :356), the
+``ExperimentConfig`` of the CLIs (:372) and its argparse helpers
+(``add_config_to_argparser``, ``args_to_config``, ``add_preset_argument``
+:404-449).
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import tempfile
 
 import torch
 
@@ -53,7 +63,9 @@ CAMERA_PRESETS = {
 def vae_preset(name: str = 'objaverse', dtype=torch.bfloat16):
     """The released VAEs.  'objaverse': SD MVEncoder over 4 views of 256²
     × 10 channels, DiT2-L/2 backbone over 16² tokens per plane, SD-Decoder
-    upsampler to (3, 128, 128, 32) planes.  'shapenet' (fusionv5):
+    upsampler to (3, 128, 128, 32) planes; 'objaverse-s' (the smaller
+    published training config, the sample script's default): the same
+    with DiT2-B/2.  'shapenet' (fusionv5):
     DINOv2-S/14 encoder, v4 DINOv2-B pair-fusion decoder with uvit skips,
     lite Rodin 4X SR to (3, 256, 256, 32) planes, ``NearestConvSR`` render
     SR.  'ffhq' (4XC_final): per-token Linear ``ldm_upsample`` over the
@@ -93,13 +105,14 @@ def vae_preset(name: str = 'objaverse', dtype=torch.bfloat16):
             decoder_num_heads=12, channel_multiplier=4, unpatchify_p=4,
             plane_channels=32, triplane_resolution=256,
             decoder_output_dim=32, dtype=dtype)
-    if name != 'objaverse':
+    if name not in ('objaverse', 'objaverse-s'):
         raise KeyError(name)
+    dit2 = 'DiT2-B/2' if name == 'objaverse-s' else 'DiT2-L/2'
     return TriplaneVAEConfig(
         encoder_in_channels=10, encoder_ch=64, encoder_ch_mult=(1, 2, 4, 4),
         encoder_res_blocks=1, img_resolution=256, num_views=4,
         ldm_z_channels=4, latent_size=32,
-        dit2=dit2_registry('DiT2-L/2', tokens_per_plane=256, dtype=dtype),
+        dit2=dit2_registry(dit2, tokens_per_plane=256, dtype=dtype),
         patch_size=2, conv_sr_ch=32, conv_sr_ch_mult=(1, 2, 2, 4),
         conv_sr_res_blocks=1, plane_channels=32, decoder_output_dim=32,
         dtype=dtype)
@@ -135,3 +148,173 @@ def denoiser_preset(name: str, dtype=torch.bfloat16):
     }
     return dit_registry(registry_names[name], input_size=32, in_channels=4,
                         dtype=dtype)
+
+
+# -- release presets: one entry per reference final-release shell script
+# (``shell_scripts/final_release/{inference,train}``); each resolves to an
+# ExperimentConfig through release_preset() ---------------------------------
+
+RELEASE_PRESETS: dict[str, dict] = {
+    # --- inference -------------------------------------------------------
+    # sample_obajverse_t23d_dit.sh: DiT-L/2 text→3D, ddim250, cfg 6.5
+    'objaverse/t23d-dit': dict(
+        dataset='objaverse', vae='objaverse', denoiser='t23d-dit-l2',
+        objective='ddpm', triplane_scaling_divider=0.96806,
+        cfg_scale=6.5, sample_steps=250, sampler='ddim',
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # sample_obajverse_i23d_dit.sh: PixArt-L/2 image→3D, flow matching,
+    # cfg 4.0
+    'objaverse/i23d-dit': dict(
+        dataset='objaverse', vae='objaverse', denoiser='i23d-pixart-l2',
+        objective='flow_matching', triplane_scaling_divider=0.96806,
+        cfg_scale=4.0, sample_steps=250, sampler='flow_matching',
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # sample_obajverse_mv23d_dit.sh: MV-L/2 multi-view→3D, flow matching
+    'objaverse/mv23d-dit': dict(
+        dataset='objaverse', vae='objaverse', denoiser='mv23d-dit-l2',
+        objective='flow_matching', triplane_scaling_divider=0.96806,
+        cfg_scale=4.0, sample_steps=250, sampler='flow_matching',
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # sample_obajverse.sh: older LDM text→3D release (divider 0.88)
+    'objaverse/t23d-ldm': dict(
+        dataset='objaverse', vae='objaverse', denoiser='t23d-dit-l2',
+        objective='ddpm', triplane_scaling_divider=0.88,
+        cfg_scale=6.5, sample_steps=250, sampler='ddim',
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # sample_shapenet_{car,chair,plane}_t23d.sh: U-Net LSGM, cfg 1.0; the
+    # conditioning is the pooled CLIP text feature, L2-normalised and
+    # scaled by --scale_clip_encoding 18.4 (FrozenCLIPTextEmbedder,
+    # ldm/modules/encoders/modules.py:209-260)
+    **{f'shapenet/{cls}-t23d': dict(
+        dataset='shapenet', vae='shapenet', denoiser='shapenet-unet',
+        objective='vpsde', triplane_scaling_divider=1.0,
+        cfg_scale=1.0, sample_steps=250, sampler='ddim',
+        scale_clip_encoding=18.4,
+        cfg='shapenet_tuneray_aug_resolution_64_64_nearestSR',
+        dataset_class=cls) for cls in ('car', 'chair', 'plane')},
+    # sample_ffhq_t23d.sh: FFHQ 4XC_final VAE + U-Net, cfg 6.5
+    'ffhq/t23d': dict(
+        dataset='ffhq', vae='ffhq', denoiser='shapenet-unet',
+        objective='vpsde', triplane_scaling_divider=1.0,
+        cfg_scale=6.5, sample_steps=250, sampler='ddim',
+        scale_clip_encoding=1.0, cfg='ffhq'),
+    # vae_reconstruction.sh / vae_xl_reconstruction.sh
+    'objaverse/vae-rec': dict(
+        dataset='objaverse', vae='objaverse', denoiser='t23d-dit-l2',
+        objective='reconstruction',
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # --- training --------------------------------------------------------
+    # train/stage-1-vae/Objaverse/mv-75k-addDepth_disc.sh (8×A100)
+    'train/objaverse-vae': dict(
+        dataset='objaverse', vae='objaverse', objective='reconstruction',
+        lr=1e-4, batch_size=8, patch_rendering_resolution=32,
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # train/stage-2-diffusion/objaverse-dit.sh (DiT on extracted latents)
+    'train/objaverse-dit': dict(
+        dataset='objaverse', vae='objaverse', denoiser='t23d-dit-l2',
+        objective='flow_matching', lr=1e-4, batch_size=20,
+        triplane_scaling_divider=0.96806,
+        cfg='objverse_tuneray_aug_resolution_64_64_auto'),
+    # train/stage-1-vae/ShapeNet/{car,chair,plane}_vae.sh
+    **{f'train/shapenet-{cls}-vae': dict(
+        dataset='shapenet', vae='shapenet', objective='reconstruction',
+        lr=1e-4, batch_size=8,
+        cfg='shapenet_tuneray_aug_resolution_64_64_nearestSR',
+        dataset_class=cls) for cls in ('car', 'chair', 'plane')},
+    # train/stage-2-diffusion/shapenet_cldm (joint LSGM)
+    'train/shapenet-lsgm': dict(
+        dataset='shapenet', vae='shapenet', denoiser='shapenet-unet',
+        objective='vpsde_joint', lr=1e-4,
+        cfg='shapenet_tuneray_aug_resolution_64_64_nearestSR'),
+}
+
+
+def release_preset(name: str) -> 'ExperimentConfig':
+    """A release-preset name → its ``ExperimentConfig``; the keys that are
+    not fields (cfg_scale, sampler, …) land in ``extras``."""
+    spec = dict(RELEASE_PRESETS[name])
+    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    extras = {k: spec.pop(k) for k in list(spec) if k not in fields}
+    cfg = ExperimentConfig(**spec)
+    cfg.extras = extras
+    return cfg
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    """The flat experiment config of the CLIs (the reference's argparse
+    surface)."""
+    dataset: str = 'objaverse'
+    cfg: str = 'objverse_tuneray_aug_resolution_64_64_auto'
+    vae: str = 'objaverse-s'
+    denoiser: str = 't23d-dit-l2'
+    objective: str = 'flow_matching'
+    logdir: str = os.path.join(tempfile.gettempdir(), 'ln3diff')
+    seed: int = 0
+    # trainer knobs
+    lr: float = 1e-4
+    batch_size: int = 1
+    microbatch_steps: int = 1
+    patch_rendering_resolution: int = 32
+    triplane_scaling_divider: float = 0.96806
+    total_steps: int = 100000
+    save_interval: int = 10000
+    log_interval: int = 10
+    resume_checkpoint: str = ''
+    dataset_class: str = ''           # shapenet car/chair/plane
+    # sampler extras carried by release presets (cfg_scale, sampler, ...)
+    extras: dict = dataclasses.field(default_factory=dict)
+
+    def render_opts(self) -> RenderOptions:
+        return RENDER_PRESETS[self.cfg]
+
+    def vae_config(self):
+        return vae_preset(self.vae)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+
+def add_config_to_argparser(parser: argparse.ArgumentParser,
+                            cfg: ExperimentConfig):
+    """One ``--<field>`` flag per field of ``cfg``, defaulting to its
+    value (the reference's ``add_dict_to_argparser``)."""
+    for f in dataclasses.fields(cfg):
+        default = getattr(cfg, f.name)
+        ftype = type(default)
+        if ftype is dict:          # preset extras: not a CLI surface
+            continue
+        if ftype is bool:
+            parser.add_argument(f'--{f.name}', default=default,
+                                type=lambda s: s.lower() in
+                                ('1', 'true', 'yes'))
+        else:
+            parser.add_argument(f'--{f.name}', default=default, type=ftype)
+    return parser
+
+
+def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
+    names = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    return ExperimentConfig(**{k: v for k, v in vars(args).items()
+                               if k in names})
+
+
+def add_preset_argument(parser: argparse.ArgumentParser, argv=None):
+    """A ``--preset`` flag resolving ``RELEASE_PRESETS``: ``--preset`` is
+    parsed ahead and the named config rewrites the parser's defaults, so
+    explicit flags still override the preset's values."""
+    parser.add_argument('--preset', default='',
+                        help="RELEASE_PRESETS name (e.g. "
+                             "'train/objaverse-vae', 'train/objaverse-"
+                             "dit'); explicit flags override it")
+    argv = sys.argv[1:] if argv is None else argv
+    pre_parser = argparse.ArgumentParser(add_help=False)
+    pre_parser.add_argument('--preset', default='')
+    pre, _ = pre_parser.parse_known_args(argv)
+    if pre.preset:
+        cfg = release_preset(pre.preset)
+        names = {f.name for f in dataclasses.fields(ExperimentConfig)}
+        parser.set_defaults(**{k: v for k, v in
+                               dataclasses.asdict(cfg).items()
+                               if k in names and not isinstance(v, dict)})
+    return parser

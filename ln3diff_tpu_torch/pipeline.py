@@ -630,7 +630,8 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
                         render_resolution: Optional[int] = None,
                         sampler: Optional[SamplerSpec] = None,
                         render_dtype: Optional[torch.dtype] = torch.bfloat16,
-                        modules: Optional[dict] = None):
+                        modules: Optional[dict] = None,
+                        render_key: str = 'image_sr'):
     """The released ShapeNet (``family='shapenet'``) or FFHQ (``'ffhq'``)
     text→3D model on ``device``, as ``bench.py`` ``_build_unet_family``
     configures it.
@@ -646,7 +647,9 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
     (3, 256, 256, 32) planes, rendered in bf16 through the fused point
     kernel at 64² rays with 64+64 samples + ``NearestConvSR`` to 128², or
     128² rays with 48+48 samples + ``SuperresolutionHybrid8XDC`` to 512²:
-    the orbit's frames are ``image_sr``.  The σ grid (shapenet's mesh)
+    the orbit's frames are ``image_sr`` (``render_key='image_raw'``: the
+    renders before the SR head, as the sample script's frames).  The σ
+    grid (shapenet's mesh)
     runs through the fused kernel.  Pass the family's orbit as
     ``cameras=orbit_cameras(24, **CAMERA_PRESETS[family])`` and the ray
     resolution as ``render_resolution`` to the call, as the bench does.
@@ -693,7 +696,7 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
         denoiser,
         vae.decode_latent,
         lambda planes, cam: vae.render(planes, cam, opts, res,
-                                       use_fused_osg=True)['image_sr'],
+                                       use_fused_osg=True)[render_key],
         lambda planes, coords: vae.query_points(
             planes, coords, opts.box_warp, use_fused_osg=True),
         sampler=sampler,

@@ -9,6 +9,12 @@ parameters, every EMA copy, the AdamW moments and count and the step,
 written to a temporary directory and renamed into place, and only the
 newest ``max_to_keep`` steps kept.  The ``.npz`` helpers store a flat
 dict of tensors under the port's state-dict names.
+
+:func:`load_jax_tree_npz` reads the other ``.npz`` layout: a JAX param
+tree flattened to slash-joined names, as the JAX package's
+``save_numpy_checkpoint`` and both packages' convert CLIs write it.  It
+unflattens the names, maps the tree through a ``bridge`` function and
+loads it strictly into a port module.
 """
 
 from __future__ import annotations
@@ -130,3 +136,73 @@ def load_numpy_checkpoint(path: str, params_like: Mapping) -> dict:
         out[k] = torch.as_tensor(arr).to(dtype=like.dtype,
                                          device=like.device)
     return out
+
+
+def flatten_jax_tree(tree: Mapping, prefix: str = '') -> dict:
+    """A nested tree → ``{'a/b/c': leaf}`` in the JAX package's leaf order
+    (keys sorted at every level, as ``jax.tree_util`` flattens dicts)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out.update(flatten_jax_tree(v, f'{prefix}{k}/'))
+        else:
+            out[f'{prefix}{k}'] = v
+    return out
+
+
+def save_jax_tree_npz(path: str, tree: Mapping):
+    """Write a nested tree of arrays as the JAX package's
+    ``save_numpy_checkpoint`` does: slash-joined names, in its order."""
+    np.savez(path, **{k: np.asarray(v)
+                      for k, v in flatten_jax_tree(tree).items()})
+
+
+def _unflatten_jax_tree(flat: Mapping) -> dict:
+    """``{'a/b/c': array}`` → ``{'a': {'b': {'c': array}}}``."""
+    tree: dict = {}
+    for name, arr in flat.items():
+        *parents, leaf = name.split('/')
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
+def load_state_dict_strict(module: torch.nn.Module, sd: Mapping,
+                           what: str = '', keep=()) -> torch.nn.Module:
+    """``module.load_state_dict(sd)`` that names the first offending key:
+    a key of ``sd`` the module lacks, a tensor of the module ``sd`` lacks
+    (except those listed in ``keep``, which keep their values) or a
+    wrong shape raises."""
+    own = module.state_dict()
+    label = f'{what}: ' if what else ''
+    extra = sorted(set(sd) - set(own))
+    if extra:
+        raise KeyError(f'{label}{extra[0]} is not a tensor of '
+                       f'{type(module).__name__} ({len(extra)} extra keys)')
+    missing = sorted(set(own) - set(sd) - set(keep))
+    if missing:
+        raise KeyError(f'{label}{missing[0]} of {type(module).__name__} is '
+                       f'missing ({len(missing)} missing keys)')
+    for k, t in sd.items():
+        if tuple(t.shape) != tuple(own[k].shape):
+            raise ValueError(f'{label}{k}: shape {tuple(t.shape)} in the '
+                             f'checkpoint, {tuple(own[k].shape)} in '
+                             f'{type(module).__name__}')
+    module.load_state_dict(sd, strict=not keep)
+    return module
+
+
+def load_jax_tree_npz(path: str, module: torch.nn.Module, to_state_dict,
+                      keep=()) -> torch.nn.Module:
+    """Load a slash-joined JAX-tree ``.npz`` (a converted ``denoiser.npz``
+    / ``vae.npz``, or a JAX ``save_numpy_checkpoint`` file) into
+    ``module``: the tree goes through ``to_state_dict`` (a ``bridge``
+    function such as ``dit_state_dict``), then
+    :func:`load_state_dict_strict`."""
+    with np.load(path) as data:
+        tree = _unflatten_jax_tree({k: data[k] for k in data.files})
+    return load_state_dict_strict(module, to_state_dict(tree), what=path,
+                                  keep=keep)

@@ -32,8 +32,10 @@ render's uniforms come from a ``torch.Generator`` or are passed in
 ``split(rng, 3)``; the VAE splits its key into ε and the render's key.
 
 The teacher's weights are random (seed + 1) unless loaded: from a
-JAX-tree ``.npz`` (``load_teacher_npz``).  A reference EG3D pickle needs
-the torch state-dict loader of ``ROADMAP.md`` §1 item 4.
+JAX-tree ``.npz`` (``load_teacher_npz``) or from the torch-named state
+dict of a reference EG3D pickle (``load_teacher_state_dict``: the
+``.npz`` that ``utils/legacy_pkl.legacy_pkl_to_npz`` writes, through
+``convert_eg3d_generator``, ``w_avg`` included).
 """
 
 from __future__ import annotations
@@ -151,32 +153,29 @@ class EG3DWarmupTrainer:
     def load_teacher_npz(self, path: str):
         """The teacher's params from a JAX-tree ``.npz`` (slash-joined
         names, as the JAX package's ``save_numpy_checkpoint`` writes a
-        teacher's params), through the bridge; ``w_avg`` (not in the
-        params) keeps its value.  A torch-named dict (``G_ema.`` or
-        ``G.`` keys, a reference EG3D pickle's) raises: it needs the torch
-        state-dict loader of ``ROADMAP.md`` §1 item 4."""
+        teacher's params), through the bridge and
+        ``checkpoint.load_jax_tree_npz``; ``w_avg`` (not in the params)
+        keeps its value."""
         from ..bridge import eg3d_generator_state_dict
-        with np.load(path) as data:
-            flat = {k: data[k] for k in data.files}
-        if any(k.startswith(('G_ema.', 'G.')) for k in flat):
-            raise NotImplementedError(
-                f'{path} holds a torch-named EG3D state dict (G_ema./G. '
-                f'keys): converting it needs the loader of reference '
-                f'state dicts (convert_eg3d_generator), ROADMAP.md §1 '
-                f'item 4; pass a JAX-tree npz of the teacher\'s params')
-        tree: dict = {}
-        for name, arr in flat.items():
-            *parents, leaf = name.split('/')
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = arr
-        sd = eg3d_generator_state_dict({'params': tree})
-        own = {k for k, _ in self.teacher.named_parameters()}
-        if set(sd) != own:
-            raise ValueError(f'{path}: other teacher params '
-                             f'({sorted(set(sd) ^ own)[:4]} ...)')
-        self.teacher.load_state_dict(sd, strict=False)
+        from .checkpoint import load_jax_tree_npz
+        load_jax_tree_npz(path, self.teacher,
+                          lambda tree: eg3d_generator_state_dict(
+                              {'params': tree}),
+                          keep=('mapping.w_avg',))
+
+    def load_teacher_state_dict(self, flat_sd, prefix: str = 'G_ema.'):
+        """A reference teacher from a torch-named flat state dict — a
+        legacy EG3D ``.pkl`` through ``utils/legacy_pkl.legacy_pkl_to_npz``
+        — through ``convert_eg3d_generator`` and the bridge: the params
+        and the tracked ``w_avg`` (without it, ψ < 1 would truncate
+        towards the zero vector instead of the teacher's mean w)."""
+        from ..bridge import eg3d_generator_state_dict
+        from ..conditioning.convert_ln3diff import convert_eg3d_generator
+        from .checkpoint import load_state_dict_strict
+        params, stats = convert_eg3d_generator(flat_sd, prefix)
+        sd = eg3d_generator_state_dict({'params': params, 'stats': stats})
+        load_state_dict_strict(self.teacher, sd, what=f'{prefix}*',
+                               keep=() if stats else ('mapping.w_avg',))
 
     # -- host-side camera sampling ------------------------------------------
 
@@ -316,8 +315,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help='VAE preset name (ln3diff_tpu_torch.config.'
                         'vae_preset)')
     p.add_argument('--teacher_ckpt', default='',
-                   help='JAX-tree npz of the teacher params (a random '
-                        'teacher when empty)')
+                   help='npz teacher params: the torch-named npz of '
+                        'legacy_pkl_to_npz (G_ema. or G. keys) or a '
+                        'JAX-tree npz (a random teacher when empty)')
     p.add_argument('--lr', type=float, default=2e-4)
     p.add_argument('--batch_size', type=int, default=4)
     p.add_argument('--render_resolution', type=int, default=64)
@@ -357,7 +357,15 @@ def main(argv=None) -> EG3DWarmupTrainer:
                                 seed=args.seed, model=model,
                                 device=args.device)
     if args.teacher_ckpt:
-        trainer.load_teacher_npz(args.teacher_ckpt)
+        with np.load(args.teacher_ckpt) as data:
+            flat = {k: data[k] for k in data.files}
+        if any(k.startswith(('G_ema.', 'G.')) for k in flat):
+            # torch-named flat dict from legacy_pkl_to_npz: convert it
+            prefix = 'G_ema.' if any(k.startswith('G_ema.')
+                                     for k in flat) else 'G.'
+            trainer.load_teacher_state_dict(flat, prefix=prefix)
+        else:
+            trainer.load_teacher_npz(args.teacher_ckpt)
         print(f'loaded teacher params from {args.teacher_ckpt}')
     ckpt = CheckpointManager(os.path.join(args.outdir, 'ckpt'))
     state = trainer.run_loop(num_steps=args.total_steps, ckpt=ckpt,

@@ -478,6 +478,9 @@ def test_teacher_npz_loads_as_jax_reads_it(tmp_path):
 
 
 def test_teacher_npz_torch_names_raise(tmp_path):
+    """A torch-named dict is not a JAX tree: ``load_teacher_npz`` raises,
+    naming the key (``main`` sends such a file to
+    ``load_teacher_state_dict``, ``test_torch_entry_points.py``)."""
     path = str(tmp_path / 'legacy.npz')
     np.savez(path, **{'G_ema.backbone.mapping.w_avg':
                       np.zeros(16, np.float32)})
@@ -486,7 +489,7 @@ def test_teacher_npz_torch_names_raise(tmp_path):
         tcfg, teg3d.TriPlaneGeneratorConfig(**gen),
         twarm.WarmupConfig(**WARM), render_opts=RenderOptions(**OPTS),
         device='cpu')
-    with pytest.raises(NotImplementedError, match='item 4'):
+    with pytest.raises(KeyError, match='G_ema.backbone.mapping.w_avg'):
         ttr.load_teacher_npz(path)
 
 

@@ -364,6 +364,12 @@ def test_port_imports_without_jax():
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "import ln3diff_tpu_torch.pipeline\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_reference_sd\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'ln3diff_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -378,10 +384,34 @@ _FORBIDDEN = re.compile(
     r'|\bflax\b|\bln3diff_tpu\.', re.MULTILINE)
 
 
-@pytest.mark.parametrize('path', _PORT_MODULES + ['chip_smoke'])
+def test_boundary_covers_the_entry_layer():
+    """The checks here cover the entry layer: the CLIs under
+    ``ln3diff_tpu_torch/scripts/``, the console wrappers, the converters,
+    the utilities, and the reference-dict writer that ``chip_smoke.py``
+    imports from ``tests/``."""
+    for m in ('ln3diff_tpu_torch.cli',
+              'ln3diff_tpu_torch.conditioning.convert',
+              'ln3diff_tpu_torch.conditioning.convert_ln3diff',
+              'ln3diff_tpu_torch.scripts.convert_checkpoint',
+              'ln3diff_tpu_torch.scripts.legacy_pkl_to_npz',
+              'ln3diff_tpu_torch.scripts.vit_triplane_diffusion_sample',
+              'ln3diff_tpu_torch.scripts.'
+              'vit_triplane_diffusion_sample_objaverse',
+              'ln3diff_tpu_torch.utils.legacy_pkl',
+              'ln3diff_tpu_torch.utils.logger',
+              'ln3diff_tpu_torch.utils.misc',
+              'ln3diff_tpu_torch.utils.video'):
+        assert m in _PORT_MODULES, m
+    src = (REPO / 'chip_smoke.py').read_text()
+    assert '_torch_reference_sd' in src
+
+
+@pytest.mark.parametrize('path', _PORT_MODULES + [
+    'chip_smoke', 'tests._torch_reference_sd'])
 def test_no_jax_reference_in_source(path):
-    """No file of the port, and not chip_smoke.py, contains ``import jax``,
-    ``from jax``, ``flax`` or ``ln3diff_tpu.``."""
+    """No file of the port, not chip_smoke.py and not the reference-dict
+    writer it imports contains ``import jax``, ``from jax``, ``flax`` or
+    ``ln3diff_tpu.``."""
     src = (REPO / (path.replace('.', '/') + '.py')).read_text()
     assert not _FORBIDDEN.findall(src)
 
