@@ -101,7 +101,20 @@ from a fixed seed:
 * ``eg3d_teacher_pickle``: a persistence-format pickle of the default EG3D
   ``G_ema`` through ``legacy_pkl_to_npz`` into 2 warm-up steps of its
   entry point, the teacher's tensors and ``w_avg`` equal to the
-  pickle's.
+  pickle's;
+* under a one-rank NCCL process group (the parallel layer at world size
+  1): ``parallel_vae_train``, the full-width VAE step with the kernel pair
+  built with ``mesh=make_mesh()``, 3 steps equal to those of the same
+  trainer without a mesh (deterministic algorithms), then 2 timed steps; ``train_entries``, the five
+  training CLIs in process (``vit_triplane_train`` with a checkpoint, its
+  resume and ``--inference``, ``vit_triplane_diffusion_train`` on the t23d
+  DiT-L/2 preset and with ``--objective vpsde_joint``,
+  ``vit_triplane_sit_train``, ``vit_triplane_cvD_train``,
+  ``vit_triplane_cldm_train``) at the presets' widths with cut depths;
+  ``serving_mesh``, the text→3D call with ``serving_mesh=make_mesh()``
+  against the unsharded call on the same latents (75 launches of kernel
+  1), and ``dit_pipeline_apply`` at pp = 1 with 4 microbatches on the
+  DiT-L/2 against its plain forward.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
@@ -198,6 +211,14 @@ TOL_TRAIN = 1e-3
 # the two routes of the full-width training step (bf16 compute): the
 # first step's loss, kernel pair against plain PyTorch, relative
 TOL_TRAIN_ROUTES = 1e-2
+# the sharded serving call against the unsharded one on the same latents:
+# at one rank each frame and σ chunk runs the unsharded path's own call,
+# so the two are expected equal; |Δ| <= TOL_SERVING_MESH·max(1, |ref|)
+TOL_SERVING_MESH = 1e-6
+# dit_pipeline_apply at pp = 1 (4 microbatches) against the plain forward,
+# f32 with TF32 off: the GEMMs of a microbatch sum in another order than
+# the whole batch's; |Δ| <= TOL_PP1·max(1, |ref|)
+TOL_PP1 = 1e-5
 # the small LDM training step, card vs CPU, f32: the loss to TOL_LDM_TRAIN
 # relative, each grad to TOL_LDM_TRAIN of its tensor's scale (floor 1e-5 of
 # the largest grad), the AdamW step as TOL_TRAIN's
@@ -3989,6 +4010,399 @@ def eg3d_teacher_pickle(workdir):
     return res
 
 
+# -- the parallel layer and the training entry points ------------------------
+
+def init_nccl(workdir):
+    """A one-rank NCCL process group over a file store: this script needs
+    one card, so the parallel layer runs at world size 1 here (its
+    multi-rank semantics are held against JAX in the CPU tests, and on
+    four cards by ``scripts/parallel_card_check.py``)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', store=dist.FileStore(
+        os.path.join(workdir, 'nccl_store'), 1), rank=0, world_size=1)
+
+
+def _record_first_grads(state, into: dict):
+    """Keep a copy of the grads of ``state``'s first update in ``into``."""
+    apply = state.apply_gradients
+
+    def record(grads, g_norm=None):
+        if not into:
+            into.update({k: g.detach().clone() for k, g in grads.items()})
+        return apply(grads, g_norm)
+
+    state.apply_gradients = record
+
+
+def parallel_vae_train(steps=3, timed=3):
+    """The full-width VAE step of ``vae_train`` with the kernel pair
+    (``use_fused_osg=True``), built with ``mesh=make_mesh()`` — a one-rank
+    NCCL mesh: the rank's slice is the whole batch and the grads pass an
+    all-reduce over the one rank — beside the same trainer without a mesh,
+    from the same weights, batch and draws, in turns for ``steps`` steps
+    under ``torch.use_deterministic_algorithms`` (the card's default
+    backward sums with atomics, so two runs of one code differ by about 1%
+    of a grad's scale; kernels 1 and 2 are deterministic either way): the
+    first step's grads, every loss and the parameters after each step must
+    be equal (an all-reduce over one rank is exact, and so is the division
+    by one).  Then ``timed`` more meshed steps in the default mode (the
+    first re-tunes cuDNN after the switch; s/step is the mean of the
+    rest).  Reported: the launches of kernels 1 and 2 per meshed step
+    (counters set to 0 just before each step, read just after), s/step in
+    both modes and the peak memory above the two resident trainers."""
+    import warnings
+
+    import torch
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.parallel.mesh import (LocalMesh, is_distributed,
+                                                 make_mesh)
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+
+    model_cfg, base_cfg, loss_cfg, opts = _train_cfgs(small=False)
+    train_cfg = dataclasses.replace(base_cfg, use_fused_osg=True)
+    raw = make_multiview_batch(4, 256, 128, seed=0)
+    mesh = make_mesh()
+    check(is_distributed(mesh) and mesh.size() == 1
+          and mesh.device_type == 'cuda', f'mesh {mesh}')
+    runs, firsts = {}, {}
+    for name, m in (('mesh', mesh), ('no_mesh', LocalMesh('cuda'))):
+        tr = VAETrainer(model_cfg, train_cfg, loss_cfg, render_opts=opts,
+                        seed=0, device='cuda', mesh=m)
+        tr.init_state()
+        firsts[name] = {}
+        _record_first_grads(tr.state, firsts[name])
+        runs[name] = (tr, torch.Generator(device='cuda').manual_seed(1))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, det_secs, launches, max_diff = [], [], [], []
+    losses = {name: [] for name in runs}
+
+    def step(name, i):
+        tr, gen = runs[name]
+        batch = tr.prepare_batch(raw)
+        batch['step'] = float(i)
+        torch.cuda.synchronize()
+        FusedOSG.launches = FusedOSG.backward_launches = 0
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        if name == 'mesh':
+            launches.append((FusedOSG.launches, FusedOSG.backward_launches))
+        losses[name].append(float(m['loss']))
+        return time.perf_counter() - t0
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            for i in range(steps):
+                for name in runs:
+                    s_ = step(name, i)
+                    if name == 'mesh':
+                        det_secs.append(s_)
+                a = runs['mesh'][0].state.params
+                b = runs['no_mesh'][0].state.params
+                max_diff.append(max(float((a[k] - b[k]).abs().max())
+                                    for k in b))
+        nondet = sorted({str(w.message)[:160] for w in caught
+                         if 'deterministic' in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    grad_diff = max(float((firsts['mesh'][k] - g).abs().max())
+                    for k, g in firsts['no_mesh'].items())
+    for i in range(timed):
+        secs.append(step('mesh', steps + i))
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    del runs, firsts
+    torch.cuda.empty_cache()
+    check(not nondet, f'ops without a deterministic version: {nondet}')
+    check(grad_diff == 0.0 and all(d == 0.0 for d in max_diff)
+          and losses['mesh'][:steps] == losses['no_mesh'],
+          f'meshed step vs the step without a mesh: grads {grad_diff}, '
+          f'params {max_diff}, losses {losses}')
+    check(all(n == (8, 8) for n in launches),
+          f'kernel 1/2 launches per meshed step {launches}, expected 8/8')
+    check(all(math.isfinite(x) for x in losses['mesh']), f'losses {losses}')
+    return dict(world_size=1, backend='nccl', steps=steps,
+                first_grads_max_abs_diff=grad_diff,
+                params_max_abs_diff_per_step=max_diff,
+                tolerance='0 (equal, deterministic algorithms)',
+                losses=losses,
+                s_per_step=sum(secs[1:]) / len(secs[1:]),
+                s_per_step_runs=secs,
+                s_per_step_deterministic_runs=det_secs,
+                fused_osg_launches=sum(n[0] for n in launches),
+                fused_osg_backward_launches=sum(n[1] for n in launches),
+                launches_per_step=[list(n) for n in launches],
+                peak_mem_gib_above_two_resident_trainers=round(peak, 3),
+                resident_gib=round(resident / 2**30, 3))
+
+
+def serving_mesh(prompt):
+    """The full-width text→3D ``__call__`` with ``serving_mesh=make_mesh()``
+    (the orbit's 24 frames and the 192³ σ grid over the one NCCL rank,
+    gathered back), then the unsharded pipeline over the same modules on
+    the same latents: the frames and the σ grid must agree within
+    ``TOL_SERVING_MESH`` of scale; kernel 1 must read 75 launches in the
+    sharded call (48 render + 27 σ chunks).  Then ``dit_pipeline_apply``
+    at pp = 1 with 4 microbatches on an f32 copy of the full DiT-L/2
+    against its plain forward (``TOL_PP1``)."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.parallel.mesh import LocalMesh, make_mesh
+    from ln3diff_tpu_torch.parallel.pipeline import dit_pipeline_apply
+    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+
+    sharded, encode, modules = build_t23d_pipeline(
+        'cuda', seed=0, serving_mesh=make_mesh())
+    plain, _, _ = build_t23d_pipeline('cuda', modules=modules)
+    cond, uncond = encode(prompt)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    out = sharded(cond, uncond, num_frames=24, render_resolution=192,
+                  generator=torch.Generator(device='cuda').manual_seed(1))
+    planes = out['planes'].to(torch.bfloat16)
+    sigma = sharded.dispatch_mesh_sigma(planes, 192, smooth=True)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    FusedOSG.launches = 0
+    video = plain.render_orbit(planes, 24, render_resolution=192)
+    sigma_plain = plain.dispatch_mesh_sigma(planes, 192, smooth=True)
+    torch.cuda.synchronize()
+    err_v = float((out['video'] - video).abs().max())
+    err_s = float((sigma.float() - sigma_plain.float()).abs().max())
+    scale_v = max(1.0, float(video.abs().max()))
+    scale_s = max(1.0, float(sigma_plain.float().abs().max()))
+    check(tuple(out['video'].shape) == (1, 24, 192, 192, 3), 'video shape')
+    check(bool(torch.isfinite(out['video']).all()), 'frames not finite')
+    check(err_v <= TOL_SERVING_MESH * scale_v,
+          f'sharded frames vs unsharded: {err_v}')
+    check(err_s <= TOL_SERVING_MESH * scale_s,
+          f'sharded sigma grid vs unsharded: {err_s}')
+    check(counts['fused_osg'] == 75, f'kernel 1 launched '
+          f'{counts["fused_osg"]} times in the sharded call, expected 75')
+    check(counts['fused_attention'] == counts['fused_qkv_attention'] ==
+          counts['fused_osg_bwd'] == 0, f'other kernels launched {counts}')
+
+    den = copy.deepcopy(modules['denoiser']).float()
+    del sharded, plain, modules, out, video, sigma, sigma_plain
+    torch.cuda.empty_cache()
+    g = torch.Generator(device='cuda').manual_seed(2)
+    x = torch.randn(4, 32, 32, 12, device='cuda', generator=g)
+    t = torch.tensor([10.0, 250.0, 500.0, 990.0], device='cuda')
+    ctx = {'crossattn': torch.randn(4, 77, 768, device='cuda', generator=g)}
+    with torch.no_grad():
+        want = den(x, t, ctx)
+        got = dit_pipeline_apply(den, x, t, ctx, mesh=LocalMesh('cuda'),
+                                 n_micro=4)
+    err_pp = float((got - want).abs().max())
+    scale_pp = max(1.0, float(want.abs().max()))
+    check(err_pp <= TOL_PP1 * scale_pp,
+          f'dit_pipeline_apply pp=1 vs plain forward: {err_pp}')
+    del den
+    torch.cuda.empty_cache()
+    return dict(call_seconds=round(call_s, 3),
+                fused_osg_launches=counts['fused_osg'],
+                frames_max_abs_err=err_v, sigma_max_abs_err=err_s,
+                tolerance=f'{TOL_SERVING_MESH} of scale',
+                peak_mem_gib=round(peak, 3),
+                dit_pipeline_pp1=dict(n_micro=4, batch=4, dtype='float32',
+                                      max_abs_err=err_pp,
+                                      tolerance=f'{TOL_PP1} of scale'))
+
+
+def train_entries(workdir):
+    """The five training CLIs in process with ``--device cuda`` under the
+    one-rank NCCL group, at the presets' widths with the depths cut as
+    listed (``sizes``), each for 2–3 steps into its own temporary log
+    directory (removed after): ``vit_triplane_train`` (2 steps and a
+    checkpoint, resumed to step 3, then ``--inference --save_latent``),
+    ``vit_triplane_diffusion_train`` (the t23d DiT-L/2 preset, then
+    ``--objective vpsde_joint``), ``vit_triplane_sit_train``,
+    ``vit_triplane_cvD_train`` and ``vit_triplane_cldm_train`` (its random
+    U-Net moved off the zero init, which would make the loss independent
+    of the ControlNet: it stands in for a trained U-Net).  Per CLI: s/step
+    (the trainer's ``train_step`` wrapped with a synchronising timer), the
+    last losses and grad norm, the trained parameters the steps changed,
+    the peak device memory above what was held before it.  Fails unless
+    every training CLI's metrics are finite, its last grad norm is
+    positive and a parameter changed."""
+    import shutil
+
+    import torch
+    from ln3diff_tpu_torch.config import denoiser_preset, vae_preset
+    from ln3diff_tpu_torch.models import layers
+    from ln3diff_tpu_torch.models.unet import UNetConfig
+    from ln3diff_tpu_torch.scripts import (vit_triplane_cldm_train,
+                                           vit_triplane_cvD_train,
+                                           vit_triplane_diffusion_train,
+                                           vit_triplane_sit_train,
+                                           vit_triplane_train)
+    from ln3diff_tpu_torch.training import (ldm_trainer, lsgm_trainer,
+                                            vae_trainer)
+
+    vae_depth, dit_depth = 4, 8
+    base_vae = vae_preset('objaverse')
+    vae_cfg = dataclasses.replace(base_vae, dit2=dataclasses.replace(
+        base_vae.dit2, depth=vae_depth))
+    dit_cfg = dataclasses.replace(denoiser_preset('t23d-dit-l2'),
+                                  depth=dit_depth, remat=True,
+                                  remat_policy='dots')
+    unet_cfg = UNetConfig(in_channels=4, out_channels=4, model_channels=320,
+                          channel_mult=(1, 2), num_res_blocks=1,
+                          context_dim=None)
+    sizes = dict(
+        vae=f'objaverse preset, DiT2-L/2 depth 24 -> {vae_depth}, 1 '
+            f'instance of 4 views at 256^2, patch 32 of 128^2',
+        dit=f't23d DiT-L/2 width 1024, depth 24 -> {dit_depth}, remat '
+            f'dots, batch 8',
+        lsgm=f'the cut VAE + U-Net-320 with channel_mult (1, 2, 4, 4) -> '
+             f'(1, 2) and 1 res block per level',
+        cldm='shapenet-unet (U-Net-320, full), batch 2')
+    timers = {}
+
+    def timed(cls, attr):
+        fn = getattr(cls, attr)
+
+        def run(self, *a, **k):
+            first.setdefault(id(self), {
+                n: v.detach().clone() for n, v in self.state.params.items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            timers.setdefault(current[0], []).append(
+                time.perf_counter() - t0)
+            return out
+        setattr(cls, attr, run)
+        return fn
+
+    current = [None]
+    first = {}     # the trained parameters before a trainer's first step
+    zero_init = layers.zero_init_like_jax
+
+    def zero_init_perturbed(model):
+        zero_init(model)
+        g = torch.Generator(device='cuda').manual_seed(2)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g,
+                                          device=p.device, dtype=p.dtype))
+        return model
+
+    saved = [(c, a, timed(c, a)) for c, a in (
+        (vae_trainer.VAETrainer, 'train_step'),
+        (ldm_trainer.LDMTrainer, 'train_step'),
+        (lsgm_trainer.LSGMTrainer, 'train_step'))]
+    steps = ['--total_steps', '2', '--save_interval', '2',
+             '--log_interval', '1', '--device', 'cuda']
+    views = ['--batch_size', '1', '--num_views', '4',
+             '--encoder_resolution', '256', '--render_resolution', '128']
+    out = {}
+    try:
+        runs = [
+            ('vit_triplane_train', lambda d: vit_triplane_train.run(
+                steps + views + ['--preset', 'train/objaverse-vae',
+                                 '--batch_size', '1', '--logdir', d],
+                model_cfg=vae_cfg)),
+            ('vit_triplane_train_resume', lambda d: vit_triplane_train.run(
+                steps + views + ['--preset', 'train/objaverse-vae',
+                                 '--batch_size', '1', '--logdir', d,
+                                 '--resume_checkpoint', '1',
+                                 '--total_steps', '3'],
+                model_cfg=vae_cfg)),
+            ('vit_triplane_train_inference', lambda d: vit_triplane_train.run(
+                steps + views + ['--logdir', d, '--resume_checkpoint', '1',
+                                 '--inference', '1', '--save_latent', '1'],
+                model_cfg=vae_cfg)),
+            ('vit_triplane_diffusion_train',
+             lambda d: vit_triplane_diffusion_train.run(
+                 steps + ['--preset', 'train/objaverse-dit', '--batch_size',
+                          '8', '--logdir', d], den_cfg=dit_cfg)),
+            ('vit_triplane_diffusion_train_vpsde_joint',
+             lambda d: vit_triplane_diffusion_train.run(
+                 steps + ['--objective', 'vpsde_joint', '--batch_size', '1',
+                          '--logdir', d], vae_cfg=vae_cfg,
+                 unet_cfg=unet_cfg)),
+            ('vit_triplane_sit_train', lambda d: vit_triplane_sit_train.run(
+                steps + ['--batch_size', '8', '--logdir', d],
+                den_cfg=dit_cfg)),
+            ('vit_triplane_cvD_train', lambda d: vit_triplane_cvD_train.run(
+                steps + views + ['--logdir', d], model_cfg=vae_cfg)),
+            ('vit_triplane_cldm_train', lambda d: vit_triplane_cldm_train.run(
+                ['--device', 'cuda', '--total_steps', '3', '--batch_size',
+                 '2', '--log_interval', '1', '--logdir', d])),
+        ]
+        logdir = None
+        for name, fn in runs:
+            if not name.startswith('vit_triplane_train_'):
+                if logdir:
+                    shutil.rmtree(logdir, ignore_errors=True)
+                logdir = tempfile.mkdtemp(dir=workdir)
+            current[0] = name
+            gc.collect()       # the last CLI's trainer (reference cycles)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if name == 'vit_triplane_cldm_train':
+                layers.zero_init_like_jax = zero_init_perturbed
+            try:
+                trainer, metrics = fn(logdir)
+            finally:
+                layers.zero_init_like_jax = zero_init
+            torch.cuda.synchronize()
+            secs = timers.get(name, [])
+            losses = {k: v for k, v in metrics.items()
+                      if 'loss' in k or k.endswith('mse')}
+            check(all(math.isfinite(v) for v in metrics.values()),
+                  f'{name}: metrics {metrics}')
+            start = first.pop(id(trainer), None)
+            changed = None
+            if name != 'vit_triplane_train_inference':
+                changed = sum(not torch.equal(v, trainer.state.params[n])
+                              for n, v in start.items())
+                check(metrics['grad_norm'] > 0 and changed > 0,
+                      f'{name}: grad norm {metrics["grad_norm"]}, '
+                      f'{changed} parameters changed')
+            del start
+            params = sum(p.numel() for p in trainer.state.params.values())
+            out[name] = dict(
+                seconds=round(time.perf_counter() - t0, 3),
+                step=trainer.state.step, trained_params=params,
+                s_per_step=(sum(secs[1:]) / len(secs[1:]) if len(secs) > 1
+                            else (secs[0] if secs else None)),
+                s_per_step_runs=secs, last_losses=losses,
+                grad_norm=metrics.get('grad_norm'), params_changed=changed,
+                peak_mem_gib=round((torch.cuda.max_memory_allocated()
+                                    - before) / 2**30, 3),
+                held_before_gib=round(before / 2**30, 3))
+            if name == 'vit_triplane_train_inference':
+                files = sorted(os.listdir(os.path.join(logdir, 'eval')))
+                check('latent_0000.npy' in files and len(files) == 9,
+                      f'inference wrote {files}')
+                out[name]['eval_files'] = len(files)
+            del trainer
+        shutil.rmtree(logdir, ignore_errors=True)
+        check(out['vit_triplane_train']['step'] == 2
+              and out['vit_triplane_train_resume']['step'] == 3,
+              'checkpoint resume')
+    finally:
+        for cls, attr, fn in saved:
+            setattr(cls, attr, fn)
+    torch.cuda.empty_cache()
+    return dict(sizes=sizes, clis=out)
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -4282,6 +4696,27 @@ def main():
         phase_done('eg3d_teacher_pickle', t0, **teacher,
                    kernel_launches=no_kernel_launches('eg3d_teacher_pickle'))
 
+    # 19. the parallel layer at a world size of 1 under NCCL: the
+    # data-parallel VAE step (kernels 1 and 2) against the step without a
+    # mesh, the five training CLIs, the sharded serving call (kernel 1)
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as workdir:
+        init_nccl(workdir)
+        try:
+            t0 = time.perf_counter()
+            par = parallel_vae_train()
+            phase_done('parallel_vae_train', t0, **par)
+            t0 = time.perf_counter()
+            zero_kernel_launches()
+            entries = train_entries(workdir)
+            phase_done('train_entries', t0, **entries,
+                       kernel_launches=kernel_launches())
+            t0 = time.perf_counter()
+            served = serving_mesh(prompt)
+            phase_done('serving_mesh', t0, **served)
+        finally:
+            dist.destroy_process_group()
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
     osg_fgbg = next(c for c in checks if c['case'] == 'fgbg_frame')
@@ -4304,6 +4739,8 @@ def main():
     osg_by_path['ffhq_fgbg_render'] = fgbg['kernel_1']['fused_osg_launches']
     osg_by_path['adv_vae_train'] = adv['fused_osg_launches']
     osg_by_path['sample_entry'] = entry['fused_osg_launches']['total']
+    osg_by_path['parallel_vae_train'] = par['fused_osg_launches']
+    osg_by_path['serving_mesh'] = served['fused_osg_launches']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
@@ -4345,7 +4782,8 @@ def main():
              launches=train['fused']['fused_osg_backward_launches'],
              launches_by_path={
                  'vae_train': train['fused']['fused_osg_backward_launches'],
-                 'adv_vae_train': adv['fused_osg_backward_launches']},
+                 'adv_vae_train': adv['fused_osg_backward_launches'],
+                 'parallel_vae_train': par['fused_osg_backward_launches']},
              max_abs_err=max(e for c in bwd_checks
                              for e in c['max_abs_err'].values()),
              ms=bwd_main['ms'], device_ms=bwd_main['device_ms'],

@@ -146,13 +146,15 @@ class Attention(nn.Module):
         self.proj = dense(dim, dim)
 
     def forward(self, x):
-        B, L, D = x.shape
-        q, k, v = (t.reshape(B, L, self.num_heads, D // self.num_heads)
+        B, L, _ = x.shape
+        # heads from the projection's width: a tensor-parallel rank holds
+        # num_heads / tp of them (parallel/serving.py)
+        q, k, v = (t.reshape(B, L, self.num_heads, -1)
                    for t in self.qkv(x).chunk(3, dim=-1))
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         out = sdpa_auto(q, k, v, use_fused=self.fused)
-        return self.proj(out.reshape(B, L, D))
+        return self.proj(out.reshape(B, L, -1))
 
 
 class CrossAttention(nn.Module):
@@ -450,7 +452,10 @@ class DiT_TriLatent(nn.Module):
             dino = self.dino_proj(dino.to(dtype))
         return crossattn, dino
 
-    def forward(self, x, timesteps, context):
+    def embed(self, x, timesteps, context):
+        """Patchify and condition (JAX ``embed``): → (tokens ``(B, n·L,
+        D)``, the timestep embedding, the blocks' conditioning ``c``, the
+        cross-attention context, the DINO tokens)."""
         cfg = self.cfg
         B, H, W, _ = x.shape
         n = cfg.plane_n
@@ -471,19 +476,33 @@ class DiT_TriLatent(nn.Module):
         # PixArt: one adaLN for all blocks
         c = (self.adaLN_modulation(F.silu(t))
              if cfg.variant in PIXART_VARIANTS else t)
-        for block in self.blocks:
-            if cfg.remat:
-                x = _remat_call(cfg.remat_policy, block, x, c, crossattn,
-                                dino)
-            else:
-                x = block(x, c, context=crossattn, dino_tokens=dino)
+        return x, t, c, crossattn, dino
 
+    def head(self, x, t, shape):
+        """Final layer and unpatchify (JAX ``head``): tokens → the
+        prediction ``(B, H, W, C·n)`` f32 for an input of ``shape`` (B, H,
+        W)."""
+        cfg = self.cfg
+        B, H, W = shape
+        n = cfg.plane_n
         x = self.final_layer(x, t)
         p, C = cfg.patch_size, self.out_channels
         h = w = H // p
         x = x.reshape(B, n, h, w, p, p, C)
         x = x.permute(0, 2, 4, 3, 5, 6, 1)      # B h p w p c n
         return x.reshape(B, H, W, C * n).float()
+
+    def forward(self, x, timesteps, context):
+        cfg = self.cfg
+        tokens, t, c, crossattn, dino = self.embed(x, timesteps, context)
+        for block in self.blocks:
+            if cfg.remat:
+                tokens = _remat_call(cfg.remat_policy, block, tokens, c,
+                                     crossattn, dino)
+            else:
+                tokens = block(tokens, c, context=crossattn,
+                               dino_tokens=dino)
+        return self.head(tokens, t, x.shape[:3])
 
 
 def dit_registry(name: str, **overrides) -> DiTConfig:

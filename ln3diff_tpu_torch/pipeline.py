@@ -20,7 +20,11 @@ Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
   5. with a ``mesh_path``: σ-grid query, marching tetrahedra on the host,
      per-vertex colours and the OBJ/PLY export, interleaved with the orbit.
 
-The JAX version's multi-chip sharding (``serving_mesh``) is not ported.
+``serving_mesh`` (a mesh of ``parallel/mesh.py``): the orbit's frames and
+the σ grid's points split over its ``data`` ranks
+(``parallel/serving.py``), every rank running the one-device path on its
+share and holding the gathered result, as the JAX pipeline does
+(:103-114, :241-262, :332-343).
 
 The pipeline takes callables over tensors (the JAX version takes
 param-explicit ones); :func:`build_t23d_pipeline`,
@@ -96,7 +100,7 @@ class TextTo3DPipeline:
                  render_rays_fn=None,
                  mixing_logit: Optional[torch.Tensor] = None,
                  render_dtype: Optional[torch.dtype] = None,
-                 device='cuda'):
+                 device='cuda', serving_mesh=None):
         self.denoiser_fn = denoiser_fn
         self.decode_fn = decode_fn
         self.render_fn = render_fn
@@ -110,6 +114,12 @@ class TextTo3DPipeline:
         # (bf16 serving: half the gather table, bf16 lerp in the kernel)
         self.render_dtype = render_dtype
         self.device = resolve_device(device)
+        self.serving_mesh = serving_mesh
+        from .parallel.serving import shard_points_query
+        # the σ grid's decoder queries, in chunks of 2^18 points per rank
+        self._grid_points = shard_points_query(
+            lambda planes, coords: point_decoder_fn(planes[:1], coords),
+            serving_mesh, chunk=2**18)
 
     # -- latent sampling ---------------------------------------------------
 
@@ -212,9 +222,8 @@ class TextTo3DPipeline:
             while num_frames % frames_per_call:
                 frames_per_call -= 1
         B = planes.shape[0]
-        if self.render_rays_fn is not None and B == 1:
-            return self._render_frames_flat(planes, cams, frames_per_call,
-                                            res)
+        if B == 1:
+            return self._render_batch1(planes, cams, frames_per_call, res)
         chunks = []
         for f0 in range(0, num_frames, frames_per_call):
             cam_chunk = cams[f0:f0 + frames_per_call]
@@ -223,6 +232,36 @@ class TextTo3DPipeline:
             imgs = self.render_fn(planes_f, cams_f)
             chunks.append(imgs.reshape(B, frames_per_call, *imgs.shape[1:]))
         return torch.cat(chunks, dim=1)
+
+    def _render_batch1(self, planes, cams, frames_per_call, res):
+        """The batch-1 orbit of ``cams`` over the serving mesh's ``data``
+        ranks (this process alone without a mesh), in groups of
+        n·``frames_per_call`` frames (``frames_per_call`` per rank per
+        call, at most the rank's share of the orbit); a group's tail pads
+        cyclically from the ring and is cut after (never at one rank:
+        ``frames_per_call`` divides the frame count)."""
+        from .parallel.mesh import axis_size
+        from .parallel.serving import shard_orbit_render
+
+        def render_local(planes_f, cams_local):
+            # the flat-ray renderer over the one set of planes when there
+            # is one, else render_fn per frame
+            if self.render_rays_fn is not None:
+                return self._render_frames_flat(
+                    planes_f[:1], cams_local, len(cams_local), res)[0]
+            return self.render_fn(planes_f, cams_local)
+
+        sharded = shard_orbit_render(render_local, self.serving_mesh)
+        n = axis_size(self.serving_mesh, 'data')
+        num_frames = len(cams)
+        frames_per_call = min(frames_per_call, max(1, -(-num_frames // n)))
+        group = n * frames_per_call
+        outs = []
+        for f0 in range(0, num_frames, group):
+            idx = (f0 + torch.arange(group, device=cams.device)) % num_frames
+            out = sharded(planes, cams[idx])
+            outs.append(out[:min(group, num_frames - f0)])
+        return torch.cat(outs, dim=0)[None]
 
     def _render_frames_flat(self, planes, cams, frames_per_call, res):
         """Batch-1 orbit with the frames folded into the ray axis: the rays
@@ -250,10 +289,14 @@ class TextTo3DPipeline:
         in chunks of 2^18 points — 27 chunks for 192³.  ``smooth`` applies
         the 3³ box denoise that the serving path (``mesh_smooth=True``)
         uses; the reference marches the raw field."""
-        from .render.mesh import query_grid_sigma
-        return query_grid_sigma(self._mesh_decoder(planes), grid_size, aabb,
-                                chunk=2**18, smooth=smooth,
-                                device=planes.device)
+        from .render.mesh import grid_points, smooth_sigma_grid
+        pts = grid_points(grid_size, aabb, planes.device)[None]
+        _, sigma = self._grid_points(planes, pts)
+        sigmas = sigma[0, :, 0].to(torch.float16)
+        if smooth:
+            g = grid_size
+            sigmas = smooth_sigma_grid(sigmas.reshape(g, g, g)).reshape(-1)
+        return sigmas
 
     @torch.no_grad()
     def export_mesh(self, planes, path: str, grid_size: int = 192,
@@ -364,7 +407,8 @@ def save_video_frames(frames, path_prefix: str):
 
 
 def _objaverse_pipeline(denoiser, vae, opts, render_resolution, sampler,
-                        render_dtype, device, diffusion=None, transport=None):
+                        render_dtype, device, diffusion=None, transport=None,
+                        serving_mesh=None):
     """The pipeline over the port's modules: the denoiser, the VAE's
     decode, its render and point queries through the fused point kernel."""
     return TextTo3DPipeline(
@@ -376,7 +420,7 @@ def _objaverse_pipeline(denoiser, vae, opts, render_resolution, sampler,
         lambda planes, coords: vae.query_points(
             planes, coords, opts.box_warp, use_fused_osg=True),
         sampler=sampler, diffusion=diffusion, transport=transport,
-        render_dtype=render_dtype, device=device)
+        render_dtype=render_dtype, device=device, serving_mesh=serving_mesh)
 
 
 def _sampler_diffusion(sampler: SamplerSpec, **spec):
@@ -415,8 +459,9 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
                         render_resolution: int = 192,
                         sampler: Optional[SamplerSpec] = None,
                         render_dtype: Optional[torch.dtype] = torch.bfloat16,
-                        modules: Optional[dict] = None):
-    """The released Objaverse text→3D model on ``device``.
+                        modules: Optional[dict] = None, serving_mesh=None):
+    """The released Objaverse text→3D model on ``device`` (with
+    ``serving_mesh``: the orbit and the σ grid split over its ranks).
 
     Defaults are the serving configuration: DiT-L/2 with tanh GELU stored
     and run in bf16, the DiT2-L/2 VAE decoder in bf16, the f32 CLIP text
@@ -464,7 +509,8 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
 
     pipeline = _objaverse_pipeline(
         denoiser, vae, opts, render_resolution, sampler, render_dtype,
-        device, diffusion=_sampler_diffusion(sampler))
+        device, diffusion=_sampler_diffusion(sampler),
+        serving_mesh=serving_mesh)
 
     @torch.no_grad()
     def encode(prompt: str):

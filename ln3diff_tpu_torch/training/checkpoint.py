@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _STATE_FILE = 'state.pt'
 
@@ -35,18 +36,6 @@ def _cpu(tree):
     if isinstance(tree, Mapping):
         return {k: _cpu(v) for k, v in tree.items()}
     return tree.detach().cpu() if torch.is_tensor(tree) else tree
-
-
-def _copy_into(dst: Mapping, src: Mapping, what: str):
-    if sorted(dst) != sorted(src):
-        raise ValueError(f'{what}: the checkpoint holds other tensors '
-                         f'({sorted(set(src) ^ set(dst))[:4]} ...)')
-    with torch.no_grad():
-        for k, t in dst.items():
-            if t.shape != src[k].shape:
-                raise ValueError(f'{what}.{k}: shape {tuple(src[k].shape)} '
-                                 f'in the checkpoint, {tuple(t.shape)} here')
-            t.copy_(src[k])
 
 
 class CheckpointManager:
@@ -65,19 +54,25 @@ class CheckpointManager:
 
     def save(self, step: int, state):
         """Write ``state`` (a ``train_state.TrainState``) as step
-        ``step``, synchronously."""
-        payload = dict(params=_cpu(state.params), ema=_cpu(state.ema_params),
-                       opt=_cpu(state.opt_state), step=int(state.step))
-        final = os.path.join(self.directory, str(int(step)))
-        tmp = final + '.tmp'
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(payload, os.path.join(tmp, _STATE_FILE))
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        if self.max_to_keep:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                shutil.rmtree(os.path.join(self.directory, str(old)))
+        ``step``, synchronously.  Under a process group every rank calls
+        it: the whole state is assembled (``TrainState.payload``, sharded
+        entries gathered), rank 0 writes, and the ranks meet after the
+        write."""
+        payload = _cpu(state.payload())
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if rank == 0:
+            final = os.path.join(self.directory, str(int(step)))
+            tmp = final + '.tmp'
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(payload, os.path.join(tmp, _STATE_FILE))
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            if self.max_to_keep:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)))
+        if dist.is_initialized():
+            dist.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -94,16 +89,7 @@ class CheckpointManager:
         data = torch.load(os.path.join(self.directory, str(int(step)),
                                        _STATE_FILE), map_location='cpu',
                           weights_only=True)
-        _copy_into(state_like.params, data['params'], 'params')
-        if sorted(state_like.ema_params) != sorted(data['ema']):
-            raise ValueError('the checkpoint holds other EMA rates')
-        for name, ema in state_like.ema_params.items():
-            _copy_into(ema, data['ema'][name], f'ema.{name}')
-        for part in ('mu', 'nu'):
-            _copy_into(state_like.opt_state[part], data['opt'][part], part)
-        state_like.opt_state = dict(state_like.opt_state,
-                                    count=int(data['opt']['count']))
-        state_like.step = int(data['step'])
+        state_like.load_payload(data)
         return state_like
 
     def close(self):

@@ -24,9 +24,9 @@ the other trainers (``train_state.build_train_step``); the renders take
 the plain point pipeline, as JAX's step does, and the SR head's output,
 which no term reads, is not computed (JAX's jit drops it).
 
-Randomness: the cameras come from ``numpy.random.default_rng([seed,
-0])``, the JAX trainer's host RNG on process 0, so both sample the same
-poses; z, the shape coordinates, the posterior's ε and the student
+Randomness: the cameras come from ``parallel.mesh.host_rng(seed)``
+(``default_rng([seed, rank])``), the JAX trainer's host RNG, so both
+sample the same poses on rank 0; z, the shape coordinates, the posterior's ε and the student
 render's uniforms come from a ``torch.Generator`` or are passed in
 (:class:`WarmupDraws`).  JAX draws z, the coordinates and the VAE key from
 ``split(rng, 3)``; the VAE splits its key into ε and the render's key.
@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from ..models.eg3d import TriPlaneGenerator, TriPlaneGeneratorConfig
 from ..models.layers import random_init_, zero_init_like_jax
 from ..models.vae import TriplaneVAE
+from ..parallel.mesh import host_rng
 from ..pipeline import resolve_device
 from ..render.camera import fov_to_intrinsics, gaussian_pose
 from ..render.renderer import RenderDraws, RenderOptions
@@ -136,7 +137,7 @@ class EG3DWarmupTrainer:
         self.opts = render_opts or RenderOptions(
             depth_resolution=48, depth_resolution_importance=48,
             ray_start=2.25, ray_end=3.3, box_warp=1.0, white_back=False)
-        self.rng = np.random.default_rng([int(seed), 0])
+        self.rng = host_rng(seed)
         # JAX's init draws one batch of cameras to trace the models: the
         # draw is repeated so that the loop samples JAX's later cameras
         self._sample_cameras(warm_cfg.batch_size)

@@ -5,7 +5,7 @@ Port of ``ln3diff_tpu/training/ldm_trainer.py`` (``LDMTrainConfig`` :30,
 :204 and ``run_loop`` :213, ``ControlNetTrainer`` :236; reference
 ``nsr/lsgm/flow_matching_trainer.py:303``, ``sgm_DiffusionEngine.py:210``,
 ``train_util_diffusion_lsgm_noD_joint.py:250-489``,
-``nsr/lsgm/crossattn_cldm_objv.py:775``) on one device.  The step trains
+``nsr/lsgm/crossattn_cldm_objv.py:775``).  The step trains
 the denoiser on pre-extracted VAE latents (÷ ``triplane_scaling_divider``)
 with their context already encoded:
 
@@ -23,10 +23,17 @@ released configs) over f32 parameters, as the JAX modules compute in
 ``dtype`` over f32 params; the step is ``train_state.build_train_step``
 (microbatch averaging, clip, AdamW, EMA).  Randomness: t, the noise and
 the σ indices come from a ``torch.Generator`` or are passed in
-(:class:`LDMDraws`, so that a test can feed JAX's); the resampler's draws
-come from ``numpy.random.default_rng([seed, 0])``, the JAX trainer's host
-RNG on process 0.  Not ported: the mesh and its pipeline-parallel trunk
-(``ROADMAP.md`` §1 item 3) and the logger (metrics are printed).
+(:class:`LDMDraws`, so that a test can feed JAX's) — drawn for the whole
+batch (:meth:`LDMTrainer.draw`); the resampler's draws come from
+``parallel.mesh.host_rng(seed)``, the JAX trainer's host RNG.
+
+``mesh=`` (default: ``make_mesh()`` over the world): each rank trains on
+its (data, fsdp) slice of the batch and of the draws, grads averaged over
+those ranks (``train_state.build_train_step``).  A mesh whose ``pipe``
+axis is above 1 runs the DiT's trunk through the GPipe schedule
+(``parallel/pipeline.py``, ``pp_microbatches`` microbatches), each stage
+holding and updating its own blocks (``pipeline_parallel_rules``), as JAX
+does (:66-75, :142-145).  Metrics go to ``log`` (printed by default).
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from ..diffusion.transport import Transport, TransportSpec
 from ..models.controlnet import ControlNet
 from ..models.layers import random_init_, zero_init_like_jax
 from ..models.unet import UNetModel
+from ..parallel.mesh import (MeshConfig, axis_size, host_rng, make_mesh,
+                             pipeline_parallel_rules)
 from ..pipeline import resolve_device
 from .train_state import TrainState, build_train_step, make_optimizer
 from .vae_trainer import train_loop
@@ -68,6 +77,8 @@ class LDMTrainConfig:
     # on the host, diffusion/resample.py)
     schedule_sampler: str = 'uniform'
     microbatch_steps: int = 1
+    # microbatches of the pipelined trunk (mesh pipe axis > 1)
+    pp_microbatches: int = 4
     log_interval: int = 10
 
 
@@ -96,17 +107,18 @@ class LDMTrainer:
 
     def __init__(self, model: nn.Module,
                  train_cfg: LDMTrainConfig = LDMTrainConfig(),
-                 seed: int = 0, device='cuda', pipeline_stages: int = 1):
-        if pipeline_stages > 1:
-            raise NotImplementedError(
-                'the pipeline-parallel DiT trunk (parallel/pipeline.py) is '
-                'ROADMAP.md §1 item 3 (parallel); the trainer runs on one '
-                'device')
+                 seed: int = 0, device='cuda', mesh=None):
         if getattr(getattr(model, 'cfg', None), 'fused_attention', False):
             raise ValueError('the fused attention kernel has no backward '
                              'pass: build the denoiser with '
                              'fused_attention=False to train it')
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshConfig(), device_type=self.device.type)
+        self._use_pp = axis_size(self.mesh, 'pipe') > 1
+        if self._use_pp and not hasattr(model, 'embed'):
+            raise ValueError('pipeline parallelism drives the DiT trunk; '
+                             f'got {type(model).__name__}')
         self.cfg = train_cfg
         self.model = model.to(self.device)
         self.seed = seed
@@ -124,7 +136,7 @@ class LDMTrainer:
             if train_cfg.schedule_sampler == 'loss-second-moment':
                 self.resampler = LossSecondMomentResampler(
                     self.diffusion.num_timesteps)
-                self._resampler_rng = np.random.default_rng([int(seed), 0])
+                self._resampler_rng = host_rng(seed)
             elif train_cfg.schedule_sampler != 'uniform':
                 raise ValueError(f'schedule_sampler '
                                  f'{train_cfg.schedule_sampler!r}')
@@ -150,10 +162,12 @@ class LDMTrainer:
         """The optimizer and the EMA over the model's current weights."""
         tx = make_optimizer(self.cfg.lr, self.cfg.weight_decay,
                             grad_clip=self.cfg.grad_clip)
+        module = self._trained_module()
         self.state = TrainState.create(
-            self._trained_module(), tx,
-            ema_rates=(('ema', self.cfg.ema_rate),),
-            constants=self._constants())
+            module, tx, ema_rates=(('ema', self.cfg.ema_rate),),
+            constants=self._constants(), mesh=self.mesh,
+            placements=pipeline_parallel_rules(module, self.mesh)
+            if self._use_pp else None)
         return self.state
 
     def _trained_module(self) -> nn.Module:
@@ -162,8 +176,9 @@ class LDMTrainer:
     def build(self) -> 'LDMTrainer':
         if self.state is None:
             self.init_state()
-        self._step_fn = build_train_step(self._loss_fn,
-                                         self.cfg.microbatch_steps)
+        self._step_fn = build_train_step(
+            self._loss_fn, self.cfg.microbatch_steps, mesh=self.mesh,
+            draw_fn=lambda b: self.draw(b, self.generator))
         return self
 
     # -- the loss ----------------------------------------------------------
@@ -185,6 +200,12 @@ class LDMTrainer:
 
         def model_fn(xt, t):
             with self._autocast():
+                if self._use_pp:
+                    from ..parallel.pipeline import dit_pipeline_apply
+                    return dit_pipeline_apply(
+                        self.model, xt, t, ctx, mesh=self.mesh,
+                        n_micro=cfg.pp_microbatches,
+                        remat=self.model.cfg.remat)
                 return self.model(xt, t, ctx)
 
         if cfg.objective == 'flow_matching':
@@ -220,6 +241,25 @@ class LDMTrainer:
                                  generator=gen, sigma_idx=t_in,
                                  noise=noise).mean()
         return loss, {'edm_mse': loss.detach()}
+
+    def draw(self, batch: dict, generator: Optional[torch.Generator]
+             ) -> Optional[LDMDraws]:
+        """The draws of a whole (micro)batch from ``generator``, every rank
+        the same: t — the flow-matching time (``Transport.sample_t``), a
+        DDPM step or an EDM σ index — then the noise."""
+        if generator is None:
+            return None
+        x0 = batch['latent']
+        n, dev = x0.shape[0], x0.device
+        if self.cfg.objective == 'flow_matching':
+            t = self.transport.sample_t(n, dev, generator)
+        else:
+            top = (self.diffusion.num_timesteps
+                   if self.cfg.objective == 'ddpm'
+                   else self.denoiser.sigmas.shape[0])
+            t = torch.randint(0, top, (n,), generator=generator, device=dev)
+        return LDMDraws(t, torch.randn(x0.shape, generator=generator,
+                                       device=dev))
 
     # -- the step and the loop ----------------------------------------------
 
@@ -288,11 +328,12 @@ class ControlNetTrainer(LDMTrainer):
     def __init__(self, unet_model: UNetModel, controlnet_model: ControlNet,
                  train_cfg: LDMTrainConfig = LDMTrainConfig(
                      objective='ddpm'),
-                 seed: int = 0, device='cuda'):
+                 seed: int = 0, device='cuda', mesh=None):
         if train_cfg.objective != 'ddpm':
             raise ValueError('the ControlNet trains the DDPM objective')
         self.controlnet = controlnet_model
-        super().__init__(unet_model, train_cfg, seed=seed, device=device)
+        super().__init__(unet_model, train_cfg, seed=seed, device=device,
+                         mesh=mesh)
         self.model.requires_grad_(False)
 
     def _trained_module(self) -> nn.Module:

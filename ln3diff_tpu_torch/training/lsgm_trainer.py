@@ -5,7 +5,7 @@ Port of ``ln3diff_tpu/training/lsgm_trainer.py`` (``LSGMConfig`` :37, the
 joint loss of ``make_joint_loss_fn`` :46-189, ``LSGMTrainConfig`` :192,
 ``LSGMTrainer`` :206 with ``init_state`` :240, ``prepare_batch`` :286 and
 ``run_loop`` :306; reference ``nsr/lsgm/train_util_diffusion_lsgm_noD_
-joint.py``) on one device.  One step over both parameter trees (the
+joint.py``).  One step over both parameter trees (the
 ``vae.*`` and ``ddpm.*`` names of one AdamW and one EMA):
 
 * the reconstruction term of the VAE's patch render (``train_vae``);
@@ -24,10 +24,12 @@ own, over f32 parameters; the renderer and the VPSDE arithmetic stay f32.
 The step renders through the plain point pipeline, as JAX's does, and
 takes the VAE trainer's patch render, crops, batch preparation and loop.
 
-Randomness: the patch origins come from ``numpy.random.default_rng([seed,
-0])``, the JAX trainer's host RNG on process 0; the posterior's ε, the
-render's uniforms and the p and q terms' ``rho`` and noise come from a
-``torch.Generator`` or are passed in (:class:`LSGMDraws`).  JAX draws them
+Randomness: the patch origins come from ``parallel.mesh.host_rng(seed)``,
+the JAX trainer's host RNG; the posterior's ε, the render's uniforms and
+the p and q terms' ``rho`` and noise are passed in (:class:`LSGMDraws`)
+or drawn for the whole batch from a ``torch.Generator``
+(:meth:`LSGMTrainer.draw`).  ``mesh=``: as the VAE trainer's, each rank
+trains on its (data, fsdp) slice, grads averaged over those ranks.  JAX draws them
 from ``k_vae, k_render, k_ddpm = split(rng, 3)``: ε from ``k_vae``, the
 render from ``k_render``, the p term from ``k_t, k_n = split(k_ddpm)``
 and the q term from ``split(fold_in(k_ddpm, 1))``.
@@ -41,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Iterator, NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -50,6 +51,7 @@ from ..diffusion.vpsde import (VPSDE, kl_balancer, kl_per_group_vada,
                                vpsde_training_losses)
 from ..models.layers import random_init_, zero_init_like_jax
 from ..models.vae import TriplaneVAE
+from ..parallel.mesh import MeshConfig, host_rng, make_mesh
 from ..pipeline import resolve_device
 from ..render.renderer import RenderDraws, RenderOptions, draw_uniforms
 from .losses import LossConfig, reconstruction_losses
@@ -231,8 +233,10 @@ class LSGMTrainer:
                  loss_cfg: LossConfig = LossConfig(),
                  lsgm_cfg: LSGMConfig = LSGMConfig(),
                  render_opts: Optional[RenderOptions] = None,
-                 seed: int = 0, device='cuda'):
+                 seed: int = 0, device='cuda', mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshConfig(), device_type=self.device.type)
         self.vae_cfg = vae_cfg
         self.cfg = train_cfg
         self.loss_cfg = loss_cfg
@@ -250,7 +254,7 @@ class LSGMTrainer:
             random_init_(mod, torch.Generator(
                 device=self.device).manual_seed(seed + i))
             zero_init_like_jax(mod)
-        self.rng = np.random.default_rng([int(seed), 0])
+        self.rng = host_rng(seed)
         self.generator: Optional[torch.Generator] = None
         self.state: Optional[TrainState] = None
         self.loss_fn = None
@@ -261,7 +265,8 @@ class LSGMTrainer:
         tx = make_optimizer(self.cfg.lr, self.cfg.weight_decay,
                             grad_clip=self.cfg.grad_clip)
         self.state = TrainState.create(
-            self.joint, tx, ema_rates=(('ema', self.cfg.ema_rate),))
+            self.joint, tx, ema_rates=(('ema', self.cfg.ema_rate),),
+            mesh=self.mesh)
         return self.state
 
     def build(self) -> 'LSGMTrainer':
@@ -271,9 +276,31 @@ class LSGMTrainer:
             self.vae, self.denoiser, self.render_opts, self.loss_cfg,
             self.lsgm_cfg, self.cfg.patch_resolution,
             self.cfg.render_resolution, get_generator=lambda: self.generator)
-        self._step_fn = build_train_step(self.loss_fn,
-                                         self.cfg.microbatch_steps)
+        self._step_fn = build_train_step(
+            self.loss_fn, self.cfg.microbatch_steps, mesh=self.mesh,
+            draw_fn=lambda b: self.draw(b, self.generator))
         return self
+
+    def draw(self, batch: dict, generator: Optional[torch.Generator]
+             ) -> Optional[LSGMDraws]:
+        """The draws of a whole (micro)batch from ``generator``, every rank
+        the same: ε, the render's uniforms, then the p and q terms' rho
+        and noise."""
+        if generator is None:
+            return None
+        cfg, dev = self.vae_cfg, self.device
+        n = batch['img_to_encoder'].shape[0] // max(cfg.num_views, 1)
+        h, z = cfg.latent_size, cfg.ldm_z_channels
+        eps = torch.randn((n, h, h, z, 3), generator=generator, device=dev)
+        render = draw_uniforms(batch['c'].shape[0],
+                               self.cfg.patch_resolution**2,
+                               self.render_opts, generator, dev)
+        out = []
+        for _ in range(2):
+            out.append(torch.rand((n,), generator=generator, device=dev))
+            out.append(torch.randn((n, h, h, 3 * z), generator=generator,
+                                   device=dev))
+        return LSGMDraws(eps, render, *out)
 
     def train_step(self, batch: dict,
                    draws: Optional[LSGMDraws] = None) -> dict:
@@ -296,7 +323,8 @@ class LSGMTrainer:
             cfg.render_resolution,
             keys=('img_to_encoder', 'img', 'depth', 'depth_mask', 'c',
                   'context'),
-            bbox_scale=cfg.render_resolution / self.vae_cfg.img_resolution)
+            bbox_scale=cfg.render_resolution / self.vae_cfg.img_resolution,
+            mesh=self.mesh)
 
     def run_loop(self, data: Iterator[dict], num_steps: Optional[int] = None,
                  step_offset: int = 0, guard=None,

@@ -1,9 +1,9 @@
 """Preemption-safe training: latch SIGTERM, stop at the next step
 boundary, checkpoint, exit cleanly.
 
-Port of ``ln3diff_tpu/training/preemption.py`` (``PreemptionGuard`` :52)
-on one process.  A preemptible machine receives SIGTERM shortly before
-eviction; with the guard a run loses at most the step in flight::
+Port of ``ln3diff_tpu/training/preemption.py`` (``PreemptionGuard`` :52).
+A preemptible machine receives SIGTERM shortly before eviction; with the
+guard a run loses at most the step in flight::
 
     with PreemptionGuard() as guard:
         while step < total_steps:
@@ -13,16 +13,21 @@ eviction; with the guard a run loses at most the step in flight::
             if guard.preempted:
                 break
 
-The multi-process agreement of the JAX guard (an OR of the local flags
-across hosts every ``check_interval`` polls, latched) waits for the
-port's parallel layer (``ROADMAP.md`` §1 item 3); here every poll reads
-the local flag.
+Several processes (a ``torch.distributed`` group) must stop at the same
+step, or the ones still running wait forever in their next collective.
+So, as in JAX (:100-125), every ``check_interval``-th poll ORs the local
+flags of all ranks (an all-reduce of one int), at the same poll on every
+rank; a True result is latched, and ``preempted`` reads the latch.  One
+process reads its local flag at every poll.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
+
+import torch
+import torch.distributed as dist
 
 
 class PreemptionGuard:
@@ -32,9 +37,12 @@ class PreemptionGuard:
     since the point is to finish the step.  The previous handler comes
     back on exit."""
 
-    def __init__(self):
+    def __init__(self, check_interval: int = 10):
+        self.check_interval = max(1, int(check_interval))
         self._signal = threading.Event()
         self._previous = None
+        self._calls = 0
+        self._stopped = False   # the ranks' agreed stop (latched)
 
     def _handler(self, signum, frame):
         self._signal.set()
@@ -52,10 +60,38 @@ class PreemptionGuard:
         self._previous = None
         return None
 
+    @staticmethod
+    def _world() -> int:
+        return dist.get_world_size() if dist.is_initialized() else 1
+
     @property
-    def preempted(self) -> bool:
+    def local_signal(self) -> bool:
+        """This process's own flag, for logging only: branch on
+        ``preempted`` / ``should_stop``."""
         return self._signal.is_set()
 
+    @property
+    def preempted(self) -> bool:
+        """The stop flag, the same on every rank: one process reads its
+        signal; several read the latch of the last agreeing poll."""
+        if self._world() == 1:
+            return self._signal.is_set()
+        return self._stopped
+
     def should_stop(self) -> bool:
-        """Poll once per training step."""
-        return self.preempted
+        """Poll once per training step: one process reads its flag;
+        several OR the ranks' flags every ``check_interval`` polls (the
+        same polls on every rank) and latch a True."""
+        self._calls += 1
+        if self._world() == 1:
+            return self.preempted
+        if self._stopped:
+            return True
+        if self._calls % self.check_interval:
+            return False
+        # the flag on the process group's device (CUDA under NCCL)
+        device = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+        flag = torch.tensor([int(self._signal.is_set())], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._stopped = bool(flag.item())
+        return self._stopped

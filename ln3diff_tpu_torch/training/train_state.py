@@ -4,8 +4,10 @@ Port of ``ln3diff_tpu/training/train_state.py``: ``make_optimizer`` :65
 (optax's ``chain(clip_by_global_norm, adamw)`` with per-module learning
 rates and the warmup-cosine schedule), the EMA of ``apply_gradients``
 :38-52, the frozen ``constants`` of the train state and the generic step
-``build_train_step`` :107-195 on one device (microbatch gradient
-averaging, the ``per_sample*`` metrics flattened in draw order), and
+``build_train_step`` :107-195 (microbatch gradient averaging, the
+``per_sample*`` metrics flattened in draw order; under a mesh the batch
+and the draws cut per rank, the grads averaged over the (data, fsdp)
+ranks and the FSDP-sharded state of :class:`TrainState`), and
 ``frozen_apply``, a module run on detached parameters (the frozen prior
 of the LSGM q term, the discriminator in a generator term).
 Written out with optax's arithmetic rather than taken from ``torch.optim``,
@@ -30,6 +32,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 
@@ -96,11 +99,14 @@ class AdamW:
                              self.total_steps)(count)
 
     @torch.no_grad()
-    def clip(self, grads: dict) -> dict:
-        """The grads after ``clip_by_global_norm``."""
+    def clip(self, grads: dict, g_norm: Optional[torch.Tensor] = None
+             ) -> dict:
+        """The grads after ``clip_by_global_norm`` (``g_norm``: their
+        global norm when the caller has it, say across ranks)."""
         if not self.grad_clip:
             return grads
-        g_norm = global_norm(list(grads.values()))
+        if g_norm is None:
+            g_norm = global_norm(list(grads.values()))
         if float(g_norm) < self.grad_clip:
             return grads
         return {k: (g / g_norm.to(g.dtype)) * self.grad_clip
@@ -108,9 +114,9 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: dict, grads: dict, state: dict) -> dict:
-        """Update ``params`` in place from ``grads``; returns the new
-        state."""
-        grads = self.clip(grads)
+        """Update ``params`` in place from ``grads`` (already clipped by
+        :meth:`clip`), and the moments of ``state`` in place; returns the
+        new state."""
         b1, b2 = self.betas
         count = state['count'] + 1
         # optax takes decay**count in f32
@@ -168,7 +174,19 @@ def update_ema(ema: dict, params: dict, rate: float):
 class TrainState:
     """The module's trainable parameters (by name), the optimizer and its
     state, one EMA copy per rate, the step count and the ``constants``
-    that the loss reads and no optimizer touches (a frozen network, say)."""
+    that the loss reads and no optimizer touches (a frozen network, say).
+
+    Under a mesh (:meth:`create` with ``placements``): a parameter whose
+    placements shard it over 'fsdp' (or 'tensor') is held in ``params`` as
+    a ``DTensor`` over the (fsdp, tensor) ranks, and so are its AdamW
+    moments and its EMA, so each rank updates its slice only.  Its module
+    keeps the whole tensor that the forward pass reads (``full``),
+    refreshed after each update, and the grads are whole on every rank:
+    the optimizer state and the EMA are sharded (ZeRO-1), the parameters
+    and grads are not.  A trunk block that another pipeline stage owns
+    (``LayerShard``) has no optimizer state or EMA on this rank:
+    ``absent`` maps its name to (owning stage, module parameter); the
+    module still holds the block."""
     params: dict
     tx: AdamW
     opt_state: dict
@@ -176,24 +194,183 @@ class TrainState:
     ema_rates: tuple = ()
     step: int = 0
     constants: Any = None
+    mesh: Any = None
+    full: dict = dataclasses.field(default_factory=dict)
+    absent: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, module: torch.nn.Module, tx: AdamW,
-               ema_rates: tuple = (), constants=None) -> 'TrainState':
+               ema_rates: tuple = (), constants=None, mesh=None,
+               placements: Optional[dict] = None) -> 'TrainState':
+        from ..parallel.mesh import (AXES, LayerShard, axis_index,
+                                     axis_size, is_distributed, stage_of,
+                                     trunk_index)
         params = {k: p for k, p in module.named_parameters()
                   if p.requires_grad}
+        full, absent = {}, {}
+        if placements:
+            from torch.distributed.tensor import Shard, distribute_tensor
+            pp = axis_size(mesh, 'pipe')
+            depth: dict = {}
+            for k in params:
+                hit = trunk_index(k)
+                if hit is not None:
+                    depth[hit[0]] = max(depth.get(hit[0], 0), hit[1] + 1)
+            for k in list(params):
+                pl = placements.get(k)
+                if pl is None:
+                    continue
+                if isinstance(pl[AXES.index('pipe')], LayerShard):
+                    prefix, i = trunk_index(k)
+                    owner = stage_of(i, depth[prefix], pp)
+                    if owner != axis_index(mesh, 'pipe'):
+                        absent[k] = (owner, params.pop(k))
+                        continue
+                fs = [pl[AXES.index('fsdp')], pl[AXES.index('tensor')]]
+                if any(isinstance(f, Shard) for f in fs) \
+                        and is_distributed(mesh):
+                    full[k] = params[k]
+                    params[k] = distribute_tensor(
+                        params[k].detach(), mesh['fsdp', 'tensor'], fs)
         ema = {name: {k: p.detach().clone() for k, p in params.items()}
                for name, _ in ema_rates}
         return cls(params=params, tx=tx, opt_state=tx.init(params),
                    ema_params=ema, ema_rates=tuple(ema_rates),
-                   constants=constants)
+                   constants=constants, mesh=mesh, full=full, absent=absent)
 
-    def apply_gradients(self, grads: dict):
-        """One optimizer step, then the EMA of the new params."""
-        self.opt_state = self.tx.step(self.params, grads, self.opt_state)
+    def module_params(self) -> dict:
+        """The tensors the forward pass reads, by name: the gathered copy
+        of each sharded parameter, the parameter itself otherwise."""
+        return {k: self.full.get(k, p) for k, p in self.params.items()}
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The norm of the whole model's grads: with pipeline stages, the
+        trunk blocks' part is summed over the stages."""
+        if not self.absent:
+            return global_norm(list(grads.values()))
+        from ..parallel.mesh import group, trunk_index
+        trunk = [g for k, g in grads.items() if trunk_index(k)]
+        rest = [g for k, g in grads.items() if not trunk_index(k)]
+        sq_t = global_norm(trunk)**2 if trunk else torch.zeros(())
+        dist.all_reduce(sq_t, group=group(self.mesh, 'pipe'))
+        sq = global_norm(rest)**2 if rest else torch.zeros_like(sq_t)
+        return torch.sqrt(sq + sq_t)
+
+    def apply_gradients(self, grads: dict,
+                        g_norm: Optional[torch.Tensor] = None):
+        """One optimizer step, then the EMA of the new params.  ``grads``
+        are whole (every rank's average; ``g_norm`` their global norm when
+        the caller has it); a sharded parameter's update reads its
+        slice."""
+        grads = self.tx.clip(grads, g_norm)
+        local = {k: _local(p) for k, p in self.params.items()}
+        grads = {k: _local_slice(g, self.params[k])
+                 for k, g in grads.items()}
+        opt = dict(self.opt_state,
+                   mu={k: _local(v) for k, v in self.opt_state['mu'].items()},
+                   nu={k: _local(v) for k, v in self.opt_state['nu'].items()})
+        count = self.tx.step(local, grads, opt)['count']
+        self.opt_state = dict(self.opt_state, count=count)
         for name, rate in self.ema_rates:
-            update_ema(self.ema_params[name], self.params, rate)
+            update_ema({k: _local(v) for k, v in
+                        self.ema_params[name].items()}, local, rate)
+        with torch.no_grad():
+            for k, p in self.full.items():
+                p.copy_(self.params[k].full_tensor())
         self.step += 1
+
+    # -- whole state, for checkpoints ---------------------------------------
+
+    def payload(self) -> dict:
+        """The whole state as plain tensors on every rank (a collective
+        under a mesh): sharded entries gathered, the blocks of other
+        pipeline stages received from their owners."""
+        def whole(d):
+            return {k: (v.full_tensor() if _is_dtensor(v) else v)
+                    for k, v in d.items()}
+
+        params = whole(self.params)
+        mu, nu = whole(self.opt_state['mu']), whole(self.opt_state['nu'])
+        ema = {n: whole(e) for n, e in self.ema_params.items()}
+        if self.absent:
+            from ..parallel.mesh import (axis_index, group, stage_of,
+                                         trunk_index)
+            g = group(self.mesh, 'pipe')
+            me = axis_index(self.mesh, 'pipe')
+            names = sorted(set(params) | set(self.absent),
+                           key=lambda k: (trunk_index(k) is None, k))
+            for k in names:
+                if k not in self.absent and trunk_index(k) is None:
+                    continue
+                owner = self.absent[k][0] if k in self.absent else me
+                src = dist.get_global_rank(g, owner)
+                like = self.absent[k][1] if k in self.absent else params[k]
+                for d in (params, mu, nu, *ema.values()):
+                    buf = d[k].detach().contiguous() if k in d \
+                        else torch.empty_like(like)
+                    dist.broadcast(buf, src=src, group=g)
+                    d[k] = buf
+        return dict(params=params, ema=ema,
+                    opt=dict(mu=mu, nu=nu, count=self.opt_state['count']),
+                    step=int(self.step))
+
+    @torch.no_grad()
+    def load_payload(self, data: dict):
+        """Set the state from a :meth:`payload` (on the CPU): each rank
+        takes its slice of a sharded entry and skips other stages'
+        blocks."""
+        def load(dst, src, what):
+            missing = sorted(set(dst) - set(src))
+            extra = sorted(set(src) - set(dst) - set(self.absent))
+            if missing or extra:
+                raise ValueError(f'{what}: the checkpoint holds other tensors'
+                                 f' ({(missing + extra)[:4]} ...)')
+            for k, t in dst.items():
+                v = src[k]
+                if tuple(v.shape) != tuple(t.shape):
+                    raise ValueError(f'{what}.{k}: shape {tuple(v.shape)} in '
+                                     f'the checkpoint, {tuple(t.shape)} here')
+                if _is_dtensor(t):
+                    _local(t).copy_(_local_slice(v.to(t.device), t))
+                else:
+                    t.copy_(v)
+
+        load(self.params, data['params'], 'params')
+        if sorted(self.ema_params) != sorted(data['ema']):
+            raise ValueError('the checkpoint holds other EMA rates')
+        for name, e in self.ema_params.items():
+            load(e, data['ema'][name], f'ema.{name}')
+        for part in ('mu', 'nu'):
+            load(self.opt_state[part], data['opt'][part], part)
+        self.opt_state = dict(self.opt_state,
+                              count=int(data['opt']['count']))
+        self.step = int(data['step'])
+        for k, p in self.full.items():
+            p.copy_(self.params[k].full_tensor())
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t):
+    """The rank's own tensor of a ``DTensor`` (its storage), else ``t``."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _local_slice(full: torch.Tensor, like):
+    """This rank's shard of the whole tensor ``full`` in the layout of the
+    ``DTensor`` ``like`` (evenly divided ``Shard``/``Replicate``
+    placements), else ``full``."""
+    if not _is_dtensor(like):
+        return full
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard():
+            full = full.chunk(mesh.size(i), pl.dim)[coord[i]]
+    return full
 
 
 def frozen_apply(model: torch.nn.Module, *args):
@@ -209,7 +386,8 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def build_train_step(loss_fn: Callable, microbatch_steps: int = 1):
+def build_train_step(loss_fn: Callable, microbatch_steps: int = 1,
+                     mesh=None, draw_fn: Optional[Callable] = None):
     """The training step of ``loss_fn(params, constants, batch, draws) ->
     (loss, metrics)`` (JAX ``build_train_step``'s ``step_fn``).
 
@@ -221,35 +399,59 @@ def build_train_step(loss_fn: Callable, microbatch_steps: int = 1):
     unchanged; ``draws`` is then a sequence of S draws (or None), the
     grads are summed and divided by S and the metrics averaged, except the
     ``per_sample*`` ones, which are concatenated in draw order.  The
-    metrics hold ``loss`` and ``grad_norm`` (of the unclipped grads)."""
+    metrics hold ``loss`` and ``grad_norm`` (of the unclipped grads).
+
+    ``batch`` and ``draws`` are global.  Without draws, ``draw_fn(micro
+    batch)`` makes them (else ``loss_fn`` draws its own).  Under a
+    ``mesh`` each rank runs the loss on its (data, fsdp) slice of the
+    batch — axis 0, or axis 1 under grad accumulation, as JAX shards it —
+    and of the draws (axis 0), and the grads are averaged over those ranks
+    before the clip, as pjit's inserted all-reduce does; ``loss`` and the
+    mean metrics are averaged over them too, and ``per_sample*`` entries
+    gathered in global order."""
+    from ..parallel.mesh import (DP_AXES, all_reduce_mean, data_sharding,
+                                 replicated)
     steps = microbatch_steps
 
     def step_fn(state: TrainState, batch, draws=None) -> dict:
         if steps > 1 and draws is not None and len(draws) != steps:
             raise ValueError(f'{len(draws)} draws for {steps} microbatches')
-        params = state.params
+        params = state.module_params()
         for p in params.values():
             p.grad = None
+        local = data_sharding(mesh, batch, axis=0 if steps == 1 else 1)
         losses, metrics = [], {}
         for i in range(steps):
-            micro = batch if steps == 1 else _tree_map(
-                lambda v: v[i] if np.ndim(v) >= 2 else v, batch)
+            micro = local if steps == 1 else _tree_map(
+                lambda v: v[i] if np.ndim(v) >= 2 else v, local)
             d = draws if steps == 1 or draws is None else draws[i]
+            if d is None and draw_fn is not None:
+                d = draw_fn(batch if steps == 1 else _tree_map(
+                    lambda v: v[i] if np.ndim(v) >= 2 else v, batch))
+            d = data_sharding(mesh, d)
             loss, terms = loss_fn(params, state.constants, micro, d)
             loss.backward()
             losses.append(loss.detach())
             for k, v in terms.items():
-                metrics.setdefault(k, []).append(v.detach())
+                v = v.detach()
+                metrics.setdefault(k, []).append(
+                    replicated(mesh, v) if k.startswith('per_sample') else v)
         grads = {k: (torch.zeros_like(p) if p.grad is None
                      else p.grad / steps) for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        gnorm = global_norm(list(grads.values()))
-        state.apply_gradients(grads)
+        all_reduce_mean(mesh, list(grads.values()), DP_AXES)
+        gnorm = state.global_norm(grads)
+        state.apply_gradients(grads, gnorm)
         out = {k: (torch.cat(v) if k.startswith('per_sample')
                    else torch.stack(v).float().mean())
                for k, v in metrics.items()}
-        out.update(loss=torch.stack(losses).float().mean(), grad_norm=gnorm)
+        out['loss'] = torch.stack(losses).float().mean()
+        means = [k for k in out if not k.startswith('per_sample')]
+        vals = torch.stack([out[k] for k in means])
+        all_reduce_mean(mesh, [vals], DP_AXES)
+        out.update(zip(means, vals.unbind()))
+        out['grad_norm'] = gnorm
         return out
 
     return step_fn

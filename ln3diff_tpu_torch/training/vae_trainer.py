@@ -3,7 +3,7 @@
 Port of ``ln3diff_tpu/training/vae_trainer.py`` (``VAETrainConfig`` :38,
 ``_crop`` :70, ``VAETrainer`` :78 with ``init_state`` :113, ``_loss_fn``
 :137, ``prepare_batch`` :240 and ``run_loop`` :264; reference
-``nsr/train_nv_util.py:675-860``) on one device:
+``nsr/train_nv_util.py:675-860``):
 
 * the V input views of an instance are encoded into one latent, and the
   supervised views are rendered back from it as ``patch_resolution²``
@@ -13,14 +13,20 @@ Port of ``ln3diff_tpu/training/vae_trainer.py`` (``VAETrainConfig`` :38,
   f32 parameters (the renderer and the point decoder in f32, as in JAX);
   with ``use_fused_osg`` the render's point pipeline is the fused CUDA
   kernel and its backward kernel;
-* gradients, averaged over ``microbatch_steps``, go through the global-norm
-  clip and AdamW, then the EMA (``train_state.py``).
+* gradients, averaged over ``microbatch_steps`` (and the ranks), go
+  through the global-norm clip and AdamW, then the EMA (``train_state.py``).
 
-Randomness: the patch origins come from ``numpy.random.default_rng([seed,
-0])``, the host RNG of the JAX trainer on process 0, so both crop the same
-windows; the posterior's ε and the render's uniform draws come from a
-``torch.Generator`` or are passed in (:class:`TrainDraws`, so that a test
-can feed JAX's).
+Randomness: the patch origins come from ``parallel.mesh.host_rng(seed)``
+(``default_rng([seed, rank])``, the JAX trainer's host RNG), so both crop
+the same windows on rank 0; the posterior's ε and the render's uniform
+draws are passed in (:class:`TrainDraws`, so that a test can feed JAX's)
+or drawn for the whole batch from a ``torch.Generator``
+(:meth:`VAETrainer.draw`).
+
+``mesh=`` (default: ``make_mesh()`` over the world): each rank trains on
+its (data, fsdp) slice of the batch and of the draws, and the grads are
+averaged over those ranks before the clip (``train_state.build_train_step``);
+``loss`` and the terms are the global means.
 
 ``adversarial=``: an ``AdversarialHead`` (``training/gan.py``) or a
 ``VisionAidedHead`` (``training/vision_aided.py``).  The generator term
@@ -31,8 +37,9 @@ deterministically without grad (through kernel 1 under
 ``use_fused_osg``) and trains the discriminator on (real crops, those
 renders).  The generator term reads the live discriminator, ADA strength
 and draw; the JAX trainer reads the ones of its first trace
-(``ROADMAP.md`` §3).  Not ported yet: the data-parallel mesh and the
-logger (metrics go to ``log``).
+(``ROADMAP.md`` §3).  Under a mesh every rank runs the discriminator
+step on the whole batch, so the discriminators stay equal.  Metrics go
+to ``log``.
 """
 
 from __future__ import annotations
@@ -44,12 +51,14 @@ import numpy as np
 import torch
 
 from ..models.vae import TriplaneVAE, TriplaneVAEConfig
+from ..parallel.mesh import (DP_AXES, MeshConfig, axis_size, data_sharding,
+                             host_rng, make_mesh, replicated)
 from ..pipeline import resolve_device
 from ..render.ray_sampler import (sample_patch_origins, sample_patch_rays,
                                   unpack_25d_camera)
-from ..render.renderer import RenderDraws, RenderOptions
+from ..render.renderer import RenderDraws, RenderOptions, draw_uniforms
 from .losses import LossConfig, reconstruction_losses
-from .train_state import TrainState, global_norm, make_optimizer
+from .train_state import TrainState, build_train_step, make_optimizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,11 +141,15 @@ def render_patches(model: TriplaneVAE, planes: torch.Tensor, batch: dict,
 
 def prepare_patch_batch(raw: dict, rng: np.random.Generator, device,
                         patch_resolution: int, render_resolution: int,
-                        keys: tuple, bbox_scale: float = 1.0) -> dict:
+                        keys: tuple, bbox_scale: float = 1.0,
+                        mesh=None) -> dict:
     """The ``keys`` of ``raw`` on the device, with foreground-biased patch
     origins (host RNG, int32 on the host) for the input views and, when
     ``nv_c`` is kept, the paired nv_* views.  A bbox is scaled by
-    ``bbox_scale`` into render-resolution coords."""
+    ``bbox_scale`` into render-resolution coords.  Under a ``mesh`` with
+    several (data, fsdp) ranks, each rank's origins of its own rows are
+    gathered, as JAX assembles a global array from each host's local
+    draws, so every rank holds the same global origins."""
     out = {k: torch.as_tensor(np.asarray(v), device=device)
            for k, v in raw.items() if k in keys}
     for prefix in ('', 'nv_'):
@@ -148,8 +161,11 @@ def prepare_patch_batch(raw: dict, rng: np.random.Generator, device,
         h0, w0 = sample_patch_origins(rng, out[f'{prefix}c'].shape[0],
                                       patch_resolution, render_resolution,
                                       bbox)
-        out[f'{prefix}patch_h'] = torch.from_numpy(h0)
-        out[f'{prefix}patch_w'] = torch.from_numpy(w0)
+        hw = torch.from_numpy(np.stack([h0, w0], axis=-1))
+        if axis_size(mesh, *DP_AXES) > 1:
+            hw = replicated(mesh, data_sharding(mesh, hw.to(device))).cpu()
+        out[f'{prefix}patch_h'] = hw[:, 0].contiguous()
+        out[f'{prefix}patch_w'] = hw[:, 1].contiguous()
     return out
 
 
@@ -191,9 +207,11 @@ class VAETrainer:
                  loss_cfg: LossConfig = LossConfig(),
                  render_opts: Optional[RenderOptions] = None,
                  seed: int = 0, lpips_fn: Optional[Callable] = None,
-                 adversarial=None, device='cuda'):
+                 adversarial=None, device='cuda', mesh=None):
         from ..models.layers import random_init_, zero_init_like_jax
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshConfig(), device_type=self.device.type)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.loss_cfg = loss_cfg
@@ -206,9 +224,8 @@ class VAETrainer:
         random_init_(self.model, torch.Generator(
             device=self.device).manual_seed(seed))
         zero_init_like_jax(self.model)
-        # host-side patch-origin RNG: the JAX trainer's host_rng(seed) on
-        # process 0
-        self.rng = np.random.default_rng([int(seed), 0])
+        # host-side patch-origin RNG, per rank (JAX's host_rng)
+        self.rng = host_rng(seed)
         self.lpips_fn = lpips_fn
         self.adversarial = adversarial
         self.state: Optional[TrainState] = None
@@ -221,7 +238,8 @@ class VAETrainer:
                             grad_clip=self.cfg.grad_clip,
                             lr_groups=dict(self.cfg.lr_groups) or None)
         self.state = TrainState.create(
-            self.model, tx, ema_rates=(('ema', self.cfg.ema_rate),))
+            self.model, tx, ema_rates=(('ema', self.cfg.ema_rate),),
+            mesh=self.mesh)
         return self.state
 
     # -- the loss ----------------------------------------------------------
@@ -298,42 +316,42 @@ class VAETrainer:
 
     # -- the step ----------------------------------------------------------
 
+    def draw(self, batch: dict, generator: Optional[torch.Generator]
+             ) -> Optional[TrainDraws]:
+        """The draws of a whole (micro)batch from ``generator`` (None
+        without one: the posterior's mean and the render's fixed depths):
+        ε ``(B, h, w, z, 3)`` then the render's uniforms for the supervised
+        views' rays, every rank the same."""
+        if generator is None:
+            return None
+        cfg, mcfg = self.cfg, self.model_cfg
+        n = batch['img_to_encoder'].shape[0] // max(mcfg.num_views, 1)
+        h = mcfg.latent_size
+        eps = torch.randn((n, h, h, mcfg.ldm_z_channels, 3),
+                          generator=generator, device=self.device)
+        use_nv = 'nv_c' in batch and cfg.supervise_views != 'input'
+        rows = batch['nv_c' if use_nv else 'c'].shape[0]
+        return TrainDraws(eps, draw_uniforms(
+            rows, cfg.patch_resolution**2, self.render_opts, generator,
+            self.device))
+
     def train_step(self, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[TrainDraws] = None) -> dict:
-        """One optimizer step (JAX ``build_train_step``'s ``step_fn``).
-        With ``microbatch_steps > 1`` every batch entry of rank ≥ 2 has a
-        leading microbatch axis and the grads are averaged over it.
-        Returns the metrics: the mean loss terms, ``loss`` and
-        ``grad_norm`` (of the unclipped grads)."""
+        """One optimizer step (JAX ``build_train_step``'s ``step_fn``) on
+        the global batch.  With ``microbatch_steps`` S > 1 every batch
+        entry of rank ≥ 2 has a leading microbatch axis, the grads are
+        averaged over it and ``draws`` is a sequence of S draws.  Without
+        draws they come from ``generator`` (:meth:`draw`).  Returns the
+        metrics: the mean loss terms, ``loss`` and ``grad_norm`` (of the
+        unclipped grads)."""
         if self.state is None:
             self.init_state()
-        steps = self.cfg.microbatch_steps
-        if steps > 1 and draws is not None:
-            raise ValueError('explicit draws need microbatch_steps == 1')
-        params = self.state.params
-        for p in params.values():
-            p.grad = None
-        losses, metrics = [], {}
-        for i in range(steps):
-            micro = batch if steps == 1 else {
-                k: (v[i] if torch.is_tensor(v) and v.ndim >= 2 else v)
-                for k, v in batch.items()}
-            loss, terms = self.loss_fn(micro, generator=generator,
-                                       draws=draws)
-            loss.backward()
-            losses.append(loss.detach())
-            for k, v in terms.items():
-                metrics.setdefault(k, []).append(v.detach())
-        grads = {k: (torch.zeros_like(p) if p.grad is None
-                     else p.grad / steps) for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        gnorm = global_norm(list(grads.values()))
-        self.state.apply_gradients(grads)
-        out = {k: torch.stack(v).float().mean() for k, v in metrics.items()}
-        out.update(loss=torch.stack(losses).float().mean(), grad_norm=gnorm)
-        return out
+        step_fn = build_train_step(
+            lambda p, c, b, d: self.loss_fn(b, draws=d),
+            self.cfg.microbatch_steps, mesh=self.mesh,
+            draw_fn=lambda b: self.draw(b, generator))
+        return step_fn(self.state, batch, draws)
 
     # -- host-side batch prep ---------------------------------------------
 
@@ -344,7 +362,8 @@ class VAETrainer:
             raw, self.rng, self.device, self.cfg.patch_resolution,
             self.cfg.render_resolution,
             keys=('img_to_encoder', 'img', 'depth', 'depth_mask', 'c',
-                  'nv_img', 'nv_depth', 'nv_depth_mask', 'nv_c'))
+                  'nv_img', 'nv_depth', 'nv_depth_mask', 'nv_c'),
+            mesh=self.mesh)
 
     # -- loop --------------------------------------------------------------
 

@@ -2,10 +2,10 @@
 
 Port of ``ln3diff_tpu/utils/training_stats.py`` (``StatsCollector`` :23,
 ``report`` :83, ``report0`` :87, ``default_collector`` :91; reference
-``utils/torch_utils/training_stats.py``) on one process: per-name running
-(count, sum, sum of squares) moments in float64 on the host.  ``sync``,
-the cross-process reduction of the JAX collector, waits for the port's
-parallel layer (``ROADMAP.md`` §1 item 3).
+``utils/torch_utils/training_stats.py``): per-name running (count, sum,
+sum of squares) moments in float64 on the host.  Across the ranks of a
+``torch.distributed`` group, ``report0`` reports on rank 0 only and
+``sync`` sums the moments of every rank (JAX :41-53).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _as_numpy(value) -> np.ndarray:
@@ -38,8 +39,29 @@ class StatsCollector:
             self._moments[name] = m
 
     def report0(self, name: str, value) -> None:
-        """Report on process 0 only: on one process, always."""
-        self.report(name, value)
+        """Report on rank 0 only (rank-gated stats)."""
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.report(name, value)
+
+    def sync(self) -> None:
+        """Sum the moments over the ranks: every rank ends with the same
+        ones, over the union of the names the ranks reported (a no-op on
+        one process)."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, list(self._moments))
+        names = sorted(set().union(*every))
+        if not names:
+            return
+        device = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+        zero = np.zeros(3, np.float64)
+        stacked = torch.from_numpy(np.stack(
+            [self._moments.get(n, zero) for n in names])).to(device)
+        dist.all_reduce(stacked)
+        summed = stacked.cpu().numpy()
+        for i, n in enumerate(names):
+            self._moments[n] = summed[i]
 
     def mean(self, name: str) -> float:
         m = self._moments.get(name)

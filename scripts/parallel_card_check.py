@@ -1,0 +1,250 @@
+#!/usr/bin/env python3
+"""The port's parallel layer on several CUDA cards under NCCL.
+
+    torchrun --nproc_per_node=4 scripts/parallel_card_check.py
+    torchrun --nproc_per_node=4 scripts/parallel_card_check.py --device cpu
+
+Each rank runs the multi-rank tasks of the CPU tests
+(``tests/_torch_parallel_tasks.py``) on its card, and the same work
+without a mesh as the one-rank reference, and checks the two agree:
+
+* ``build_train_step`` on meshes (4,1,1,1), (2,1,2,1) under
+  ``param_sharding_rules`` and (2,1,1,2) under ``tensor_parallel_rules``
+  (a toy DiT, f32): loss within 1e-5 relative, every parameter within
+  1e-5 of its scale plus 1e-2·lr, each sharded tensor 1/2 of its bytes;
+* ``dit_pipeline_apply`` at (pp, n_micro) = (2, 4) on (2, 2, 1, 1) and
+  (4, 4) on (1, 4, 1, 1): the output within 1e-5 absolute, each stage's
+  grads within 1e-5 of scale (floor 1e-6 of the largest) — the schedule's
+  point-to-point sends carry no tags under NCCL, so this checks their
+  order; the pipelined ``LDMTrainer`` step's loss within 1e-5 relative;
+* the sharded text→3D call (kernel 1) over four data ranks against the
+  unsharded one: latents and σ grid equal, frames within 1e-6; tensor-
+  parallel DDIM sampling over four ranks within 2e-4 of scale;
+* the preemption guard's agreement (SIGTERM to rank 1) and a checkpoint
+  round trip of FSDP-sharded and pipeline-staged train states.
+
+Prints one JSON line per check on rank 0, the card's name and power limit,
+and ``{"ok": ...}`` last; exits non-zero if any check failed.  It needs
+the repository's ``tests/`` beside ``scripts/`` and four ranks: four
+cards, or with ``--device cpu`` four gloo processes (no kernel).
+"""
+
+import argparse
+import datetime
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, '..'))
+sys.path.insert(0, os.path.join(HERE, '..', 'tests'))
+
+DIT = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=64,
+           depth=4, num_heads=2, variant='text', context_dim=32)
+LR, TOL = 1e-3, 1e-5
+
+
+def _close_params(got, want, lr=LR):
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(got[k] - w).max())
+        worst = max(worst, err / (TOL * scale + 1e-2 * lr))
+    return worst
+
+
+def main():
+    import torch
+    import torch.distributed as dist
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.models.layers import random_init_
+    import _torch_parallel_tasks as tasks
+
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    dev = parser.parse_args().device
+    if 'WORLD_SIZE' not in os.environ:
+        print('parallel_card_check: run under torchrun', file=sys.stderr)
+        return 1
+    if dev == 'cuda' and not torch.cuda.is_available():
+        print('parallel_card_check: no CUDA device', file=sys.stderr)
+        return 1
+    if dev == 'cuda':
+        torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
+    # a rank that fails inside a collective fails the others in minutes
+    dist.init_process_group('nccl' if dev == 'cuda' else 'gloo',
+                            timeout=datetime.timedelta(seconds=180))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != 4:
+        print('parallel_card_check: needs 4 ranks', file=sys.stderr)
+        return 1
+    if dev == 'cuda':
+        from ln3diff_tpu_torch.ops._build import build_all
+        if rank == 0:
+            build_all()
+        dist.barrier()
+        if rank:
+            build_all()
+
+    model = DiT_TriLatent(DiTConfig(**DIT, dtype=torch.float32))
+    random_init_(model, torch.Generator().manual_seed(0))
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(3)
+    batch = {'x': rng.standard_normal((8, 8, 8, 12)).astype(np.float32),
+             'ctx': rng.standard_normal((8, 7, 32)).astype(np.float32)}
+    failed = []
+
+    def report(name, ok, t0, **fields):
+        flag = torch.tensor([int(bool(ok))], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if not flag.item():
+            failed.append(name)
+        if rank == 0:
+            print(json.dumps({'check': name, 'ok': bool(flag.item()),
+                              'seconds': round(time.perf_counter() - t0, 3),
+                              **fields}, default=float), flush=True)
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn(name, t0)
+        except Exception:
+            traceback.print_exc()
+            report(name, False, t0, error='exception (stderr)')
+
+    def train_step(name, t0, mesh_kw, rules, min_size):
+        got = tasks.dit_train_step(DIT, sd, batch, mesh_kw, rules, min_size,
+                                   LR, device=dev)
+        want = tasks.dit_train_step(DIT, sd, batch, None, device=dev)
+        loss_rel = abs(got['loss'] - want['loss']) / abs(want['loss'])
+        worst = _close_params(got['params'], want['params'])
+        halves = all(2 * s['param'][0] == s['param'][1]
+                     for s in got['sizes'].values())
+        report(name, loss_rel <= TOL and worst <= 1 and halves
+               and bool(got['sizes']) == (rules is not None), t0,
+               loss_rel=loss_rel, params_worst_share_of_tol=worst,
+               sharded=len(got['sizes']))
+
+    for name, mesh_kw, rules, size in (
+            ('train_step_data4', dict(data=4), None, 0),
+            ('train_step_data2_fsdp2', dict(data=2, fsdp=2), 'fsdp', 1024),
+            ('train_step_data2_tensor2', dict(data=2, tensor=2), 'tensor',
+             256)):
+        run(name, lambda n, t0, m=mesh_kw, r=rules, s=size:
+            train_step(n, t0, m, r, s))
+
+    prng = np.random.default_rng(0)
+    x = prng.standard_normal((4, 8, 8, 12)).astype(np.float32)
+    t = np.arange(4.0, dtype=np.float32) * 100
+    ctx = prng.standard_normal((4, 7, 32)).astype(np.float32)
+    cot = prng.standard_normal((4, 8, 8, 12)).astype(np.float32)
+
+    def pipeline(name, t0, mesh_kw, n_micro):
+        got = tasks.pipeline_forward_grads(DIT, sd, x, t, ctx, cot, mesh_kw,
+                                           n_micro, device=dev)
+        want = tasks.pipeline_forward_grads(DIT, sd, x, t, ctx, cot, None,
+                                            1, device=dev)
+        out_err = float(np.abs(got['out'] - want['out']).max())
+        gmax = max(float(np.abs(g).max()) for g in want['grads'].values())
+        worst = 0.0
+        for k, g in got['grads'].items():
+            w = want['grads'][k]
+            bound = max(TOL * float(np.abs(w).max()), 1e-6 * gmax)
+            worst = max(worst, float(np.abs(g - w).max()) / bound)
+        report(name, out_err <= TOL and worst <= 1, t0,
+               out_max_abs_err=out_err, grads_worst_share_of_tol=worst,
+               grads=len(got['grads']))
+
+    run('gpipe_pp2_micro4', lambda n, t0: pipeline(
+        n, t0, dict(data=2, pipe=2), 4))
+    run('gpipe_pp4_micro4', lambda n, t0: pipeline(
+        n, t0, dict(data=1, pipe=4), 4))
+
+    lrng = np.random.default_rng(5)
+    lbatch = {'latent': lrng.standard_normal((8, 8, 8, 12)).astype(
+                  np.float32),
+              'context': {'crossattn': lrng.standard_normal(
+                  (8, 7, 32)).astype(np.float32)}}
+    draws = (lrng.uniform(0.05, 0.95, (8,)).astype(np.float32),
+             lrng.standard_normal((8, 8, 8, 12)).astype(np.float32))
+
+    def ldm_pp(name, t0):
+        got = tasks.ldm_step(DIT, sd, lbatch, draws, dict(data=2, pipe=2), 2,
+                             device=dev)
+        want = tasks.ldm_step(DIT, sd, lbatch, draws, None, 2, device=dev)
+        loss_rel = abs(got['loss'] - want['loss']) / abs(want['loss'])
+        worst = _close_params(got['params'], want['params'])
+        report(name, loss_rel <= TOL and worst <= 1, t0, loss_rel=loss_rel,
+               params_worst_share_of_tol=worst)
+
+    run('ldm_trainer_pp2', ldm_pp)
+
+    def serving(name, t0, flat):
+        with tempfile.TemporaryDirectory() as d:
+            o = tasks.serving_call(d, 8, 32, flat, device=dev)
+        s, p = o['sharded'], o['plain']
+        frames = float(np.abs(s['video'] - p['video']).max())
+        ok = (np.array_equal(s['latents'], p['latents'])
+              and np.array_equal(s['sigma'], p['sigma'])
+              and frames <= 1e-6)
+        report(name, ok, t0, frames_max_abs_err=frames)
+
+    run('serving_mesh_data4', lambda n, t0: serving(n, t0, False))
+    run('serving_mesh_data4_flat_rays', lambda n, t0: serving(n, t0, True))
+
+    def tp(name, t0, min_size):
+        o = tasks.tp_sampling(min_size, device=dev)
+        scale = max(1.0, float(np.abs(o['ref']).max()))
+        err = float(np.abs(o['got'] - o['ref']).max())
+        report(name, err <= 2e-4 * scale, t0, max_abs_err=err,
+               split_layers=len(o['kinds']), heads=o['heads'])
+
+    run('tp_sampling_tensor4', lambda n, t0: tp(n, t0, 0))
+
+    def guard(name, t0):
+        o = tasks.preempt_loop(1, 5)
+        report(name, o['stopped'] == 6 and o['preempted'], t0,
+               stopped_after=o['stopped'])
+
+    run('preemption_guard', guard)
+
+    def ckpt(name, t0, mesh_kw, fsdp):
+        d = tempfile.mkdtemp() if rank == 0 else None
+        box = [d]
+        dist.broadcast_object_list(box, src=0)
+        o = tasks.checkpoint_roundtrip(box[0], DIT, sd, lbatch, draws,
+                                       mesh_kw, fsdp, device=dev)
+        report(name, o['held'] and o['moments'] and o['ema']
+               and o['modules'] and o['step'] == 1, t0,
+               sharded=o['sharded'], absent=o['absent'])
+
+    run('checkpoint_fsdp', lambda n, t0: ckpt(n, t0, dict(data=2, fsdp=2),
+                                              True))
+    run('checkpoint_pipe', lambda n, t0: ckpt(n, t0, dict(data=2, pipe=2),
+                                              False))
+
+    if rank == 0:
+        kind = 'cpu'
+        if dev == 'cuda':
+            smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                                  '--format=csv,noheader'],
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout.strip()
+            print(smi.splitlines()[0] if smi else '', flush=True)
+            kind = torch.cuda.get_device_name(0)
+        print(json.dumps({'ok': not failed, 'failed': failed,
+                          'world_size': world, 'kind': kind}), flush=True)
+    dist.destroy_process_group()
+    return 1 if failed else 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -19,8 +19,9 @@ by ``bridge.vae_state_dict`` and
 ``k_z, k_pts, k_vae = split(rng, 3)``, z from ``k_z``, the box
 coordinates from ``k_pts``, and inside the VAE ``k_eps, k_render =
 split(k_vae)``, ε from ``k_eps`` and the render's uniforms from
-``split(k_render)``.  Tolerances: the loss within 1e-6 relative, each
-term within 1e-5 relative, every grad within 1e-4 of scale (a floor of
+``split(k_render)``.  Tolerances: each term within 1e-5 relative, the
+loss within what those term gaps and the f32 rounding of its weighted
+sum allow (``_loss_bound``), every grad within 1e-4 of scale (a floor of
 1e-6 of the largest grad: grads that are zero in exact arithmetic hold
 f32 noise on both sides), the params after the AdamW step within 1e-5 of
 scale plus 1e-2·lr where the grad is resolved and 2·lr elsewhere.
@@ -225,6 +226,22 @@ def test_cameras_are_bit_equal():
         np.testing.assert_array_equal(got, want)
 
 
+def _loss_bound(terms, want) -> float:
+    """The bound on the loss's gap to JAX's.  Both sides add the same
+    weighted terms, ``loss = Σ_k λ_k·T_k``, and each term is held to JAX's
+    on its own; so the loss may differ by ``Σ_k λ_k·|T_k − T_k^JAX|``
+    plus the f32 rounding of the weighted sum on each side, at most one
+    unit roundoff per addend per addition: ``2·n·u·Σ_k λ_k·|T_k|`` for n
+    terms."""
+    cfg = twarm.WarmupConfig(**WARM)
+    u = float(np.finfo(np.float32).eps) / 2
+    lam = {k: getattr(cfg, f'lambda_{k}') for k in terms}
+    gap = sum(lam[k] * abs(float(v) - want['metrics'][k])
+              for k, v in terms.items())
+    mag = sum(lam[k] * abs(want['metrics'][k]) for k in terms)
+    return gap + 2 * len(terms) * u * mag
+
+
 @pytest.mark.parametrize('case', ['tiny', 'ffhq'])
 def test_warmup_step_matches_jax(case):
     """The loss, each term, every grad, then the params after AdamW."""
@@ -234,10 +251,10 @@ def test_warmup_step_matches_jax(case):
         {'ws'} if case == 'ffhq' else set())
     assert set(terms) == expected
     assert set(want['metrics']) == expected | {'loss'}
-    assert abs(loss.item() - want['loss']) <= 1e-6 * abs(want['loss'])
     for k, v in terms.items():
         w = want['metrics'][k]
         assert abs(v.item() - w) <= 1e-5 * abs(w), (k, v.item(), w)
+    assert abs(loss.item() - want['loss']) <= _loss_bound(terms, want)
     loss.backward()
     grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
              for k, p in tr.model.named_parameters()}
@@ -257,8 +274,8 @@ def test_warmup_step_matches_jax(case):
     assert not any(p.grad is not None for p in tr.teacher.parameters())
 
     metrics = tr.train_step(cam, draws=draws)
-    assert abs(metrics['loss'].item() - want['loss']) <= \
-        1e-6 * abs(want['loss'])
+    assert abs(metrics['loss'].item() - want['loss']) <= _loss_bound(
+        {k: metrics[k] for k in terms}, want)
     new = bridge.vae_state_dict(want['new_params'])
     for k, p in tr.state.params.items():
         g = jgrads[k]

@@ -1308,3 +1308,119 @@ def test_stylegan3_card_matches_cpu(cuda_f32):
     for k, v in cpu.state_dict().items():
         torch.testing.assert_close(card.state_dict()[k].cpu(), v, rtol=1e-4,
                                    atol=1e-6, msg=k)
+
+
+# -- the parallel layer at a world size of 1 under NCCL -------------------------
+
+@pytest.fixture
+def nccl(cuda_f32, tmp_path):
+    """A one-rank NCCL process group over a file store, torn down after
+    the test (the other tests build their trainers without one)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', store=dist.FileStore(
+        str(tmp_path / 'store'), 1), rank=0, world_size=1)
+    try:
+        yield cuda_f32
+    finally:
+        dist.destroy_process_group()
+
+
+def test_parallel_vae_step_world1_equals_no_mesh(nccl):
+    """Two data-parallel VAE steps under a one-rank NCCL mesh (kernels 1
+    and 2, the grads all-reduced over the one rank) equal the steps
+    without a mesh bit for bit, under deterministic algorithms (the
+    default backward sums with atomics)."""
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.parallel.mesh import LocalMesh, make_mesh
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+    model_cfg, train_cfg, opts = _small_vae_cfgs(True)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    mesh = make_mesh()
+    assert not isinstance(mesh, LocalMesh) and mesh.size() == 1
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, m in (('mesh', mesh), ('none', LocalMesh('cuda'))):
+            tr = VAETrainer(model_cfg, train_cfg, render_opts=opts, seed=3,
+                            device='cuda', mesh=m)
+            gen = torch.Generator(device='cuda').manual_seed(7)
+            FusedOSG.launches = FusedOSG.backward_launches = 0
+            losses = []
+            for i in range(2):
+                batch = tr.prepare_batch(raw)
+                batch['step'] = float(i)
+                losses.append(float(tr.train_step(batch,
+                                                  generator=gen)['loss']))
+            assert FusedOSG.launches > 0 and FusedOSG.backward_launches > 0
+            out[name] = (losses, {k: p.detach().clone()
+                                  for k, p in tr.state.params.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out['mesh'][0] == out['none'][0]
+    for k, p in out['none'][1].items():
+        assert torch.equal(out['mesh'][1][k], p), k
+
+
+def test_sharded_serving_world1_equals_unsharded(nccl):
+    """The small text→3D call with ``serving_mesh`` (one NCCL rank) equals
+    the call without it: frames and σ grid, through kernel 1 on both."""
+    from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
+    from ln3diff_tpu_torch.models.dit import DiT2Config, DiTConfig
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.parallel.mesh import make_mesh
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
+    kw = dict(device='cuda', seed=0,
+              den_cfg=DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                                hidden_size=32, depth=2, num_heads=2,
+                                context_dim=32, dtype=torch.float32),
+              vae_cfg=TriplaneVAEConfig(
+                  latent_size=8, patch_size=2, conv_sr_ch=8,
+                  conv_sr_ch_mult=(1, 2), conv_sr_res_blocks=1,
+                  dit2=DiT2Config(tokens_per_plane=16, hidden_size=32,
+                                  depth=2, num_heads=2, dtype=torch.float32),
+                  dtype=torch.float32),
+              text_cfg=CLIPTextConfig(hidden_size=32, num_layers=1,
+                                      num_heads=2, intermediate_size=64),
+              render_resolution=16,
+              sampler=SamplerSpec(kind='ddim', num_steps=2,
+                                  latent_shape=(8, 8, 12)),
+              render_dtype=None)
+    x_init = torch.randn(1, 8, 8, 12, device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(3))
+    cond = {'crossattn': torch.randn(1, 77, 32, device='cuda')}
+    uncond = {'crossattn': torch.zeros(1, 77, 32, device='cuda')}
+    out = {}
+    for name, m in (('sharded', make_mesh()), ('plain', None)):
+        pipe, _, _ = build_t23d_pipeline(serving_mesh=m, **kw)
+        FusedOSG.launches = 0
+        res = pipe(cond, uncond, num_frames=8, x_init=x_init)
+        planes = pipe.decode_fn(res['latents'])
+        sigma = pipe.dispatch_mesh_sigma(planes, 32, smooth=True)
+        torch.cuda.synchronize()
+        out[name] = (res['video'], sigma, FusedOSG.launches)
+    assert out['sharded'][2] == out['plain'][2] > 0
+    assert torch.equal(out['sharded'][0], out['plain'][0])
+    assert torch.equal(out['sharded'][1], out['plain'][1])
+
+
+def test_dit_pipeline_pp1_on_card(cuda_f32):
+    """``dit_pipeline_apply`` at pp = 1 with four microbatches equals the
+    plain forward on the card (the same per-sample math; 1e-5)."""
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.parallel.mesh import LocalMesh
+    from ln3diff_tpu_torch.parallel.pipeline import dit_pipeline_apply
+    model = DiT_TriLatent(DiTConfig(
+        input_size=8, patch_size=2, in_channels=4, hidden_size=64,
+        depth=4, num_heads=2, context_dim=32, dtype=torch.float32)).cuda()
+    random_init_(model, torch.Generator('cuda').manual_seed(0))
+    g = torch.Generator('cuda').manual_seed(1)
+    x = torch.randn(4, 8, 8, 12, device='cuda', generator=g)
+    t = torch.arange(4.0, device='cuda') * 100
+    ctx = {'crossattn': torch.randn(4, 7, 32, device='cuda', generator=g)}
+    with torch.no_grad():
+        want = model(x, t, ctx)
+        got = dit_pipeline_apply(model, x, t, ctx, mesh=LocalMesh('cuda'),
+                                 n_micro=4)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -366,9 +366,11 @@ def test_trainer_refuses_what_it_cannot_train():
     with pytest.raises(ValueError, match='fused_attention'):
         LDMTrainer(tdit.DiT_TriLatent(_tcfg(False, fused_attention=True)),
                    device='cpu')
-    with pytest.raises(NotImplementedError, match='item 3'):
-        LDMTrainer(tdit.DiT_TriLatent(_tcfg(False)), device='cpu',
-                   pipeline_stages=2)
+    # a mesh with a pipe axis drives the DiT's trunk: another model is
+    # refused (a stand-in mesh: only its axis sizes are read)
+    pipe_mesh = type('PipeMesh', (), {'shape': (1, 2, 1, 1)})()
+    with pytest.raises(ValueError, match='pipeline parallelism'):
+        LDMTrainer(torch.nn.Linear(2, 2), device='cpu', mesh=pipe_mesh)
 
 
 def test_trainer_init_zeroes_what_jax_zeroes():

@@ -387,9 +387,18 @@ _FORBIDDEN = re.compile(
 def test_boundary_covers_the_entry_layer():
     """The checks here cover the entry layer: the CLIs under
     ``ln3diff_tpu_torch/scripts/``, the console wrappers, the converters,
-    the utilities, and the reference-dict writer that ``chip_smoke.py``
-    imports from ``tests/``."""
+    the utilities, the parallel layer, and the reference-dict writer that
+    ``chip_smoke.py`` imports from ``tests/``."""
     for m in ('ln3diff_tpu_torch.cli',
+              'ln3diff_tpu_torch.parallel.mesh',
+              'ln3diff_tpu_torch.parallel.pipeline',
+              'ln3diff_tpu_torch.parallel.serving',
+              'ln3diff_tpu_torch.scripts._lib',
+              'ln3diff_tpu_torch.scripts.vit_triplane_train',
+              'ln3diff_tpu_torch.scripts.vit_triplane_diffusion_train',
+              'ln3diff_tpu_torch.scripts.vit_triplane_sit_train',
+              'ln3diff_tpu_torch.scripts.vit_triplane_cvD_train',
+              'ln3diff_tpu_torch.scripts.vit_triplane_cldm_train',
               'ln3diff_tpu_torch.conditioning.convert',
               'ln3diff_tpu_torch.conditioning.convert_ln3diff',
               'ln3diff_tpu_torch.scripts.convert_checkpoint',
@@ -407,11 +416,13 @@ def test_boundary_covers_the_entry_layer():
 
 
 @pytest.mark.parametrize('path', _PORT_MODULES + [
-    'chip_smoke', 'tests._torch_reference_sd'])
+    'chip_smoke', 'tests._torch_reference_sd', 'tests._torch_ranks',
+    'tests._torch_parallel_tasks', 'scripts.parallel_card_check'])
 def test_no_jax_reference_in_source(path):
-    """No file of the port, not chip_smoke.py and not the reference-dict
-    writer it imports contains ``import jax``, ``from jax``, ``flax`` or
-    ``ln3diff_tpu.``."""
+    """No file of the port, not chip_smoke.py, not the reference-dict
+    writer it imports, not the gloo ranks' task modules and not the
+    multi-card check that runs them contains ``import jax``, ``from
+    jax``, ``flax`` or ``ln3diff_tpu.``."""
     src = (REPO / (path.replace('.', '/') + '.py')).read_text()
     assert not _FORBIDDEN.findall(src)
 

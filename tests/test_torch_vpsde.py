@@ -2,7 +2,10 @@
 posterior's ``log_p`` / ``normal_entropy`` / ``nll`` against the JAX
 package, f32 on both sides, fed JAX's random draws.
 
-Tolerance: 1e-6 of each output's scale, except where ``t`` comes out of
+Tolerance: 1e-6 of each output's scale, except for the IW quantities
+(``test_iw_quantities_match_jax``: the uniform-t modes are held per
+element to a bound derived from their conditioning), and where ``t``
+comes out of
 ``inv_var`` (the IW modes ``ll_iw`` and ``drop_sigma2t_iw``): ``-β0 +
 sqrt(β0² − 2a·c)`` cancels as ``var → σ²(ε)``, torch and XLA round
 ``log``/``exp`` an ulp apart, and the cancellation amplifies that in
@@ -49,16 +52,61 @@ def _close(got, want, rel=TOL, msg=''):
 SDE = dict(beta_start=0.1, beta_end=20.0, sigma2_0=0.0, time_eps=0.01)
 
 
+def _uniform_t_f64(t, mode):
+    """The uniform-t modes' quantities in f64 from the f32 ``t`` both
+    sides share, each with its condition factor: the relative error that
+    one unit roundoff in the exponent ``x = β0·t + ½(β1 − β0)·t²`` and in
+    ``exp`` becomes.  ``var = 1 − e^{−x}``: an error of (1 + x)·e^{−x}·u
+    absolute, (1 + x)·e^{−x}/var relative — large at the smallest t,
+    where var → 0; ``m = e^{−x/2}``: (1 + x); every weight divided by
+    ``var`` inherits var's factor; ``0.5/(1 − var)`` (``rescale_iw``)
+    gets var's absolute error over 1 − var."""
+    b0, b1 = SDE['beta_start'], SDE['beta_end']
+    t = np.asarray(t, np.float64)
+    x = b0 * t + 0.5 * (b1 - b0) * t * t
+    var, m, g2 = -np.expm1(-x), np.exp(-0.5 * x), b0 + (b1 - b0) * t
+    c_var = 1 + (1 + x) * np.exp(-x) / var
+    ll = (g2 / (2 * var), c_var + 1)
+    w = {'ll_uniform': ll, 'drop_all_uniform': (np.ones_like(t), 0 * t),
+         'drop_sigma2t_uniform': (g2 / 2, 1 + 0 * t),
+         'rescale_iw': (0.5 / (1 - var), 1 + (1 + x) / np.exp(-x))}[mode]
+    return {'t': (t, 0 * t), 'var_t': (var, c_var), 'm_t': (m, 1 + x),
+            'obj_weight_t': w, 'obj_weight_t_ll': ll, 'g2_t': (g2, 1 + 0 * t)}
+
+
+# ulps per f32 evaluation: exp within 1 ulp, plus the roundings of the
+# exponent's polynomial and of the few products and quotients after it
+ULPS = 4
+
+
 @pytest.mark.parametrize('mode', tv.IW_MODES)
 def test_iw_quantities_match_jax(mode):
-    """Every IW mode from JAX's ``rho`` (uniform of the key)."""
+    """Every IW mode from JAX's ``rho`` (uniform of the key).  The IW
+    modes are held to ``T_TOL`` of scale (module docstring).  The uniform
+    modes compute the same formulas from a bit-equal ``t``, so each
+    element of each side is held within ``ULPS`` unit roundoffs of the f64
+    value times its condition factor (``_uniform_t_f64``), and the two
+    sides to the sum of their bounds."""
     key = jax.random.PRNGKey(3)
     want = jv.VPSDE(**SDE).iw_quantities(key, 64, mode)
     rho = jax.random.uniform(key, (64,))
     got = tv.VPSDE(**SDE).iw_quantities(64, mode, rho=_t(rho))
-    rel = T_TOL if mode in ('ll_iw', 'drop_sigma2t_iw') else TOL
+    if mode in ('ll_iw', 'drop_sigma2t_iw'):
+        for name, g, w in zip(want._fields, got, want):
+            _close(g, w, T_TOL, msg=f'{mode}.{name}')
+        return
+    np.testing.assert_array_equal(got.t.numpy(), np.asarray(want.t))
+    ref = _uniform_t_f64(got.t.numpy(), mode)
+    u = float(np.finfo(np.float32).eps) / 2
     for name, g, w in zip(want._fields, got, want):
-        _close(g, w, rel, msg=f'{mode}.{name}')
+        r, cond = ref[name]
+        bound = ULPS * u * np.abs(r) * cond
+        g = g.numpy().astype(np.float64).reshape(-1)
+        w = np.asarray(w, np.float64).reshape(-1)
+        for side, v in (('port', g), ('jax', w)):
+            assert (np.abs(v - r) <= bound).all(), (
+                mode, name, side, float(np.max(np.abs(v - r) / bound)))
+        assert (np.abs(g - w) <= 2 * bound).all(), (mode, name)
 
 
 def test_iw_quantities_from_a_generator():
