@@ -104,8 +104,11 @@ from a fixed seed:
   pickle's;
 * under a one-rank NCCL process group (the parallel layer at world size
   1): ``parallel_vae_train``, the full-width VAE step with the kernel pair
-  built with ``mesh=make_mesh()``, 3 steps equal to those of the same
-  trainer without a mesh (deterministic algorithms), then 2 timed steps; ``train_entries``, the five
+  built with ``mesh=make_mesh()``, and again with its parameters held in
+  the module as one-way shards (the FSDP path's gathers, reduce-scatters
+  and saved-tensor recipes under NCCL), 3 steps of each equal to those of
+  the same trainer without a mesh (deterministic algorithms), then 2 timed
+  steps of each; ``train_entries``, the five
   training CLIs in process (``vit_triplane_train`` with a checkpoint, its
   resume and ``--inference``, ``vit_triplane_diffusion_train`` on the t23d
   DiT-L/2 preset and with ``--objective vpsde_joint``,
@@ -114,11 +117,17 @@ from a fixed seed:
   ``serving_mesh``, the text→3D call with ``serving_mesh=make_mesh()``
   against the unsharded call on the same latents (75 launches of kernel
   1), and ``dit_pipeline_apply`` at pp = 1 with 4 microbatches on the
-  DiT-L/2 against its plain forward.
+  DiT-L/2 against its plain forward;
+* ``data_vae_train``: 8 synthetic instances of 8 views at 256² written
+  into tar shards by the port's ``wds_create`` CLI, the native reader's
+  samples against ``tarfile``'s, then the stream through
+  ``PostProcess`` into 3 steps of the full-width VAE trainer with the
+  kernel pair (8 launches of each per step), with each reader's
+  batches/s, PostProcess ms per instance and s/step.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
-with nvcc and the native mesh code from ``ln3diff_tpu_torch/native`` with
-g++ and holds each kernel against its plain PyTorch version
+with nvcc and the native mesh and shard-reader code from
+``ln3diff_tpu_torch/native`` with g++ and holds each kernel against its plain PyTorch version
 (``kernel_check``, ``attention_check``, ``qkv_attention_check``,
 ``osg_backward_check``).  It also checks the mesh stage on an analytic
 sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
@@ -4036,29 +4045,192 @@ def _record_first_grads(state, into: dict):
     state.apply_gradients = record
 
 
+def _flatten_views(raw):
+    """A streamed batch's instances × views as rows, the views' fields of
+    ``tests/test_integration_wds.py`` (the encoder's and the supervised
+    input views')."""
+    out = {}
+    for k in ('img_to_encoder', 'img', 'depth', 'depth_mask', 'c', 'bbox'):
+        v = raw[k]
+        out[k] = v.reshape((-1,) + v.shape[2:])
+    return out
+
+
+def data_vae_train(workdir, steps=3, instances=8, views=8, reso=256):
+    """The data layer feeding the full-width VAE step: ``instances``
+    synthetic instances of ``views`` views at ``reso``² written into tar
+    shards by the port's ``wds_create`` CLI; ``iter_shards_native`` (the
+    g++-built reader) against ``iter_shard`` on those shards, every sample
+    equal, each reader's batches/s (2 instances collated a batch) over one
+    pass; ``load_wds_data`` with ``PostProcess(reso_encoder=256,
+    reso_render=128, num_views_input=4, num_views_sup=2)`` (its ms per
+    instance) into ``steps`` steps of ``VAETrainer`` with the kernel pair
+    (``_train_cfgs(small=False)``, ``use_fused_osg=True``) on the views
+    flattened as in ``tests/test_integration_wds.py``.  Checked: finite
+    losses, grad_norm > 0, the trained parameters changed, and 8 launches
+    each of kernels 1 and 2 per step (counters set to 0 just before each
+    step, read just after)."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.data.objaverse import PostProcess
+    from ln3diff_tpu_torch.data.wds import (collate, iter_shard,
+                                            iter_shards_native,
+                                            load_wds_data)
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.scripts import wds_create
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_dir = os.path.join(workdir, 'shards')
+    paths = wds_create.main([
+        '--out', os.path.join(shard_dir, 'objv-%06d.tar'),
+        '--num_instances', str(instances), '--num_views', str(views),
+        '--resolution', str(reso), '--maxcount', str(instances // 2)])
+    write_s = time.perf_counter() - t0
+    shard_mb = sum(os.path.getsize(p) for p in paths) / 2**20
+
+    def read_pass(samples):
+        """Batches of 2 instances over one pass: (samples, batches/s)."""
+        t = time.perf_counter()
+        got, batch, n = [], [], 0
+        for smp in samples:
+            got.append(smp)
+            batch.append(smp)
+            if len(batch) == 2:
+                collate(batch)
+                batch, n = [], n + 1
+        return got, n / (time.perf_counter() - t)
+
+    tar_samples, tar_bps = read_pass(s for p in paths
+                                     for s in iter_shard(p))
+    nat_samples, nat_bps = read_pass(iter_shards_native(paths))
+    check(len(tar_samples) == len(nat_samples) == instances,
+          f'samples: tarfile {len(tar_samples)}, native '
+          f'{len(nat_samples)}, written {instances}')
+    for a, b in zip(tar_samples, nat_samples):
+        check(list(a) == list(b), f'fields {list(a)} vs {list(b)}')
+        for k, v in a.items():
+            same = (np.array_equal(v, b[k]) and v.dtype == b[k].dtype
+                    if isinstance(v, np.ndarray) else v == b[k])
+            check(same, f'{a["__key__"]}.{k}: the native reader differs')
+    del tar_samples, nat_samples
+
+    pp = PostProcess(reso_encoder=256, reso_render=128, num_views_input=4,
+                     num_views_sup=2)
+    pp_secs = []
+
+    def timed_pp(sample):
+        t = time.perf_counter()
+        out = pp(sample)
+        pp_secs.append(time.perf_counter() - t)
+        return out
+
+    stream = load_wds_data(paths, batch_size=1, transform=timed_pp,
+                           shuffle_buffer=4, seed=0)
+    model_cfg, base_cfg, loss_cfg, opts = _train_cfgs(small=False)
+    train_cfg = dataclasses.replace(base_cfg, use_fused_osg=True)
+    tr = VAETrainer(model_cfg, train_cfg, loss_cfg, render_opts=opts,
+                    seed=0, device='cuda')
+    tr.init_state()
+    before = {k: v.detach().clone() for k, v in tr.state.params.items()}
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, norms, launches, keys = [], [], [], [], []
+    for i in range(steps):
+        raw = next(stream)
+        keys.append(raw['__key__'])
+        check(raw['img_to_encoder'].shape == (1, 4, 256, 256, 10)
+              and raw['nv_img'].shape == (1, 2, 128, 128, 3),
+              f'streamed batch {raw["img_to_encoder"].shape}')
+        batch = tr.prepare_batch(_flatten_views(raw))
+        batch['step'] = float(i)
+        torch.cuda.synchronize()
+        FusedOSG.launches = FusedOSG.backward_launches = 0
+        t = time.perf_counter()
+        m = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        launches.append((FusedOSG.launches, FusedOSG.backward_launches))
+        losses.append(float(m['loss']))
+        norms.append(float(m['grad_norm']))
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    changed = sum(not torch.equal(v, tr.state.params[k])
+                  for k, v in before.items())
+    trained = len(before)
+    del tr, before, stream
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f'losses {losses}')
+    check(all(n > 0 and math.isfinite(n) for n in norms),
+          f'grad norms {norms}')
+    check(changed > 0, 'no trained parameter changed')
+    check(all(n == (8, 8) for n in launches),
+          f'kernel 1/2 launches per step {launches}, expected 8/8')
+    return dict(
+        instances=instances, views=views, resolution=reso,
+        shards=len(paths), shard_mib=round(shard_mb, 3),
+        wds_create_s=round(write_s, 3),
+        batches_per_s={'iter_shard': tar_bps, 'iter_shards_native': nat_bps},
+        batch_instances=2,
+        native_equals_tarfile=True,
+        post_process_ms_per_instance=1e3 * sum(pp_secs) / len(pp_secs),
+        post_process_instances=len(pp_secs),
+        steps=steps, streamed_keys=keys, losses=losses, grad_norms=norms,
+        params_changed=f'{changed} of {trained}',
+        s_per_step=sum(secs[1:]) / len(secs[1:]), s_per_step_runs=secs,
+        fused_osg_launches=sum(n[0] for n in launches),
+        fused_osg_backward_launches=sum(n[1] for n in launches),
+        launches_per_step=[list(n) for n in launches],
+        peak_mem_gib_above_resident=round(peak, 3),
+        resident_gib=round(resident / 2**30, 3))
+
+
+class _FsdpSizes:
+    """A stand-in mesh for the placement rules, which read axis sizes
+    only: the sizes of a (1, 1, ``fsdp``, 1) mesh."""
+
+    def __init__(self, fsdp):
+        self.shape = (1, 1, fsdp, 1)
+
+
+def _local_tensor(t):
+    return t.to_local() if hasattr(t, 'to_local') else t
+
+
 def parallel_vae_train(steps=3, timed=3):
     """The full-width VAE step of ``vae_train`` with the kernel pair
-    (``use_fused_osg=True``), built with ``mesh=make_mesh()`` — a one-rank
-    NCCL mesh: the rank's slice is the whole batch and the grads pass an
-    all-reduce over the one rank — beside the same trainer without a mesh,
-    from the same weights, batch and draws, in turns for ``steps`` steps
-    under ``torch.use_deterministic_algorithms`` (the card's default
-    backward sums with atomics, so two runs of one code differ by about 1%
-    of a grad's scale; kernels 1 and 2 are deterministic either way): the
-    first step's grads, every loss and the parameters after each step must
-    be equal (an all-reduce over one rank is exact, and so is the division
-    by one).  Then ``timed`` more meshed steps in the default mode (the
+    (``use_fused_osg=True``) three ways from the same weights, batch and
+    draws: built with ``mesh=make_mesh()`` — a one-rank NCCL mesh: the
+    rank's slice is the whole batch and the grads pass an all-reduce over
+    the one rank —; on that mesh with the parameters held in the module
+    as their shards (``parallel/fsdp.py``) under the placements that
+    ``param_sharding_rules`` gives an fsdp axis of 2, here one-way shards,
+    so that every gather, reduce-scatter and saved-tensor recipe of the
+    sharded path runs under NCCL; and without a mesh.  In turns for
+    ``steps`` steps under ``torch.use_deterministic_algorithms`` (the
+    card's default backward sums with atomics, so two runs of one code
+    differ by about 1% of a grad's scale; kernels 1 and 2 are
+    deterministic either way): the first step's grads, every loss and the
+    parameters after each step must be equal (an all-reduce, a gather and
+    a reduce-scatter over one rank are exact, and so is the division by
+    one).  Then ``timed`` more meshed steps in the default mode (the
     first re-tunes cuDNN after the switch; s/step is the mean of the
-    rest).  Reported: the launches of kernels 1 and 2 per meshed step
-    (counters set to 0 just before each step, read just after), s/step in
-    both modes and the peak memory above the two resident trainers."""
+    rest), and as many sharded ones.  Reported: the launches of kernels 1
+    and 2 per meshed and per sharded step (counters set to 0 just before
+    each step, read just after), s/step in both modes and the peak memory
+    above the three resident trainers."""
     import warnings
 
     import torch
     from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.parallel.mesh import (LocalMesh, is_distributed,
-                                                 make_mesh)
+                                                 make_mesh,
+                                                 param_sharding_rules)
+    from ln3diff_tpu_torch.training.train_state import TrainState
     from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
 
     model_cfg, base_cfg, loss_cfg, opts = _train_cfgs(small=False)
@@ -4067,18 +4239,26 @@ def parallel_vae_train(steps=3, timed=3):
     mesh = make_mesh()
     check(is_distributed(mesh) and mesh.size() == 1
           and mesh.device_type == 'cuda', f'mesh {mesh}')
-    runs, firsts = {}, {}
-    for name, m in (('mesh', mesh), ('no_mesh', LocalMesh('cuda'))):
+    runs, firsts, sharded = {}, {}, 0
+    for name, m in (('mesh', mesh), ('sharded', mesh),
+                    ('no_mesh', LocalMesh('cuda'))):
         tr = VAETrainer(model_cfg, train_cfg, loss_cfg, render_opts=opts,
                         seed=0, device='cuda', mesh=m)
         tr.init_state()
+        if name == 'sharded':
+            tr.state = TrainState.create(
+                tr.model, tr.state.tx, ema_rates=tr.state.ema_rates,
+                mesh=m, placements=param_sharding_rules(tr.model,
+                                                        _FsdpSizes(2)))
+            sharded = len(tr.state.sharded.dims)
         firsts[name] = {}
         _record_first_grads(tr.state, firsts[name])
         runs[name] = (tr, torch.Generator(device='cuda').manual_seed(1))
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    secs, det_secs, launches, max_diff = [], [], [], []
+    secs, det_secs, max_diff = [], [], []
+    launches = {'mesh': [], 'sharded': []}
     losses = {name: [] for name in runs}
 
     def step(name, i):
@@ -4090,10 +4270,17 @@ def parallel_vae_train(steps=3, timed=3):
         t0 = time.perf_counter()
         m = tr.train_step(batch, generator=gen)
         torch.cuda.synchronize()
-        if name == 'mesh':
-            launches.append((FusedOSG.launches, FusedOSG.backward_launches))
+        if name in launches:
+            launches[name].append((FusedOSG.launches,
+                                   FusedOSG.backward_launches))
         losses[name].append(float(m['loss']))
         return time.perf_counter() - t0
+
+    def params_diff(name):
+        a = runs[name][0].state.params
+        b = runs['no_mesh'][0].state.params
+        return max(float((_local_tensor(a[k]) - b[k]).abs().max())
+                   for k in b)
 
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
@@ -4106,45 +4293,58 @@ def parallel_vae_train(steps=3, timed=3):
                     s_ = step(name, i)
                     if name == 'mesh':
                         det_secs.append(s_)
-                a = runs['mesh'][0].state.params
-                b = runs['no_mesh'][0].state.params
-                max_diff.append(max(float((a[k] - b[k]).abs().max())
-                                    for k in b))
+                max_diff.append({n: params_diff(n)
+                                 for n in ('mesh', 'sharded')})
         nondet = sorted({str(w.message)[:160] for w in caught
                          if 'deterministic' in str(w.message)})
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-    grad_diff = max(float((firsts['mesh'][k] - g).abs().max())
-                    for k, g in firsts['no_mesh'].items())
+    grad_diff = {n: max(float((firsts[n][k] - g).abs().max())
+                        for k, g in firsts['no_mesh'].items())
+                 for n in ('mesh', 'sharded')}
+    sharded_secs = []
     for i in range(timed):
         secs.append(step('mesh', steps + i))
+        sharded_secs.append(step('sharded', steps + i))
     peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
     del runs, firsts
+    gc.collect()
     torch.cuda.empty_cache()
     check(not nondet, f'ops without a deterministic version: {nondet}')
-    check(grad_diff == 0.0 and all(d == 0.0 for d in max_diff)
-          and losses['mesh'][:steps] == losses['no_mesh'],
-          f'meshed step vs the step without a mesh: grads {grad_diff}, '
-          f'params {max_diff}, losses {losses}')
-    check(all(n == (8, 8) for n in launches),
-          f'kernel 1/2 launches per meshed step {launches}, expected 8/8')
-    check(all(math.isfinite(x) for x in losses['mesh']), f'losses {losses}')
+    check(sharded > 0, 'no parameter sharded in the module')
+    check(all(d == 0.0 for d in grad_diff.values())
+          and all(d == 0.0 for row in max_diff for d in row.values())
+          and losses['mesh'][:steps] == losses['no_mesh']
+          and losses['sharded'][:steps] == losses['no_mesh'],
+          f'meshed and sharded steps vs the step without a mesh: grads '
+          f'{grad_diff}, params {max_diff}, losses {losses}')
+    check(all(n == (8, 8) for ns in launches.values() for n in ns),
+          f'kernel 1/2 launches per step {launches}, expected 8/8')
+    check(all(math.isfinite(x) for ls in losses.values() for x in ls),
+          f'losses {losses}')
     return dict(world_size=1, backend='nccl', steps=steps,
+                sharded_in_module=sharded,
                 first_grads_max_abs_diff=grad_diff,
                 params_max_abs_diff_per_step=max_diff,
                 tolerance='0 (equal, deterministic algorithms)',
                 losses=losses,
                 s_per_step=sum(secs[1:]) / len(secs[1:]),
                 s_per_step_runs=secs,
+                s_per_step_sharded=sum(sharded_secs[1:])
+                / len(sharded_secs[1:]),
+                s_per_step_sharded_runs=sharded_secs,
                 s_per_step_deterministic_runs=det_secs,
-                fused_osg_launches=sum(n[0] for n in launches),
-                fused_osg_backward_launches=sum(n[1] for n in launches),
-                launches_per_step=[list(n) for n in launches],
-                peak_mem_gib_above_two_resident_trainers=round(peak, 3),
+                fused_osg_launches=sum(n[0] for n in launches['mesh']),
+                fused_osg_backward_launches=sum(n[1]
+                                                for n in launches['mesh']),
+                launches_per_step={k: [list(n) for n in v]
+                                   for k, v in launches.items()},
+                peak_mem_gib_above_three_resident_trainers=round(peak, 3),
                 resident_gib=round(resident / 2**30, 3))
 
 
 def serving_mesh(prompt):
+
     """The full-width text→3D ``__call__`` with ``serving_mesh=make_mesh()``
     (the orbit's 24 frames and the 192³ σ grid over the one NCCL rank,
     gathered back), then the unsharded pipeline over the same modules on
@@ -4435,7 +4635,8 @@ def main():
     phase_done('device', t0, name=name, count=count, nvidia_smi=smi_line,
                torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build every source: the kernels with nvcc, the mesh code with g++
+    # 2. build every source: the kernels with nvcc, the mesh code and the
+    # shard reader with g++
     t0 = time.perf_counter()
     from ln3diff_tpu_torch.ops._build import build_all
     builds = build_all()
@@ -4717,6 +4918,14 @@ def main():
         finally:
             dist.destroy_process_group()
 
+    # 20. the data layer: synthetic instances into tar shards through the
+    # port's wds_create, the native reader against tarfile, the stream
+    # through PostProcess into the full-width VAE step (kernels 1 and 2)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        data_train = data_vae_train(workdir)
+        phase_done('data_vae_train', t0, **data_train)
+
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
     osg_fgbg = next(c for c in checks if c['case'] == 'fgbg_frame')
@@ -4741,6 +4950,7 @@ def main():
     osg_by_path['sample_entry'] = entry['fused_osg_launches']['total']
     osg_by_path['parallel_vae_train'] = par['fused_osg_launches']
     osg_by_path['serving_mesh'] = served['fused_osg_launches']
+    osg_by_path['data_vae_train'] = data_train['fused_osg_launches']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
@@ -4783,7 +4993,8 @@ def main():
              launches_by_path={
                  'vae_train': train['fused']['fused_osg_backward_launches'],
                  'adv_vae_train': adv['fused_osg_backward_launches'],
-                 'parallel_vae_train': par['fused_osg_backward_launches']},
+                 'parallel_vae_train': par['fused_osg_backward_launches'],
+                 'data_vae_train': data_train['fused_osg_backward_launches']},
              max_abs_err=max(e for c in bwd_checks
                              for e in c['max_abs_err'].values()),
              ms=bwd_main['ms'], device_ms=bwd_main['device_ms'],

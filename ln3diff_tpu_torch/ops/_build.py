@@ -5,7 +5,8 @@ Two kinds of source, each exposing a plain ``extern "C"`` interface:
 * ``ops/csrc/<name>.cu``: CUDA kernels, compiled by ``nvcc`` for sm_90a
   without PyTorch's headers, so each builds in seconds;
 * ``native/<name>.cpp``: host code of the mesh stage (marching
-  tetrahedra, the OBJ/PLY writers), compiled by ``g++``.
+  tetrahedra, the OBJ/PLY writers) and of the data layer (the threaded
+  tar-shard reader), compiled by ``g++``.
 
 A shared library goes to ``ln3diff_tpu_torch/_build/<name>-<hash>.so``,
 where the hash covers the source (for CUDA, every file in ``csrc/``), the
@@ -42,6 +43,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # the flags the JAX package builds the same sources with, so that both
 # march a σ grid to the same triangles on one machine
 GXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17')
+# per-source g++ flags after GXX_FLAGS, as the JAX package passes them
+GXX_EXTRA = {'shard_loader': ('-pthread',)}
 
 
 @dataclass
@@ -73,7 +76,7 @@ def _source(name: str) -> tuple[Path, list[Path], list[str]]:
         return cu, deps, [nvcc_path(), *NVCC_FLAGS]
     cpp = NATIVE / f'{name}.cpp'
     if cpp.exists():
-        return cpp, [cpp], ['g++', *GXX_FLAGS]
+        return cpp, [cpp], ['g++', *GXX_FLAGS, *GXX_EXTRA.get(name, ())]
     raise FileNotFoundError(f'no source named {name!r} in {CSRC} or '
                             f'{NATIVE}')
 
@@ -93,9 +96,13 @@ def _start(name: str):
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.tmp{os.getpid()}')
-    proc = subprocess.Popen([*cmd, '-o', str(tmp), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    try:
+        proc = subprocess.Popen([*cmd, '-o', str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f'building {name} needs {cmd[0]}, which is not '
+                           f'installed') from e
     return out, tmp, proc
 
 

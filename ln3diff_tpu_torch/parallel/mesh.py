@@ -9,16 +9,19 @@ them (``training/train_state.py``, ``parallel/pipeline.py``,
 
 Axes:
   * ``data``  — batch sharding;
-  * ``fsdp``  — the batch as well, and with it the optimizer state of
-                the parameters the rules shard: each rank holds 1/fsdp
-                of their AdamW moments, their EMA and the slice it
-                updates (``DTensor`` ``Shard`` placements); the module
-                keeps the whole parameter and the grads are whole
-                (ZeRO-1, ``TrainState``);
+  * ``fsdp``  — the batch as well, and with it the parameters the rules
+                shard: each rank's module holds 1/fsdp of each, gathered
+                where the forward reads it, its grad reduce-scattered
+                (``parallel/fsdp.py``), and 1/fsdp of its AdamW moments
+                and EMA (``DTensor`` ``Shard`` placements,
+                ``TrainState``);
   * ``tensor``— tensor-parallel serving of the denoiser
-                (``serving.tp_shard_denoiser_params``);
+                (``serving.tp_shard_denoiser_params``); in training the
+                tensor ranks compute as data replicas and shard the
+                optimizer state of the parameters the rules split;
   * ``pipe``  — the DiT trunk's blocks split into contiguous stages
-                (``parallel/pipeline.py``).
+                (``parallel/pipeline.py``); a rank holds its own stage's
+                blocks only.
 
 Without a process group (one process, no ``torchrun``) :func:`make_mesh`
 gives a :class:`LocalMesh` of size 1 and every collective is skipped.
@@ -382,6 +385,19 @@ def pipeline_parallel_rules(module: nn.Module, mesh,
             pl[AXES.index('pipe')] = LayerShard()
         out[name] = tuple(pl)
     return out
+
+
+def training_placements(module: nn.Module, mesh,
+                        pipeline: bool = False) -> Optional[dict]:
+    """The placements a trainer gives ``TrainState.create``:
+    :func:`param_sharding_rules` when the fsdp axis is above 1, and with
+    ``pipeline`` the trunk's :func:`pipeline_parallel_rules` on top; None
+    when neither applies."""
+    base = param_sharding_rules(module, mesh) \
+        if axis_size(mesh, 'fsdp') > 1 else None
+    if pipeline:
+        return pipeline_parallel_rules(module, mesh, base=base)
+    return base
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,10 @@ their cotangents summed over the stages, as JAX's autodiff does for
 pipe-invariant inputs of its ``shard_map``.  The schedule's data movement
 is f32, as in JAX (:85-94); the blocks compute in their own dtype.
 
-A stage runs, and keeps optimizer state and EMA for, its own blocks only;
-every rank's module still holds the whole trunk (JAX shards the stacked
-layer axis, so a device there holds only its stage's blocks).
+A stage runs, and holds, its own blocks only: under a trainer's
+``TrainState`` the other stages' blocks sit on the ``meta`` device (JAX
+shards the stacked layer axis, so a device there holds only its stage's
+blocks), and nothing here reads them.
 """
 
 from __future__ import annotations

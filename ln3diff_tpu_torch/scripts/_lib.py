@@ -116,8 +116,8 @@ def eval_novelview_loop(trainer, data, cfg, save_latent: bool = False,
     if use_ema:
         for k, p in state.module_params().items():
             saved[k] = p.detach().clone()
-            e = state.ema_params['ema'][k]
-            p.copy_(e.full_tensor() if hasattr(e, 'full_tensor') else e)
+        state.load_module({k: e.full_tensor() if hasattr(e, 'full_tensor')
+                           else e for k, e in state.ema_params['ema'].items()})
     outdir = os.path.join(cfg.logdir, 'eval')
     os.makedirs(outdir, exist_ok=True)
     cam_kw = CAMERA_PRESETS.get(cfg.dataset, {})

@@ -32,8 +32,11 @@ its (data, fsdp) slice of the batch and of the draws, grads averaged over
 those ranks (``train_state.build_train_step``).  A mesh whose ``pipe``
 axis is above 1 runs the DiT's trunk through the GPipe schedule
 (``parallel/pipeline.py``, ``pp_microbatches`` microbatches), each stage
-holding and updating its own blocks (``pipeline_parallel_rules``), as JAX
-does (:66-75, :142-145).  Metrics go to ``log`` (printed by default).
+holding and updating its own blocks (``pipeline_parallel_rules``; the
+other stages' blocks move to the ``meta`` device), as JAX does (:66-75,
+:119-126, :142-145).  With an fsdp axis above 1 the parameters that
+``param_sharding_rules`` shards live in the module as their shards
+(``parallel/fsdp.py``).  Metrics go to ``log`` (printed by default).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from ..models.controlnet import ControlNet
 from ..models.layers import random_init_, zero_init_like_jax
 from ..models.unet import UNetModel
 from ..parallel.mesh import (MeshConfig, axis_size, host_rng, make_mesh,
-                             pipeline_parallel_rules)
+                             training_placements)
 from ..pipeline import resolve_device
 from .train_state import TrainState, build_train_step, make_optimizer
 from .vae_trainer import train_loop
@@ -166,8 +169,8 @@ class LDMTrainer:
         self.state = TrainState.create(
             module, tx, ema_rates=(('ema', self.cfg.ema_rate),),
             constants=self._constants(), mesh=self.mesh,
-            placements=pipeline_parallel_rules(module, self.mesh)
-            if self._use_pp else None)
+            placements=training_placements(module, self.mesh,
+                                           pipeline=self._use_pp))
         return self.state
 
     def _trained_module(self) -> nn.Module:

@@ -7,7 +7,8 @@ rates and the warmup-cosine schedule), the EMA of ``apply_gradients``
 ``build_train_step`` :107-195 (microbatch gradient averaging, the
 ``per_sample*`` metrics flattened in draw order; under a mesh the batch
 and the draws cut per rank, the grads averaged over the (data, fsdp)
-ranks and the FSDP-sharded state of :class:`TrainState`), and
+ranks, the parameters that the FSDP rules shard held in the module as
+their shards, :class:`TrainState`), and
 ``frozen_apply``, a module run on detached parameters (the frozen prior
 of the LSGM q term, the discriminator in a generator term).
 Written out with optax's arithmetic rather than taken from ``torch.optim``,
@@ -26,6 +27,7 @@ Parameters stay f32; the optimizer updates them in place.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Optional
@@ -176,17 +178,23 @@ class TrainState:
     state, one EMA copy per rate, the step count and the ``constants``
     that the loss reads and no optimizer touches (a frozen network, say).
 
-    Under a mesh (:meth:`create` with ``placements``): a parameter whose
-    placements shard it over 'fsdp' (or 'tensor') is held in ``params`` as
-    a ``DTensor`` over the (fsdp, tensor) ranks, and so are its AdamW
-    moments and its EMA, so each rank updates its slice only.  Its module
-    keeps the whole tensor that the forward pass reads (``full``),
-    refreshed after each update, and the grads are whole on every rank:
-    the optimizer state and the EMA are sharded (ZeRO-1), the parameters
-    and grads are not.  A trunk block that another pipeline stage owns
-    (``LayerShard``) has no optimizer state or EMA on this rank:
-    ``absent`` maps its name to (owning stage, module parameter); the
-    module still holds the block."""
+    Under a mesh (:meth:`create` with ``placements``):
+
+    * a parameter whose placements shard it over 'fsdp' lives in the
+      module as its rank's shard (``parallel.fsdp.ShardedParams``:
+      gathered where the forward reads it, its grad reduce-scattered);
+      ``params`` holds it as a ``DTensor`` over the (fsdp, tensor) ranks
+      on the module's own storage, and its AdamW moments and EMA are
+      sharded alike;
+    * a parameter sharded over 'tensor' only keeps its whole tensor in
+      the module (the tensor ranks compute as a data replica): its
+      optimizer state, EMA and the slice it updates are sharded, and the
+      module tensor is gathered from the slices after each update
+      (``refresh``);
+    * a trunk block that another pipeline stage owns (``LayerShard``)
+      leaves this rank: its parameters and buffers move to the ``meta``
+      device, and ``absent`` keeps its parameters' (owning stage, shape,
+      dtype) for :meth:`payload` and :meth:`load_payload`."""
     params: dict
     tx: AdamW
     opt_state: dict
@@ -195,7 +203,9 @@ class TrainState:
     step: int = 0
     constants: Any = None
     mesh: Any = None
-    full: dict = dataclasses.field(default_factory=dict)
+    module: Any = None
+    sharded: Any = None
+    refresh: tuple = ()
     absent: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
@@ -205,67 +215,131 @@ class TrainState:
         from ..parallel.mesh import (AXES, LayerShard, axis_index,
                                      axis_size, is_distributed, stage_of,
                                      trunk_index)
-        params = {k: p for k, p in module.named_parameters()
-                  if p.requires_grad}
-        full, absent = {}, {}
+        named = {k: p for k, p in module.named_parameters()
+                 if p.requires_grad}
+        absent, dims, layouts = {}, {}, {}
         if placements:
-            from torch.distributed.tensor import Shard, distribute_tensor
+            from torch.distributed.tensor import Shard
             pp = axis_size(mesh, 'pipe')
+            me = axis_index(mesh, 'pipe')
             depth: dict = {}
-            for k in params:
+            for k in named:
                 hit = trunk_index(k)
                 if hit is not None:
                     depth[hit[0]] = max(depth.get(hit[0], 0), hit[1] + 1)
-            for k in list(params):
+            gone = set()
+            for k in list(named):
                 pl = placements.get(k)
                 if pl is None:
                     continue
                 if isinstance(pl[AXES.index('pipe')], LayerShard):
                     prefix, i = trunk_index(k)
                     owner = stage_of(i, depth[prefix], pp)
-                    if owner != axis_index(mesh, 'pipe'):
-                        absent[k] = (owner, params.pop(k))
+                    if owner != me:
+                        p = named.pop(k)
+                        absent[k] = (owner, tuple(p.shape), p.dtype)
+                        gone.add(f'{prefix}.{i}')
                         continue
                 fs = [pl[AXES.index('fsdp')], pl[AXES.index('tensor')]]
                 if any(isinstance(f, Shard) for f in fs) \
                         and is_distributed(mesh):
-                    full[k] = params[k]
-                    params[k] = distribute_tensor(
-                        params[k].detach(), mesh['fsdp', 'tensor'], fs)
+                    layouts[k] = fs
+                    if isinstance(fs[0], Shard):
+                        dims[k] = fs[0].dim
+            for name in sorted(gone):
+                module.get_submodule(name).to('meta')
+        sharded = None
+        if dims:
+            from ..parallel.fsdp import ShardedParams
+            sharded = ShardedParams(module, mesh, dims)
+        params, refresh = dict(named), []
+        if layouts:
+            from torch.distributed.tensor import DTensor
+            sub = mesh['fsdp', 'tensor']
+            for k, fs in layouts.items():
+                p = named[k].detach()
+                if fs[1].is_shard():
+                    p = _local_slice(p, None, fs, sub,
+                                     skip=(0,) if k in dims else ())
+                    p = p.clone()
+                    refresh.append(k)
+                with torch.no_grad():
+                    params[k] = DTensor.from_local(p, sub, fs,
+                                                   run_check=False)
         ema = {name: {k: p.detach().clone() for k, p in params.items()}
                for name, _ in ema_rates}
         return cls(params=params, tx=tx, opt_state=tx.init(params),
                    ema_params=ema, ema_rates=tuple(ema_rates),
-                   constants=constants, mesh=mesh, full=full, absent=absent)
+                   constants=constants, mesh=mesh, module=module,
+                   sharded=sharded, refresh=tuple(refresh), absent=absent)
 
     def module_params(self) -> dict:
-        """The tensors the forward pass reads, by name: the gathered copy
-        of each sharded parameter, the parameter itself otherwise."""
-        return {k: self.full.get(k, p) for k, p in self.params.items()}
+        """The module's parameters that this rank trains, by name (a
+        sharded one as its shard)."""
+        named = dict(self.module.named_parameters())
+        return {k: named[k] for k in self.params}
+
+    def forward_scope(self):
+        """The context of the training step's forward: with sharded
+        parameters autograd keeps recipes, not whole tensors, for the
+        backward (``ShardedParams.saving``)."""
+        if self.sharded is None:
+            return contextlib.nullcontext()
+        return self.sharded.saving()
+
+    def reduce_grads(self, grads: dict):
+        """Average the local grads over the batch ranks in place, as
+        pjit's psum does: a sharded parameter's grad (already summed over
+        the fsdp ranks by the reduce-scatter) over 'data' and divided by
+        the fsdp size, every other grad over (data, fsdp)."""
+        from ..parallel.mesh import DP_AXES, all_reduce_mean, axis_size
+        dims = self.sharded.dims if self.sharded is not None else {}
+        all_reduce_mean(self.mesh, [g for k, g in grads.items()
+                                    if k not in dims], DP_AXES)
+        mine = [g for k, g in grads.items() if k in dims]
+        if mine:
+            all_reduce_mean(self.mesh, mine, ('data',))
+            torch._foreach_div_(mine, float(axis_size(self.mesh, 'fsdp')))
 
     def global_norm(self, grads: dict) -> torch.Tensor:
-        """The norm of the whole model's grads: with pipeline stages, the
-        trunk blocks' part is summed over the stages."""
-        if not self.absent:
+        """The norm of the whole model's grads from this rank's local
+        ones: the squares of the sharded grads summed over the fsdp
+        ranks, those of the trunk blocks over the pipeline stages (with
+        one fsdp rank and no stages, the plain norm of the grads)."""
+        if not (self.absent or (self.sharded and self.sharded.n > 1)):
             return global_norm(list(grads.values()))
         from ..parallel.mesh import group, trunk_index
-        trunk = [g for k, g in grads.items() if trunk_index(k)]
-        rest = [g for k, g in grads.items() if not trunk_index(k)]
-        sq_t = global_norm(trunk)**2 if trunk else torch.zeros(())
-        dist.all_reduce(sq_t, group=group(self.mesh, 'pipe'))
-        sq = global_norm(rest)**2 if rest else torch.zeros_like(sq_t)
-        return torch.sqrt(sq + sq_t)
+        dims = self.sharded.dims if self.sharded is not None else {}
+        buckets: dict = {}
+        for k, g in grads.items():
+            axes = (('pipe',) if self.absent and trunk_index(k) else ()) \
+                + (('fsdp',) if k in dims else ())
+            buckets.setdefault(axes, []).append(g)
+        keys = [()]
+        if self.absent:
+            keys.append(('pipe',))
+        if dims:
+            keys += [('fsdp',)] + ([('pipe', 'fsdp')] if self.absent else [])
+        device = next(iter(grads.values())).device
+        total = torch.zeros((), device=device)
+        for axes in keys:
+            gs = buckets.get(axes)
+            sq = global_norm(gs)**2 if gs else torch.zeros((), device=device)
+            if axes:
+                dist.all_reduce(sq, group=group(self.mesh, *axes))
+            total = total + sq
+        return torch.sqrt(total)
 
     def apply_gradients(self, grads: dict,
                         g_norm: Optional[torch.Tensor] = None):
         """One optimizer step, then the EMA of the new params.  ``grads``
-        are whole (every rank's average; ``g_norm`` their global norm when
-        the caller has it); a sharded parameter's update reads its
-        slice."""
+        are the module's (every rank's average; a sharded parameter's is
+        its shard's; ``g_norm`` their global norm when the caller has it);
+        each update reads the slice of the grad that its parameter
+        holds."""
         grads = self.tx.clip(grads, g_norm)
         local = {k: _local(p) for k, p in self.params.items()}
-        grads = {k: _local_slice(g, self.params[k])
-                 for k, g in grads.items()}
+        grads = {k: self._update_slice(k, g) for k, g in grads.items()}
         opt = dict(self.opt_state,
                    mu={k: _local(v) for k, v in self.opt_state['mu'].items()},
                    nu={k: _local(v) for k, v in self.opt_state['nu'].items()})
@@ -274,10 +348,36 @@ class TrainState:
         for name, rate in self.ema_rates:
             update_ema({k: _local(v) for k, v in
                         self.ema_params[name].items()}, local, rate)
-        with torch.no_grad():
-            for k, p in self.full.items():
-                p.copy_(self.params[k].full_tensor())
+        self._refresh()
         self.step += 1
+
+    def _update_slice(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        """The part of a module-sized tensor ``t`` that ``params[k]``
+        holds on this rank."""
+        like = self.params[k]
+        if not _is_dtensor(like):
+            return t
+        dims = self.sharded.dims if self.sharded is not None else {}
+        return _local_slice(t, like, skip=(0,) if k in dims else ())
+
+    def _refresh(self):
+        """The module tensors of the tensor-sharded parameters from their
+        updated slices."""
+        if self.refresh:
+            self.load_module({k: self.params[k].full_tensor()
+                              for k in self.refresh})
+
+    @torch.no_grad()
+    def load_module(self, whole: dict):
+        """Copy whole tensors (by name) into the module's parameters, each
+        sharded one as this rank's shard."""
+        named = dict(self.module.named_parameters())
+        dims = self.sharded.dims if self.sharded is not None else {}
+        for k, w in whole.items():
+            w = w.to(named[k].device)
+            if k in dims:
+                w = w.chunk(self.sharded.n, dims[k])[self.sharded.rank]
+            named[k].copy_(w)
 
     # -- whole state, for checkpoints ---------------------------------------
 
@@ -297,17 +397,20 @@ class TrainState:
                                          trunk_index)
             g = group(self.mesh, 'pipe')
             me = axis_index(self.mesh, 'pipe')
+            device = next(iter(params.values())).device
             names = sorted(set(params) | set(self.absent),
                            key=lambda k: (trunk_index(k) is None, k))
             for k in names:
                 if k not in self.absent and trunk_index(k) is None:
                     continue
-                owner = self.absent[k][0] if k in self.absent else me
+                if k in self.absent:
+                    owner, shape, dtype = self.absent[k]
+                else:
+                    owner, shape, dtype = me, params[k].shape, params[k].dtype
                 src = dist.get_global_rank(g, owner)
-                like = self.absent[k][1] if k in self.absent else params[k]
                 for d in (params, mu, nu, *ema.values()):
                     buf = d[k].detach().contiguous() if k in d \
-                        else torch.empty_like(like)
+                        else torch.empty(shape, dtype=dtype, device=device)
                     dist.broadcast(buf, src=src, group=g)
                     d[k] = buf
         return dict(params=params, ema=ema,
@@ -345,8 +448,7 @@ class TrainState:
         self.opt_state = dict(self.opt_state,
                               count=int(data['opt']['count']))
         self.step = int(data['step'])
-        for k, p in self.full.items():
-            p.copy_(self.params[k].full_tensor())
+        self.load_module({k: data['params'][k] for k in self.refresh})
 
 
 def _is_dtensor(t) -> bool:
@@ -359,16 +461,19 @@ def _local(t):
     return t.to_local() if _is_dtensor(t) else t
 
 
-def _local_slice(full: torch.Tensor, like):
+def _local_slice(full: torch.Tensor, like, placements=None, mesh=None,
+                 skip: tuple = ()):
     """This rank's shard of the whole tensor ``full`` in the layout of the
-    ``DTensor`` ``like`` (evenly divided ``Shard``/``Replicate``
-    placements), else ``full``."""
-    if not _is_dtensor(like):
-        return full
-    mesh = like.device_mesh
+    ``DTensor`` ``like`` (or of ``placements`` over ``mesh``: evenly
+    divided ``Shard``/``Replicate``), leaving out the mesh dims in
+    ``skip`` (already cut); else ``full``."""
+    if like is not None:
+        if not _is_dtensor(like):
+            return full
+        mesh, placements = like.device_mesh, like.placements
     coord = mesh.get_coordinate()
-    for i, pl in enumerate(like.placements):
-        if pl.is_shard():
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and i not in skip:
             full = full.chunk(mesh.size(i), pl.dim)[coord[i]]
     return full
 
@@ -376,8 +481,17 @@ def _local_slice(full: torch.Tensor, like):
 def frozen_apply(model: torch.nn.Module, *args):
     """``model(*args)`` with its parameters detached: grads reach the
     inputs, not the parameters."""
-    params = {k: v.detach() for k, v in model.named_parameters()}
-    return functional_call(model, params, args)
+    from ..parallel.fsdp import sharded_params_of
+    sharded = sharded_params_of(model)
+    held = set() if sharded is None else {id(p) for p in
+                                          sharded.params.values()}
+    params = {k: v.detach() for k, v in model.named_parameters()
+              if id(v) not in held}
+    if sharded is None:
+        return functional_call(model, params, args)
+    # the sharded ones are gathered detached
+    with sharded.frozen():
+        return functional_call(model, params, args)
 
 
 def _tree_map(fn, tree):
@@ -406,7 +520,9 @@ def build_train_step(loss_fn: Callable, microbatch_steps: int = 1,
     ``mesh`` each rank runs the loss on its (data, fsdp) slice of the
     batch — axis 0, or axis 1 under grad accumulation, as JAX shards it —
     and of the draws (axis 0), and the grads are averaged over those ranks
-    before the clip, as pjit's inserted all-reduce does; ``loss`` and the
+    before the clip, as pjit's inserted all-reduce does (a sharded
+    parameter's through its reduce-scatter, :meth:`TrainState.reduce_grads`);
+    ``loss`` and the
     mean metrics are averaged over them too, and ``per_sample*`` entries
     gathered in global order."""
     from ..parallel.mesh import (DP_AXES, all_reduce_mean, data_sharding,
@@ -429,7 +545,8 @@ def build_train_step(loss_fn: Callable, microbatch_steps: int = 1,
                 d = draw_fn(batch if steps == 1 else _tree_map(
                     lambda v: v[i] if np.ndim(v) >= 2 else v, batch))
             d = data_sharding(mesh, d)
-            loss, terms = loss_fn(params, state.constants, micro, d)
+            with state.forward_scope():
+                loss, terms = loss_fn(params, state.constants, micro, d)
             loss.backward()
             losses.append(loss.detach())
             for k, v in terms.items():
@@ -440,7 +557,7 @@ def build_train_step(loss_fn: Callable, microbatch_steps: int = 1,
                      else p.grad / steps) for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        all_reduce_mean(mesh, list(grads.values()), DP_AXES)
+        state.reduce_grads(grads)
         gnorm = state.global_norm(grads)
         state.apply_gradients(grads, gnorm)
         out = {k: (torch.cat(v) if k.startswith('per_sample')

@@ -26,7 +26,9 @@ or drawn for the whole batch from a ``torch.Generator``
 ``mesh=`` (default: ``make_mesh()`` over the world): each rank trains on
 its (data, fsdp) slice of the batch and of the draws, and the grads are
 averaged over those ranks before the clip (``train_state.build_train_step``);
-``loss`` and the terms are the global means.
+``loss`` and the terms are the global means.  With an fsdp axis above 1
+the parameters that ``param_sharding_rules`` shards live in the module as
+their shards (``parallel/fsdp.py``).
 
 ``adversarial=``: an ``AdversarialHead`` (``training/gan.py``) or a
 ``VisionAidedHead`` (``training/vision_aided.py``).  The generator term
@@ -52,7 +54,8 @@ import torch
 
 from ..models.vae import TriplaneVAE, TriplaneVAEConfig
 from ..parallel.mesh import (DP_AXES, MeshConfig, axis_size, data_sharding,
-                             host_rng, make_mesh, replicated)
+                             host_rng, make_mesh, replicated,
+                             training_placements)
 from ..pipeline import resolve_device
 from ..render.ray_sampler import (sample_patch_origins, sample_patch_rays,
                                   unpack_25d_camera)
@@ -239,7 +242,8 @@ class VAETrainer:
                             lr_groups=dict(self.cfg.lr_groups) or None)
         self.state = TrainState.create(
             self.model, tx, ema_rates=(('ema', self.cfg.ema_rate),),
-            mesh=self.mesh)
+            mesh=self.mesh,
+            placements=training_placements(self.model, self.mesh))
         return self.state
 
     # -- the loss ----------------------------------------------------------

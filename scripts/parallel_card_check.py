@@ -11,7 +11,9 @@ without a mesh as the one-rank reference, and checks the two agree:
 * ``build_train_step`` on meshes (4,1,1,1), (2,1,2,1) under
   ``param_sharding_rules`` and (2,1,1,2) under ``tensor_parallel_rules``
   (a toy DiT, f32): loss within 1e-5 relative, every parameter within
-  1e-5 of its scale plus 1e-2·lr, each sharded tensor 1/2 of its bytes;
+  1e-5 of its scale plus 1e-2·lr, each sharded tensor 1/2 of its bytes
+  (under the FSDP rules the module's own parameter too, and at most one
+  unit's parameters whole at a time);
 * ``dit_pipeline_apply`` at (pp, n_micro) = (2, 4) on (2, 2, 1, 1) and
   (4, 4) on (1, 4, 1, 1): the output within 1e-5 absolute, each stage's
   grads within 1e-5 of scale (floor 1e-6 of the largest) — the schedule's
@@ -21,7 +23,11 @@ without a mesh as the one-rank reference, and checks the two agree:
   unsharded one: latents and σ grid equal, frames within 1e-6; tensor-
   parallel DDIM sampling over four ranks within 2e-4 of scale;
 * the preemption guard's agreement (SIGTERM to rank 1) and a checkpoint
-  round trip of FSDP-sharded and pipeline-staged train states.
+  round trip of FSDP-sharded and pipeline-staged train states;
+* on the cards only, the full-width DiT-L/2 LDM step (remat 'dots', bf16
+  autocast, global batch 8) at fsdp = 1 and at fsdp = 4: each rank's
+  resident and peak memory (the parameters sharded in the module at
+  fsdp = 4) and s/step, the first losses within 1e-2 relative.
 
 Prints one JSON line per check on rank 0, the card's name and power limit,
 and ``{"ok": ...}`` last; exits non-zero if any check failed.  It needs
@@ -128,10 +134,17 @@ def main():
         worst = _close_params(got['params'], want['params'])
         halves = all(2 * s['param'][0] == s['param'][1]
                      for s in got['sizes'].values())
-        report(name, loss_rel <= TOL and worst <= 1 and halves
-               and bool(got['sizes']) == (rules is not None), t0,
+        in_module = all(got['numels'][k] == (s['param'][0] if rules == 'fsdp'
+                                             else s['param'][1])
+                        for k, s in got['sizes'].items())
+        units = (got['units_whole'], got['units_whole_after'])
+        report(name, loss_rel <= TOL and worst <= 1 and halves and in_module
+               and bool(got['sizes']) == (rules is not None)
+               and (units == (1, 0) or rules != 'fsdp'), t0,
                loss_rel=loss_rel, params_worst_share_of_tol=worst,
-               sharded=len(got['sizes']))
+               sharded=len(got['sizes']), module_bytes=got['module_bytes'],
+               held_bytes=got['held_bytes'],
+               units_whole_during_and_after=units)
 
     for name, mesh_kw, rules, size in (
             ('train_step_data4', dict(data=4), None, 0),
@@ -230,6 +243,71 @@ def main():
                                               True))
     run('checkpoint_pipe', lambda n, t0: ckpt(n, t0, dict(data=2, pipe=2),
                                               False))
+
+    def ldm_memory(name, t0):
+        """The full-width DiT-L/2 LDM step (the t23d preset, remat 'dots',
+        bf16 autocast, flow matching, global batch 8) at fsdp = 1 (data 4)
+        and at fsdp = 4: per-rank resident and peak memory, s/step."""
+        import dataclasses
+
+        from ln3diff_tpu_torch.config import denoiser_preset
+        from ln3diff_tpu_torch.parallel import mesh as pmesh
+        from ln3diff_tpu_torch.training.ldm_trainer import (LDMDraws,
+                                                            LDMTrainConfig,
+                                                            LDMTrainer)
+        cfg = dataclasses.replace(denoiser_preset('t23d-dit-l2'), remat=True,
+                                  remat_policy='dots')
+        g = torch.Generator().manual_seed(0)
+        lat = torch.randn((8, 32, 32, 12), generator=g).cuda()
+        ctx = torch.randn((8, 77, 768), generator=g).cuda()
+        out = {}
+        for label, mesh_kw in (('fsdp1', dict(data=4)),
+                               ('fsdp4', dict(data=1, fsdp=4))):
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mesh = pmesh.make_mesh(pmesh.MeshConfig(**mesh_kw))
+            with torch.device('cuda'):
+                dit = DiT_TriLatent(cfg)
+            tr = LDMTrainer(dit, LDMTrainConfig(objective='flow_matching',
+                                                lr=1e-4, log_interval=10**9),
+                            seed=0, device='cuda', mesh=mesh)
+            random_init_(tr.model, torch.Generator(
+                device='cuda').manual_seed(0))
+            tr.build()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() - base
+            losses, secs = [], []
+            for i in range(3):
+                gd = torch.Generator().manual_seed(10 + i)
+                draws = LDMDraws(torch.rand((8,), generator=gd).cuda(),
+                                 torch.randn(lat.shape, generator=gd).cuda())
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                m = tr.train_step({'latent': lat,
+                                   'context': {'crossattn': ctx}}, draws)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - s0)
+                losses.append(float(m['loss']))
+            out[label] = dict(
+                resident_gib=round(resident / 2**30, 3),
+                peak_gib=round((torch.cuda.max_memory_allocated() - base)
+                               / 2**30, 3),
+                s_per_step=sum(secs[1:]) / 2, losses=losses,
+                sharded=len(tr.state.sharded.dims)
+                if tr.state.sharded is not None else 0,
+                params=sum(p.numel() for p in tr.state.params.values()))
+            del tr, dit
+        first_rel = abs(out['fsdp4']['losses'][0] - out['fsdp1']['losses'][0]
+                        ) / abs(out['fsdp1']['losses'][0])
+        report(name, all(np.isfinite(v['losses']).all()
+                         for v in out.values())
+               and out['fsdp4']['resident_gib'] < out['fsdp1']['resident_gib']
+               and first_rel <= 1e-2, t0, first_loss_rel=first_rel,
+               per_rank=out)
+
+    if dev == 'cuda':
+        run('ldm_dit_l2_memory_fsdp1_vs_fsdp4', ldm_memory)
 
     if rank == 0:
         kind = 'cpu'

@@ -54,8 +54,11 @@ def dit_train_step(cfg_kw, sd, batch, mesh_kw, rules=None, min_size=0,
     """One ``build_train_step`` step of the MSE loss ``mean((model(x, 1,
     ctx) − x)²)`` on a mesh: the loss, the whole params after the step
     (``TrainState.payload``), the local and whole sizes of every sharded
-    state tensor, the bytes of the module's parameters and the bytes the
-    rank holds in all (module and train state, each storage once)."""
+    state tensor, the module's parameter numels, the bytes of the module's
+    parameters and the bytes the rank holds in all (module parameters,
+    the grads the optimizer was given, moments and EMA, each storage
+    once), and, from a forward pre-hook on every module, the most units
+    with whole sharded parameters alive at once (and after the step)."""
     from ln3diff_tpu_torch.training import train_state as ts
     mesh = _mesh(mesh_kw, device)
     model = _tiny_dit(cfg_kw, sd, device)
@@ -67,6 +70,19 @@ def dit_train_step(cfg_kw, sd, batch, mesh_kw, rules=None, min_size=0,
     state = ts.TrainState.create(model, ts.make_optimizer(lr),
                                  ema_rates=(('ema', 0.5),), mesh=mesh,
                                  placements=placements)
+    units = [0]
+    if state.sharded is not None:
+        for m in model.modules():
+            m.register_forward_pre_hook(lambda m, a: units.__setitem__(
+                0, max(units[0], state.sharded.units_whole())))
+    grads_seen = {}
+    apply = state.apply_gradients
+
+    def capture(grads, g_norm=None):
+        grads_seen.update(grads)
+        return apply(grads, g_norm)
+
+    state.apply_gradients = capture
 
     def loss_fn(params, consts, b, d):
         x = b['x']
@@ -81,6 +97,7 @@ def dit_train_step(cfg_kw, sd, batch, mesh_kw, rules=None, min_size=0,
 
     step = ts.build_train_step(loss_fn, microbatch_steps, mesh=mesh)
     metrics = step(state, _t(batch, device))
+    after = state.sharded.units_whole() if state.sharded is not None else 0
     payload = state.payload()
     sizes = {}
     for k, v in state.params.items():
@@ -92,6 +109,7 @@ def dit_train_step(cfg_kw, sd, batch, mesh_kw, rules=None, min_size=0,
                 ema=(state.ema_params['ema'][k].to_local().numel(),))
     held = {}
     for t in (list(model.parameters()) + list(state.params.values())
+              + list(grads_seen.values())
               + list(state.opt_state['mu'].values())
               + list(state.opt_state['nu'].values())
               + list(state.ema_params['ema'].values())):
@@ -101,8 +119,10 @@ def dit_train_step(cfg_kw, sd, batch, mesh_kw, rules=None, min_size=0,
                 step=float(metrics.get('step', np.nan)),
                 grad_norm=float(metrics['grad_norm']),
                 params=_np(payload['params']), sizes=sizes,
+                numels={k: p.numel() for k, p in model.named_parameters()},
                 module_bytes=sum(p.nbytes for p in model.parameters()),
-                held_bytes=sum(held.values()))
+                held_bytes=sum(held.values()), units_whole=units[0],
+                units_whole_after=after)
 
 
 def batch_roundtrip(rows=8):
@@ -162,7 +182,15 @@ def ldm_step(cfg_kw, sd, batch, draws, mesh_kw, pp_microbatches,
     payload = trainer.state.payload()
     return dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']),
                 params=_np(payload['params']),
-                held=sorted(trainer.state.params))
+                held=sorted(trainer.state.params),
+                on_device=_blocks_on_device(trainer.model))
+
+
+def _blocks_on_device(model) -> list:
+    """The trunk blocks with a parameter or buffer off the meta device."""
+    return sorted(i for i, b in enumerate(model.blocks)
+                  if any(not t.is_meta for t in (*b.parameters(),
+                                                  *b.buffers())))
 
 
 # ---------------------------------------------------------------------------
@@ -447,3 +475,107 @@ def checkpoint_roundtrip(directory, cfg_kw, sd, batch, draws, mesh_kw,
         absent=len(a.state.absent),
         saved=_np(torch.load(f'{directory}/1/state.pt',
                              weights_only=True)['params']))
+
+
+def _ldm_trainer(cfg_kw, sd, mesh, seed, device, fsdp):
+    """A flow-matching ``LDMTrainer`` on ``mesh``, with ``sd`` loaded and,
+    with ``fsdp``, its state sharded by ``param_sharding_rules`` at a toy
+    threshold (1024 elements)."""
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.training import train_state as ts
+    from ln3diff_tpu_torch.training.ldm_trainer import (LDMTrainConfig,
+                                                        LDMTrainer)
+    tr = LDMTrainer(DiT_TriLatent(DiTConfig(**cfg_kw, dtype=torch.float32)),
+                    LDMTrainConfig(objective='flow_matching', lr=1e-3,
+                                   pp_microbatches=2),
+                    seed=seed, device=device, mesh=mesh)
+    if sd is not None:
+        tr.model.load_state_dict(_t(sd), strict=False)
+    if fsdp:
+        tr.state = ts.TrainState.create(
+            tr.model, ts.make_optimizer(tr.cfg.lr, tr.cfg.weight_decay,
+                                        grad_clip=tr.cfg.grad_clip),
+            ema_rates=(('ema', tr.cfg.ema_rate),), mesh=mesh,
+            placements=pmesh.param_sharding_rules(tr.model, mesh, 1024))
+    return tr.build()
+
+
+def _payload_np(state) -> dict:
+    p = state.payload()
+    return _np(dict(params=p['params'], ema=p['ema']['ema'],
+                    mu=p['opt']['mu'], nu=p['opt']['nu'],
+                    count=p['opt']['count'], step=p['step']))
+
+
+def checkpoint_layout(directory, cfg_kw, sd, batch, draws, mesh_kw, fsdp,
+                      restore_from=None, device='cpu'):
+    """A checkpoint across layouts: without ``restore_from``, one
+    flow-matching step on ``mesh_kw`` saved under ``directory`` (rank 0
+    writes the gathered state); with it, a trainer from another seed on
+    ``mesh_kw`` restored from ``restore_from`` (then saved under
+    ``directory`` when given).  Returns the whole state
+    (``TrainState.payload``: params, EMA, moments, counts) and whether
+    the module's trained parameters are the restored ones."""
+    from ln3diff_tpu_torch.training.checkpoint import CheckpointManager
+    from ln3diff_tpu_torch.training.ldm_trainer import LDMDraws
+    mesh = pmesh.make_mesh(pmesh.MeshConfig(**mesh_kw))
+    if restore_from is None:
+        tr = _ldm_trainer(cfg_kw, sd, mesh, 0, device, fsdp)
+        tr.train_step(_t(batch, device), LDMDraws(*_t(draws, device)))
+        CheckpointManager(directory).save(tr.state.step, tr.state)
+    else:
+        tr = _ldm_trainer(cfg_kw, None, mesh, 5, device, fsdp)
+        CheckpointManager(restore_from).restore(tr.state)
+        if directory is not None:
+            CheckpointManager(directory).save(tr.state.step, tr.state)
+    out = _payload_np(tr.state)
+    named = dict(tr.model.named_parameters())
+    out['module_is_state'] = all(
+        torch.equal(named[k], v.to_local() if hasattr(v, 'to_local') else v)
+        for k, v in tr.state.params.items())
+    out['sharded'] = tr.state.sharded is not None
+    out['absent'] = len(tr.state.absent)
+    return out
+
+
+def fsdp_module_checks(mesh_kw):
+    """A two-layer MLP sharded in the module by the FSDP rules (threshold
+    1024) against its unsharded twin: the output under ``no_grad``, the
+    input's grad through ``frozen_apply`` (no parameter grad), the
+    module's shard shapes, ``load_module`` of whole tensors and a second
+    ``TrainState.create`` (it must raise)."""
+    from ln3diff_tpu_torch.training import train_state as ts
+    torch.manual_seed(0)
+    plain = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.GELU(),
+                                torch.nn.Linear(64, 32))
+    model = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.GELU(),
+                                torch.nn.Linear(64, 32))
+    model.load_state_dict(plain.state_dict())
+    mesh = pmesh.make_mesh(pmesh.MeshConfig(**mesh_kw))
+    rules = pmesh.param_sharding_rules(model, mesh, 1024)
+    state = ts.TrainState.create(model, ts.make_optimizer(1e-3), mesh=mesh,
+                                 placements=rules)
+    x = torch.randn(5, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        same_out = bool(torch.equal(model(x), plain(x)))
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ts.frozen_apply(model, xa).square().sum().backward()
+    ts.frozen_apply(plain, xb).square().sum().backward()
+    grads_in = float((xa.grad - xb.grad).abs().max())
+    no_param_grads = all(p.grad is None for p in model.parameters())
+    whole = {k: torch.full_like(v, 3.0) for k, v in plain.state_dict().items()}
+    state.load_module(whole)
+    with torch.no_grad():
+        loaded = bool(torch.equal(model(x), torch.func.functional_call(
+            plain, whole, (x,))))
+    try:
+        ts.TrainState.create(model, ts.make_optimizer(1e-3), mesh=mesh,
+                             placements=rules)
+        twice = 'no error'
+    except ValueError as e:
+        twice = str(e)
+    return dict(sharded=sorted(state.sharded.dims),
+                shapes={k: tuple(p.shape) for k, p in
+                        model.named_parameters()},
+                same_out=same_out, grads_in=grads_in,
+                no_param_grads=no_param_grads, loaded=loaded, twice=twice)

@@ -1362,6 +1362,102 @@ def test_parallel_vae_step_world1_equals_no_mesh(nccl):
         assert torch.equal(out['mesh'][1][k], p), k
 
 
+class _FsdpSizes:
+    """A stand-in mesh for the placement rules (they read axis sizes)."""
+
+    def __init__(self, fsdp):
+        self.shape = (1, 1, fsdp, 1)
+
+
+def test_in_module_shards_world1_equal_no_mesh(nccl):
+    """The small VAE's parameters held in the module as one-way shards
+    (``parallel/fsdp.py``: the gathers, the reduce-scatter and the
+    saved-tensor recipes under NCCL, at the placements ``param_sharding_
+    rules`` gives an fsdp axis of 2) train two steps equal to the steps
+    without a mesh bit for bit, kernels 1 and 2 on both, under
+    deterministic algorithms."""
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.parallel.mesh import (LocalMesh, make_mesh,
+                                                 param_sharding_rules)
+    from ln3diff_tpu_torch.training.train_state import TrainState
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+    model_cfg, train_cfg, opts = _small_vae_cfgs(True)
+    raw = make_multiview_batch(2, 32, 32, seed=5)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, m in (('sharded', make_mesh()), ('none', LocalMesh('cuda'))):
+            tr = VAETrainer(model_cfg, train_cfg, render_opts=opts, seed=3,
+                            device='cuda', mesh=m)
+            tr.init_state()
+            if name == 'sharded':
+                tr.state = TrainState.create(
+                    tr.model, tr.state.tx, ema_rates=tr.state.ema_rates,
+                    mesh=m, placements=param_sharding_rules(
+                        tr.model, _FsdpSizes(2), 1024))
+                assert tr.state.sharded is not None
+            gen = torch.Generator(device='cuda').manual_seed(7)
+            FusedOSG.launches = FusedOSG.backward_launches = 0
+            losses = []
+            for i in range(2):
+                batch = tr.prepare_batch(raw)
+                batch['step'] = float(i)
+                losses.append(float(tr.train_step(batch,
+                                                  generator=gen)['loss']))
+            assert FusedOSG.launches > 0 and FusedOSG.backward_launches > 0
+            out[name] = (losses, {
+                k: (p.to_local() if hasattr(p, 'to_local') else p)
+                .detach().clone() for k, p in tr.state.params.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out['sharded'][0] == out['none'][0]
+    for k, p in out['none'][1].items():
+        assert torch.equal(out['sharded'][1][k], p), k
+
+
+def test_shard_fed_vae_step(cuda_f32, tmp_path):
+    """Tar shards of synthetic instances streamed through ``PostProcess``
+    (the native reader's samples equal to ``tarfile``'s) into two steps of
+    the small VAE with kernels 1 and 2: finite losses, launches of both
+    kernels, the parameters moved."""
+    import numpy as np
+    from ln3diff_tpu_torch.data.objaverse import PostProcess
+    from ln3diff_tpu_torch.data.wds import (iter_shard, iter_shards_native,
+                                            load_wds_data)
+    from ln3diff_tpu_torch.scripts import wds_create
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+    paths = wds_create.main(['--out', str(tmp_path / 'objv-%06d.tar'),
+                             '--num_instances', '3', '--num_views', '4',
+                             '--resolution', '32', '--maxcount', '2'])
+    a = [s for p in paths for s in iter_shard(p)]
+    b = list(iter_shards_native(paths))
+    assert [s['__key__'] for s in a] == [s['__key__'] for s in b]
+    for x, y in zip(a, b):
+        assert all(np.array_equal(x[k], y[k]) for k in x
+                   if k.endswith('.npy'))
+    model_cfg, train_cfg, opts = _small_vae_cfgs(True)
+    stream = load_wds_data(paths, 1, transform=PostProcess(
+        reso_encoder=32, reso_render=32, num_views_input=2), seed=0)
+    tr = VAETrainer(model_cfg, train_cfg, render_opts=opts, seed=3,
+                    device='cuda')
+    tr.init_state()
+    before = {k: p.detach().clone() for k, p in tr.state.params.items()}
+    FusedOSG.launches = FusedOSG.backward_launches = 0
+    for i in range(2):
+        raw = next(stream)
+        flat = {k: raw[k].reshape((-1,) + raw[k].shape[2:])
+                for k in ('img_to_encoder', 'img', 'depth', 'depth_mask',
+                          'c', 'bbox')}
+        batch = tr.prepare_batch(flat)
+        batch['step'] = float(i)
+        m = tr.train_step(batch, generator=torch.Generator(
+            device='cuda').manual_seed(i))
+        assert np.isfinite(float(m['loss'])) and float(m['grad_norm']) > 0
+    assert FusedOSG.launches > 0 and FusedOSG.backward_launches > 0
+    assert any(not torch.equal(v, tr.state.params[k])
+               for k, v in before.items())
+
+
 def test_sharded_serving_world1_equals_unsharded(nccl):
     """The small text→3D call with ``serving_mesh`` (one NCCL rank) equals
     the call without it: frames and σ grid, through kernel 1 on both."""

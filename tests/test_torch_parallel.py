@@ -19,11 +19,16 @@ package and against one rank.
   arithmetic — the attention's key bias — and holds f32 noise into a step
   of up to lr, as the trainer tests allow), every rank equal, and each
   sharded parameter, AdamW moment and EMA holding 1/2 of its elements on a
-  rank.  The module keeps every parameter whole (the sharding is ZeRO-1:
-  optimizer state and EMA), so the bytes a rank holds, counted over its
-  distinct storages, are the whole module's plus the moments and EMA of
-  the replicated parameters plus half the four state tensors of each
-  sharded one.
+  rank.  Under the FSDP rules the module holds each sharded parameter as
+  its half (``parallel/fsdp.py``): the bytes a rank holds, counted over
+  the distinct storages of the module's parameters, the grads the
+  optimizer gets, the moments and the EMA, are each sharded parameter's
+  once per kind at 1/2 and each replicated one's whole; a forward
+  pre-hook on every module sees at most one unit (a trunk block, or the
+  root) with whole parameters alive, and none is alive after the step.
+  Under the tensor rules the module and its grads stay whole (the tensor
+  ranks compute as data replicas) and the slice each rank updates, its
+  moments and EMA are halves.
 * The batch helpers, the mesh's sizes and ``host_rng``.
 
 The gloo ranks (``tests/_torch_ranks.py``) run the port only; JAX runs
@@ -281,16 +286,43 @@ def test_train_step_matches_jax(pool, case):
                                           out[0]['params'][k])
     sizes = out[0]['sizes']
     assert bool(sizes) == (rules is not None)
+    in_module = rules == 'fsdp'
     sharded = 0
     for k, s in sizes.items():
         local, whole = s['param']
         assert 2 * local == whole, k
         assert s['mu'] == s['nu'] == s['ema'] == (local,), k
+        for r in out:
+            assert r['numels'][k] == (local if in_module else whole), k
         sharded += 4 * whole      # f32 bytes
-    rest = out[0]['module_bytes'] - sharded
+    rest = 4 * sum(n for k, n in out[0]['numels'].items() if k not in sizes)
     for r in out:
-        assert r['held_bytes'] == (out[0]['module_bytes'] + 3 * rest
-                                   + 4 * sharded // 2)
+        if in_module:
+            # module param (the DTensor's storage), grad, mu, nu, EMA
+            assert r['module_bytes'] == rest + sharded // 2
+            assert r['held_bytes'] == 5 * rest + 5 * sharded // 2
+            assert r['units_whole'] == 1 and r['units_whole_after'] == 0
+        else:
+            # the module and its grads whole; the slice, mu, nu, EMA
+            assert r['module_bytes'] == rest + sharded
+            assert r['held_bytes'] == (5 * rest + 2 * sharded
+                                       + 4 * sharded // 2)
+
+
+def test_sharded_module_outside_the_step(pool):
+    """A module sharded by the FSDP rules over (1, 1, 4, 1) runs outside a
+    training step as its unsharded twin: the same output under
+    ``no_grad``, the same input grad through ``frozen_apply`` and no
+    parameter grad; ``load_module`` writes each rank's shard of whole
+    tensors; a module is sharded once."""
+    out = pool.run(tasks.fsdp_module_checks, dict(data=1, fsdp=4))
+    for o in out:
+        assert o['sharded'] == ['0.weight', '2.weight']
+        assert o['shapes']['0.weight'] in ((16, 64), (64, 16))
+        assert o['shapes']['0.bias'] == (64,)
+        assert o['same_out'] and o['loaded'] and o['no_param_grads']
+        assert o['grads_in'] <= 1e-6
+        assert 'already sharded' in o['twice']
 
 
 # -- batch helpers, sizes, host RNG ---------------------------------------------

@@ -386,9 +386,10 @@ _FORBIDDEN = re.compile(
 
 def test_boundary_covers_the_entry_layer():
     """The checks here cover the entry layer: the CLIs under
-    ``ln3diff_tpu_torch/scripts/``, the console wrappers, the converters,
-    the utilities, the parallel layer, and the reference-dict writer that
-    ``chip_smoke.py`` imports from ``tests/``."""
+    ``ln3diff_tpu_torch/scripts/`` (the data CLIs among them), the console
+    wrappers, the converters, the utilities, the parallel layer, the data
+    layer with its native reader's binding, and the reference-dict writer
+    that ``chip_smoke.py`` imports from ``tests/``."""
     for m in ('ln3diff_tpu_torch.cli',
               'ln3diff_tpu_torch.parallel.mesh',
               'ln3diff_tpu_torch.parallel.pipeline',
@@ -409,7 +410,17 @@ def test_boundary_covers_the_entry_layer():
               'ln3diff_tpu_torch.utils.legacy_pkl',
               'ln3diff_tpu_torch.utils.logger',
               'ln3diff_tpu_torch.utils.misc',
-              'ln3diff_tpu_torch.utils.video'):
+              'ln3diff_tpu_torch.utils.video',
+              'ln3diff_tpu_torch.parallel.fsdp',
+              'ln3diff_tpu_torch.data.wds',
+              'ln3diff_tpu_torch.data.exr',
+              'ln3diff_tpu_torch.data.objaverse_raw',
+              'ln3diff_tpu_torch.data.lmdb_reader',
+              'ln3diff_tpu_torch.data.eg3d',
+              'ln3diff_tpu_torch.native.build',
+              'ln3diff_tpu_torch.scripts.wds_create',
+              'ln3diff_tpu_torch.scripts.lmdb_create',
+              'ln3diff_tpu_torch.scripts.profile_dataloading'):
         assert m in _PORT_MODULES, m
     src = (REPO / 'chip_smoke.py').read_text()
     assert '_torch_reference_sd' in src

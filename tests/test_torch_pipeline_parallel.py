@@ -18,7 +18,12 @@ state holding its stage's blocks only.  Last, that trainer's state saved
 by ``CheckpointManager`` (rank 0 writes the state gathered over the
 stages, or over the FSDP shards on a (2, 1, 2, 1) mesh) and restored
 into a trainer drawn from another seed: every held tensor and module
-parameter equal, and the saved parameters equal to the step's.
+parameter equal, and the saved parameters equal to the step's.  Then the
+same across layouts: a checkpoint written under (2, 1, 2, 1) with the
+FSDP-sharded module, or under (1, 2, 1, 1) on two ranks, restored into a
+one-device trainer and written back for the meshed one, every leaf equal
+at each hop.  Under pp = 2 the other stage's blocks are on the ``meta``
+device of each rank.
 """
 
 import os
@@ -51,6 +56,13 @@ LR = 1e-3
 @pytest.fixture(scope='module')
 def pool(tmp_path_factory):
     p = RankPool(4, tmp_path_factory.mktemp('ranks'))
+    yield p
+    p.close()
+
+
+@pytest.fixture(scope='module')
+def pool2(tmp_path_factory):
+    p = RankPool(2, tmp_path_factory.mktemp('ranks2'))
     yield p
     p.close()
 
@@ -181,6 +193,9 @@ def test_ldm_trainer_pp_step_matches_plain(pool):
         held = [k for k in o['held'] if k.startswith('blocks.')]
         assert held and all(int(k.split('.')[1]) // 2 == stage
                             for k in held)
+        # the other stage's blocks left the device (meta)
+        assert o['on_device'] == [2 * stage, 2 * stage + 1]
+    assert all(o['on_device'] == [0, 1, 2, 3] for o in plain)
 
 
 @pytest.mark.parametrize('mesh_kw,fsdp', [(dict(data=2, pipe=2), False),
@@ -206,3 +221,47 @@ def test_checkpoint_roundtrip_across_ranks(pool, tmp_path, mesh_kw, fsdp):
         scale = max(float(np.abs(v).max()), 1e-30)
         np.testing.assert_allclose(outs[0]['saved'][k], v, rtol=0,
                                    atol=TOL * scale + 1e-2 * LR, err_msg=k)
+
+
+@pytest.mark.parametrize('layout', ['data2_fsdp2', 'pipe2'])
+def test_checkpoint_across_layouts(request, tmp_path, layout):
+    """A checkpoint written under (2, 1, 2, 1) (state and module sharded
+    by the FSDP rules) or (1, 2, 1, 1) (each stage holding its blocks)
+    restores into a one-device trainer, which writes it again for the
+    meshed layout to restore: every leaf (params, EMA, moments, counts)
+    equal at each hop, and each module holding the restored tensors."""
+    mesh_kw, fsdp, pool = {
+        'data2_fsdp2': (dict(data=2, fsdp=2), True, 'pool'),
+        'pipe2': (dict(data=1, pipe=2), False, 'pool2')}[layout]
+    pool = request.getfixturevalue(pool)
+    w = _setup()
+    rng = np.random.default_rng(7)
+    batch = {'latent': rng.standard_normal((4, 8, 8, 12)).astype(np.float32),
+             'context': {'crossattn': rng.standard_normal(
+                 (4, 7, 32)).astype(np.float32)}}
+    draws = (rng.uniform(0.05, 0.95, (4,)).astype(np.float32),
+             rng.standard_normal((4, 8, 8, 12)).astype(np.float32))
+    cfg = dict(DIT, variant='text')
+    meshed, one_dev, back = (str(tmp_path / d) for d in ('a', 'b', 'c'))
+    saved = pool.run(tasks.checkpoint_layout, meshed, cfg, w['sd'], batch,
+                     draws, mesh_kw, fsdp)
+    one = tasks.checkpoint_layout(one_dev, cfg, None, None, None, {}, False,
+                                  restore_from=meshed)
+    again = pool.run(tasks.checkpoint_layout, None, cfg, None, None, None,
+                     mesh_kw, fsdp, restore_from=one_dev)
+
+    def equal(a, b):
+        assert sorted(a) == sorted(b)
+        for part in ('params', 'ema', 'mu', 'nu'):
+            assert sorted(a[part]) == sorted(b[part])
+            for k in a[part]:
+                np.testing.assert_array_equal(a[part][k], b[part][k],
+                                              err_msg=f'{part}.{k}')
+        assert a['count'] == b['count'] == 1 and a['step'] == b['step'] == 1
+
+    assert saved[0]['sharded'] == fsdp and (saved[0]['absent'] > 0) != fsdp
+    assert not one['sharded'] and one['absent'] == 0
+    for o in saved + [one] + again:
+        assert o['module_is_state']
+    for o in saved[1:] + [one] + again:
+        equal(saved[0], o)
