@@ -25,8 +25,8 @@ from a fixed seed:
   plain version;
 * ``i23d_pipeline``: the image→3D serving call on one 224² image: CLIP
   ViT-L/14 vision tower (f32) and DINOv2-B/14 (bf16), DiT-I23D-L/2 with
-  the DINO tokens in its self-attention (L = 1025), the 250-step
-  flow-matching ODE with CFG 4.0, then the text→3D call's decode, orbit
+  the DINO tokens in its self-attention (L = 1025), the flow-matching
+  ODE with CFG 4.0, then the text→3D call's decode, orbit
   and mesh stages; with plain attention and with ``fused_attention=True``;
 * ``mv23d_pipeline``: the multi-view→3D serving call on four views:
   DINOv2-B/14, DiT-PixArt-MV-L/2 with the views' tokens in its
@@ -35,7 +35,7 @@ from a fixed seed:
   steps over the unspaced schedule (``bench.py``'s ``dpm25``) and with 25
   PLMS steps over ``ddim25``;
 * ``t23d_int8``: the text→3D serving call with the W8A8 int8 DiT-L/2
-  (``quantize_dit``), plain and fused attention, DDIM 250, and a DDIM
+  (``quantize_dit``), plain and fused attention, and a DDIM
   step of the int8 and bf16 denoisers under the profiler;
 * ``i23d_int8``: the image→3D serving call with the int8 DiT-I23D-L/2;
 * ``orbit_options``: ``__call__(cameras=...)`` on a pose file written
@@ -43,7 +43,7 @@ from a fixed seed:
   orbit with the frames folded into the ray axis (``render_rays_fn`` with
   ``TriplaneVAE.render_rays_flat``) against the per-frame orbit;
 * ``shapenet_pipeline``: the ShapeNet text→3D call (pooled CLIP-L text
-  × 18.4, U-Net-320 LSGM with v-prediction and the mixing logit, DDIM 250
+  × 18.4, U-Net-320 LSGM with v-prediction and the mixing logit, DDIM
   at CFG 1.0, the fusionv5 VAE decode to 256² planes, a 24-frame orbit of
   64² rays with 64+64 samples and ``NearestConvSR`` to 128², the 192³ σ
   grid and the mesh);
@@ -123,7 +123,32 @@ from a fixed seed:
   samples against ``tarfile``'s, then the stream through
   ``PostProcess`` into 3 steps of the full-width VAE trainer with the
   kernel pair (8 launches of each per step), with each reader's
-  batches/s, PostProcess ms per instance and s/step.
+  batches/s, PostProcess ms per instance and s/step;
+* ``evaluation``: the FID InceptionV3 and the CLIP extractor card vs CPU,
+  then the evaluator CLI (``--device cuda``, a pytorch-fid-layout
+  ``--inception_weights`` file) on 1,024 + 1,024 uint8 images of 256²:
+  FID, sFID, IS, precision and recall, images/s, seconds by stage, peak
+  memory, FID(ref, ref) < 1e-3; then ``--extractor clip``;
+* ``sgm_stack``: the t23d EDM and the multi-view FM stacks of
+  ``sgm_config.load_ldm_configs`` from parsed mappings: the CLIP-L text
+  conditioner, the EDM loss and backward on DiT-L/2 at batch 4, 25 Euler
+  CFG steps, the FM loss on DiT-I23D-L/2;
+* ``profiling_trace``: ``utils.profiling.trace`` around 3 calls of the
+  fused DiT-L/2 (kernel 3, 24 launches a call) in an ``annotate`` range;
+* ``two_stage_demo``: the VAE and diffusion training entries for 2 steps
+  each, then ``demo_two_stage`` at its defaults on their checkpoints
+  (100 FM steps of DiT-B/2, 8 frames of 64², a 96³ mesh);
+* ``gradio_i23d``: the image→3D demo's command-line fallback at its
+  defaults (i23d DiT-L/2 in bf16, 75 FM steps, 12 frames of 128², a 128³
+  grid; 32 launches of kernel 1 per image) over two 512² PNGs, then with
+  ``--int8_dit``.  No kernel runs in ``evaluation``, ``sgm_stack`` and
+  ``two_stage_demo`` (none does in JAX).
+
+The serving calls after ``pipeline`` and ``serving_pipeline`` (i23d,
+mv23d, ShapeNet, FFHQ, every int8 call and ``serving_mesh``) run ``SERVING_STEPS`` = 50
+sampler steps where the release runs 250: the cut depth of those paths,
+which keeps the whole run inside ``BUDGET_S``.  The DPM and PLMS calls
+run their 25 steps, the sample CLI its preset's DDIM 250.
 
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh and shard-reader code from
@@ -169,6 +194,14 @@ import tempfile
 import time
 
 BUDGET_S = 900            # wall-clock budget of the whole run
+# Sampler steps of every full-width serving call after the main path's
+# two (``pipeline`` and ``serving_pipeline`` keep the release's DDIM 250):
+# the i23d, mv23d, ShapeNet and FFHQ calls, all int8 calls and the
+# sharded call of ``serving_mesh``.  A step is host-bound (35-100 ms on
+# the card), and at 250 steps these calls took about 240 s, enough to
+# push a run on a slower host over the budget.
+SERVING_STEPS = 50
+CUT = dict(sampler_steps=f'250 -> {SERVING_STEPS}')   # those phases' sizes
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 without tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
@@ -256,6 +289,9 @@ TOL_REMAT = 1e-3
 # cuDNN may pick another algorithm per layout, which moves a bf16 sum by
 # an ulp (2^-8 relative) here and there through 40-odd layers.
 TOL_LAYOUT = 2e-2
+# the evaluator's extractors card vs CPU, f32 with TF32 off: cuDNN's and
+# the CPU's conv sums differ in order over the Inception's 94 convs
+TOL_EVAL = 1e-3
 # the serving path's mesh: σ > 10 inside, 192³ grid over ±0.45
 MESH_GRID, MESH_AABB, MESH_THRESHOLD = 192, 0.45, 10.0
 
@@ -1573,11 +1609,15 @@ def serving_pipeline(modules, prompt):
 
 def image_pipeline(build, modules, inputs, repeat=True):
     """The image→3D or multi-view→3D call at full width
-    (``_serving_call``): ``build`` is ``build_i23d_pipeline`` or
+    (``_serving_call``) with ``SERVING_STEPS`` Euler steps of the
+    flow-matching ODE at CFG 4.0: ``build`` is ``build_i23d_pipeline`` or
     ``build_mv23d_pipeline``, the denoiser in ``modules`` has plain or
     fused attention, ``inputs`` are the image or the views."""
+    from ln3diff_tpu_torch.pipeline import SamplerSpec
     pipe, encode, _ = build('cuda', den_cfg=modules['denoiser'].cfg,
-                            modules=modules)
+                            modules=modules,
+                            sampler=SamplerSpec(cfg_scale=4.0,
+                                                num_steps=SERVING_STEPS))
     return _serving_call(pipe, encode, inputs, 'image_encode',
                          repeat=repeat)[0]
 
@@ -1632,20 +1672,30 @@ def int8_gemm_ms(M=1536, K=1024, N=3072):
         gemm_ops=2 * M * K * N)
 
 
-def t23d_int8(modules, fused_modules, cond, uncond, prompt, bf16_latents):
+def t23d_int8(modules, fused_modules, cond, uncond, prompt):
     """The text→3D serving call at full width with the W8A8 int8 DiT-L/2:
     ``quantize_dit`` of the plain and of the fused-attention denoiser
-    (``bench.py``'s ``LN3DIFF_BENCH_INT8``), DDIM 250; kernel 3 runs on
-    the int8 qkv projection of the fused one.  Then a DDIM step of the
-    four denoisers (bf16 and int8, plain and fused) under the profiler,
-    and the qkv GEMM alone.  ``latents_rel_to_bf16``: the int8 call's
-    latents against ``bf16_latents[attn]``, the bf16 call's from the same
-    noise.  Each call runs once, timed by phase (``repeat=False``)."""
+    (``bench.py``'s ``LN3DIFF_BENCH_INT8``), DDIM ``SERVING_STEPS``;
+    kernel 3 runs on the int8 qkv projection of the fused one.  Then a
+    DDIM step of the four denoisers (bf16 and int8, plain and fused) under
+    the profiler, and the qkv GEMM alone.  ``latents_rel_to_bf16``: the
+    int8 call's latents against the bf16 denoiser's, sampled with the
+    same DDIM steps from the same noise.  Each call runs once, timed by
+    phase (``repeat=False``)."""
+    import torch
     from ln3diff_tpu_torch.ops.int8 import Int8Linear, quantize_dit
-    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
+    sampler = SamplerSpec(kind='ddim', num_steps=SERVING_STEPS)
     res, dens = {}, {}
     for attn, mods in (('plain_attention', modules),
                        ('fused_attention', fused_modules)):
+        bf16_pipe, _, _ = build_t23d_pipeline(
+            'cuda', den_cfg=mods['denoiser'].cfg, modules=mods,
+            sampler=sampler)
+        with torch.no_grad():
+            ref = bf16_pipe.sample_latents(
+                1, cond, uncond,
+                generator=torch.Generator(device='cuda').manual_seed(1))
         t0 = time.perf_counter()
         q = quantize_dit(mods['denoiser'])
         quant_s = time.perf_counter() - t0
@@ -1653,10 +1703,10 @@ def t23d_int8(modules, fused_modules, cond, uncond, prompt, bf16_latents):
         check(q.cfg.quantized and n_int8 == 24 * 8,
               f'quantize_dit gave {n_int8} int8 layers')
         pipe, encode, _ = build_t23d_pipeline(
-            'cuda', den_cfg=q.cfg, modules=dict(mods, denoiser=q))
+            'cuda', den_cfg=q.cfg, modules=dict(mods, denoiser=q),
+            sampler=sampler)
         r, lat = _serving_call(pipe, encode, prompt, 'text_encode',
                                repeat=False)
-        ref = bf16_latents[attn]
         r['latents_rel_to_bf16'] = float((lat - ref).norm() / ref.norm())
         r['quantize_seconds'] = round(quant_s, 3)
         r['int8_layers'] = n_int8
@@ -1930,7 +1980,7 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
         **res), latents
 
 
-def dit_profile(denoisers, cond, uncond, steps=10, t_value=500,
+def dit_profile(denoisers, cond, uncond, steps=5, t_value=500,
                 latent_shape=(32, 32, 12), doubled=True):
     """Where a sampler step's time goes, for each denoiser (at time
     ``t_value``: a DDIM step index, or a flow-matching time in [0, 1)):
@@ -1990,10 +2040,11 @@ def dit_profile(denoisers, cond, uncond, steps=10, t_value=500,
 
 
 def i23d_int8(build, modules, inputs, cond, uncond):
-    """The image→3D serving call at full width (250 FM steps, no cut) with
-    ``quantize_dit`` of the plain-attention DiT-I23D-L/2 (``bench.py``'s
-    ``LN3DIFF_BENCH_INT8`` for i23d), run once, timed by phase, and an
-    FM step of it and of the bf16 denoiser under the profiler."""
+    """The image→3D serving call at full width (``SERVING_STEPS`` FM
+    steps) with ``quantize_dit`` of the plain-attention DiT-I23D-L/2
+    (``bench.py``'s ``LN3DIFF_BENCH_INT8`` for i23d), run once, timed by
+    phase, and an FM step of it and of the bf16 denoiser under the
+    profiler."""
     from ln3diff_tpu_torch.ops.int8 import quantize_dit
     q = quantize_dit(modules['denoiser'])
     res = image_pipeline(build, dict(modules, denoiser=q), inputs,
@@ -2031,7 +2082,8 @@ def image_families():
                 'CLIP ViT-L/14 vision f32, DINOv2-B/14 bf16, DiT-I23D-L/2'
                 if family == 'i23d' else 'DINOv2-B/14 bf16 over 4 views, '
                 'DiT-PixArt-MV-L/2') + ' bf16 tanh-GELU, DiT2-L/2 VAE '
-            'decoder bf16; flow-matching Euler 250 steps, cfg 4.0, '
+            f'decoder bf16; flow-matching Euler {SERVING_STEPS} steps '
+            '(250 in the release), cfg 4.0, '
             '24 x 192^2 orbit, 64+64 samples, bf16 planes, 192^3 sigma '
             'grid, mesh'),
             context={k: list(v.shape) for k, v in cond.items()})
@@ -2045,7 +2097,7 @@ def image_families():
         # it
         res['fused_attention'] = image_pipeline(build, fused_modules, inputs,
                                                 repeat=False)
-        phase_done(f'{family}_pipeline', t0, **res)
+        phase_done(f'{family}_pipeline', t0, sizes=CUT, **res)
         t0 = time.perf_counter()
         profile = dit_profile({'plain_attention': plain_denoiser,
                                'fused_attention': fused_modules['denoiser']},
@@ -2054,7 +2106,7 @@ def image_families():
         if family == 'i23d':
             t0 = time.perf_counter()
             res['int8'] = i23d_int8(build, modules, inputs, cond, uncond)
-            phase_done('i23d_int8', t0, **res['int8'])
+            phase_done('i23d_int8', t0, sizes=CUT, **res['int8'])
         results[family] = res
         del modules, fused_modules, plain_denoiser, encode, cond, uncond
         torch.cuda.empty_cache()
@@ -2064,7 +2116,8 @@ def image_families():
 def unet_families():
     """The ShapeNet and FFHQ text→3D calls at full width
     (``build_unet_pipeline``, random weights from seed 0, each family's
-    models freed before the next's): the call as the bench configures it
+    models freed before the next's): the call as the bench configures it,
+    at DDIM ``SERVING_STEPS``
     (``_serving_call`` on the family's 24-frame orbit from
     ``CAMERA_PRESETS``, ShapeNet with a mesh), ShapeNet's mesh stage on an
     analytic sphere with the colours from its planes (``mesh_check``: the
@@ -2088,13 +2141,18 @@ def unet_families():
         mesh = family == 'shapenet'
         t0 = time.perf_counter()
         pipe, encode, modules = build_unet_pipeline(family, 'cuda', seed=0)
+        sampler = dataclasses.replace(pipe.spec, num_steps=SERVING_STEPS)
+        pipe, encode, _ = build_unet_pipeline(family, 'cuda',
+                                              modules=modules,
+                                              sampler=sampler)
         rays = spec['ray_res']
         side = rays * modules['vae'].cfg.sr_ratio
         phase_done(f'{family}_pipeline_build', t0, weights=(
             'random (torch.Generator seed 0); U-Net-320 LSGM bf16 (v-pred, '
             'mixing logit), CLIP-L text f32 with text_projection, pooled x'
             f'{spec["clip_scale"]}, {type(modules["vae"]).__name__} '
-            f'decoder bf16; ddim250, cfg {pipe.spec.cfg_scale}, 24 x '
+            f'decoder bf16; ddim{SERVING_STEPS} (250 in the release), '
+            f'cfg {pipe.spec.cfg_scale}, 24 x '
             f'{rays}^2-ray orbit + '
             f'{type(modules["vae"].superresolution).__name__} to '
             f'{side}^2, bf16 planes' + (', 192^3 sigma grid, mesh'
@@ -2117,7 +2175,7 @@ def unet_families():
                 planes = pipe.decode_fn(latents)
             res['mesh_on_sphere'] = mesh_check(pipe._mesh_decoder(
                 planes.to(torch.bfloat16)))
-        phase_done(f'{family}_pipeline', t0, **res)
+        phase_done(f'{family}_pipeline', t0, sizes=CUT, **res)
         results[family] = res
         # the same call with the W8A8 int8 U-Net
         t0 = time.perf_counter()
@@ -2128,14 +2186,15 @@ def unet_families():
         check(q.cfg.quantized and n_conv > 0 and n_lin > 0,
               f'quantize_unet gave {n_conv} int8 convs, {n_lin} linears')
         qpipe, qencode, _ = build_unet_pipeline(
-            family, 'cuda', den_cfg=q.cfg, modules=dict(modules, denoiser=q))
+            family, 'cuda', den_cfg=q.cfg, modules=dict(modules, denoiser=q),
+            sampler=sampler)
         qres, qlat = _serving_call(qpipe, qencode, prompt, 'text_encode',
                                    **call_args)
         qres.update(latents_rel_to_bf16=float((qlat - latents).norm()
                                               / latents.norm()),
                     quantize_seconds=round(quant_s, 3),
                     int8_convs=n_conv, int8_linears=n_lin)
-        phase_done(f'{family}_int8', t0, **qres)
+        phase_done(f'{family}_int8', t0, sizes=CUT, **qres)
         results[f'{family}_int8'] = qres
         # CFG 1.0 runs the conditional half only: batch 1
         steps[family] = (modules['denoiser'], *encode(prompt),
@@ -4345,7 +4404,8 @@ def parallel_vae_train(steps=3, timed=3):
 
 def serving_mesh(prompt):
 
-    """The full-width text→3D ``__call__`` with ``serving_mesh=make_mesh()``
+    """The full-width text→3D ``__call__`` (DDIM ``SERVING_STEPS``) with
+    ``serving_mesh=make_mesh()``
     (the orbit's 24 frames and the 192³ σ grid over the one NCCL rank,
     gathered back), then the unsharded pipeline over the same modules on
     the same latents: the frames and the σ grid must agree within
@@ -4357,11 +4417,13 @@ def serving_mesh(prompt):
     from ln3diff_tpu_torch.ops.fused_render import FusedOSG
     from ln3diff_tpu_torch.parallel.mesh import LocalMesh, make_mesh
     from ln3diff_tpu_torch.parallel.pipeline import dit_pipeline_apply
-    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, build_t23d_pipeline
 
+    sampler = SamplerSpec(kind='ddim', num_steps=SERVING_STEPS)
     sharded, encode, modules = build_t23d_pipeline(
-        'cuda', seed=0, serving_mesh=make_mesh())
-    plain, _, _ = build_t23d_pipeline('cuda', modules=modules)
+        'cuda', seed=0, serving_mesh=make_mesh(), sampler=sampler)
+    plain, _, _ = build_t23d_pipeline('cuda', modules=modules,
+                                      sampler=sampler)
     cond, uncond = encode(prompt)
     torch.cuda.reset_peak_memory_stats()
     zero_kernel_launches()
@@ -4603,6 +4665,592 @@ def train_entries(workdir):
     return dict(sizes=sizes, clis=out)
 
 
+# -- evaluation, the sgm stack, profiling and the demos ----------------------
+
+def _inception_state_dict(seed=11):
+    """A pytorch-fid-layout ``Inception3`` state dict with random weights
+    (He-scaled convs, BN statistics and affine off their init, an
+    auxiliary classifier and ``num_batches_tracked`` as the released file
+    has them)."""
+    import torch
+    from ln3diff_tpu_torch.evaluation.inception import InceptionV3
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in InceptionV3().state_dict().items():
+        if k.endswith('num_batches_tracked'):
+            sd[k] = torch.tensor(0)
+        elif k.endswith('conv.weight'):
+            sd[k] = torch.randn(v.shape, generator=g) * math.sqrt(
+                2.0 / v[0].numel())
+        elif k.endswith('running_var') or k.endswith('bn.weight'):
+            sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k == 'fc.weight':
+            sd[k] = torch.randn(v.shape, generator=g) / math.sqrt(v.shape[1])
+        else:
+            sd[k] = torch.randn(v.shape, generator=g) * 0.1
+    sd['AuxLogits.conv0.conv.weight'] = torch.zeros(128, 768, 1, 1)
+    sd['AuxLogits.fc.weight'] = torch.zeros(1000, 768)
+    return sd
+
+
+def _eval_images(n, reso, seed):
+    """``n`` uint8 images of ``reso``²: 8×8 blocks of random colour with
+    pixel noise, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, 8, 8, 3), dtype=np.int16)
+    img = np.repeat(np.repeat(base, reso // 8, axis=1), reso // 8, axis=2)
+    img += rng.integers(-12, 13, img.shape, dtype=np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def evaluation(workdir, n=1024, reso=256):
+    """The evaluator's two extractors card vs CPU on 8 images (pool3,
+    logits and the 2023-d spatial features; the CLIP tower's three
+    outputs; ``TOL_EVAL`` of each output's scale), then the evaluator CLI
+    in process with ``--device cuda`` and ``--inception_weights`` (a
+    pytorch-fid-layout state dict written first, its ``AuxLogits.*``
+    included) on ``n`` + ``n`` uint8 images of ``reso``² (the sample set
+    is the reference set with ±20 levels of noise), timed by stage;
+    FID(ref, ref) from the reference features < 1e-3, FID(ref, sample) >
+    0; then once with ``--extractor clip``.  No kernel runs on this path
+    (none does in JAX)."""
+    import numpy as np
+    import torch
+    from ln3diff_tpu_torch.evaluation import metrics as M
+    from ln3diff_tpu_torch.scripts import evaluator
+
+    weights = os.path.join(workdir, 'pt_inception-random.pth')
+    torch.save(_inception_state_dict(), weights)
+    ref = _eval_images(n, reso, 31)
+    noise = np.random.default_rng(32).integers(-20, 21, ref.shape,
+                                               dtype=np.int16)
+    smp = np.clip(ref.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    del noise
+    ref_npz = os.path.join(workdir, 'ref.npz')
+    smp_npz = os.path.join(workdir, 'sample.npz')
+    np.savez(ref_npz, arr_0=ref)
+    np.savez(smp_npz, arr_0=smp)
+
+    # the extractors card vs CPU
+    errs = {}
+    for name, make in (('inception', lambda d: M.make_inception_feature_fn(
+                            weights=weights, batch_size=8, device=d)),
+                       ('clip', lambda d: M.make_clip_feature_fn(
+                           batch_size=8, device=d))):
+        card, cpu = make('cuda')(ref[:8]), make('cpu')(ref[:8])
+        for part, a, b in zip(('pool', 'logits', 'spatial'), card, cpu):
+            check(a.shape == b.shape and np.isfinite(a).all(),
+                  f'{name} {part}: {a.shape} vs {b.shape}')
+            err = float(np.abs(a - b).max())
+            scale = max(1.0, float(np.abs(b).max()))
+            check(err <= TOL_EVAL * scale,
+                  f'{name} {part} card vs CPU: {err} > {TOL_EVAL}·{scale}')
+            errs[f'{name}_{part}'] = err
+
+    # the CLI, each stage timed through the metrics module it calls
+    stages, feats = {}, []
+    orig = {k: getattr(M, k) for k in (
+        'make_inception_feature_fn', 'compute_fid', 'inception_score',
+        'precision_recall')}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            key = name if name not in stages else f'{name}_2'
+            stages[key] = round(time.perf_counter() - s, 3)
+            return out
+        return run
+
+    def make_fn(*a, **k):
+        fn = orig['make_inception_feature_fn'](*a, **k)
+
+        def feat(images):
+            out = timed('features_ref' if not feats else 'features_sample',
+                        fn)(images)
+            feats.append(out)
+            return out
+        return feat
+
+    M.make_inception_feature_fn = make_fn
+    M.compute_fid = timed('fid', orig['compute_fid'])
+    M.inception_score = timed('inception_score', orig['inception_score'])
+    M.precision_recall = timed('precision_recall', orig['precision_recall'])
+    zero_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        res, _ = _run_cli(evaluator.main, [
+            ref_npz, smp_npz, '--inception_weights', weights,
+            '--device', 'cuda'])
+    finally:
+        for k, v in orig.items():
+            setattr(M, k, v)
+    cli_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    stages['sfid'] = stages.pop('fid_2')
+    stages['npz_load_and_other'] = round(cli_s - sum(stages.values()), 3)
+    fid_self = orig['compute_fid'](feats[0][0], feats[0][0])
+    check(abs(fid_self) < 1e-3, f'FID(ref, ref) = {fid_self}')
+    check(res.fid > 0 and np.isfinite(res.fid), f'FID {res.fid}')
+    check(res.sfid is not None and np.isfinite(res.sfid), f'sFID {res.sfid}')
+    check(np.isfinite(res.inception_score), 'IS not finite')
+    check(0 <= res.precision <= 1 and 0 <= res.recall <= 1, 'P/R range')
+    feat_s = stages['features_ref'] + stages['features_sample']
+
+    t0 = time.perf_counter()
+    clip_res, _ = _run_cli(evaluator.main, [ref_npz, smp_npz, '--extractor',
+                                            'clip', '--device', 'cuda'])
+    clip_s = time.perf_counter() - t0
+    check(clip_res.fid > 0 and np.isfinite(clip_res.fid)
+          and np.isfinite(clip_res.sfid), f'clip {clip_res}')
+    return dict(images=f'{n} + {n} uint8 {reso}^2 (sample = ref + '
+                       f'uniform noise of +-20 levels)',
+                weights='random, pytorch-fid layout with AuxLogits '
+                        '(torch.save, read with weights_only=True)',
+                card_vs_cpu_max_abs_err=errs, tol=TOL_EVAL,
+                inception=dict(fid=res.fid, sfid=res.sfid,
+                               inception_score=res.inception_score,
+                               precision=res.precision, recall=res.recall,
+                               fid_ref_ref=fid_self),
+                cli_seconds=round(cli_s, 3), seconds_by_stage=stages,
+                images_per_s=round(2 * n / feat_s, 1),
+                peak_mem_gib=round(peak, 3),
+                clip=dict(fid=clip_res.fid, sfid=clip_res.sfid,
+                          inception_score=clip_res.inception_score,
+                          seconds=round(clip_s, 3)),
+                kernel_launches=no_kernel_launches('evaluation'))
+
+
+def _sgm_mappings():
+    """The t23d EDM stack and the multi-view flow-matching stack of the
+    release configs (``txt2img-clipl-compat.yaml``,
+    ``mv23d-plucker-...-fm.yaml``) as parsed mappings."""
+    sgm, diff = 'sgm.modules', 'sgm.modules.diffusionmodules'
+    t23d = {'ldm_configs': {
+        'scheduler_config': {
+            'target': 'sgm.lr_scheduler.LambdaLinearScheduler',
+            'params': {'warm_up_steps': [10000],
+                       'cycle_lengths': [10000000000000],
+                       'f_start': [1e-6], 'f_max': [1.0], 'f_min': [1.0]}},
+        'denoiser_config': {
+            'target': f'{diff}.denoiser.DiscreteDenoiser',
+            'params': {'num_idx': 1000, 'scaling_config': {
+                'target': f'{diff}.denoiser_scaling.EpsScaling'}}},
+        'conditioner_config': {
+            'target': f'{sgm}.GeneralConditioner',
+            'params': {'emb_models': [{
+                'is_trainable': False, 'input_key': 'caption',
+                'ucg_rate': 0.1,
+                'target': f'{sgm}.encoders.modules.FrozenCLIPEmbedder',
+                'params': {'always_return_pooled': True}}]}},
+        'loss_fn_config': {
+            'target': f'{diff}.loss.StandardDiffusionLoss',
+            'params': {'loss_weighting_config': {
+                'target': f'{diff}.loss_weighting.EpsWeighting'},
+                'sigma_sampler_config': {
+                    'target': f'{diff}.sigma_sampling.DiscreteSampling',
+                    'params': {'num_idx': 1000}}}},
+        'sampler_config': {
+            'target': f'{diff}.sampling.EulerEDMSampler',
+            'params': {'num_steps': 250, 'guider_config': {
+                'target': f'{diff}.guiders.VanillaCFG',
+                'params': {'scale': 6.5}}}}}}
+    fm = {'ldm_configs': {
+        'conditioner_config': {
+            'target': f'{sgm}.GeneralConditioner',
+            'params': {'emb_models': [{
+                'is_trainable': False, 'input_key': 'img-c',
+                'ucg_rate': 0.1,
+                'target': f'{sgm}.encoders.modules.'
+                          'FrozenDinov2ImageEmbedderMVPlucker',
+                'params': {'arch': 'vitb', 'n_cond_frames': 4}}]}},
+        'loss_fn_config': {
+            'target': f'{diff}.loss.FMLoss',
+            'params': {'transport_config': {
+                'target': 'transport.create_transport',
+                'params': {'snr_type': 'lognorm'}}}}},
+        'guider_config': {'target': f'{diff}.guiders.VanillaCFG',
+                          'params': {'scale': 5.0}}}
+    return t23d, fm
+
+
+def sgm_stack(B=4, steps=25):
+    """The sgm stacks from parsed mappings (``load_ldm_configs`` without
+    yaml): the t23d stack's conditioner (the full-width CLIP-L text tower,
+    random) encodes two prompts; its EDM loss and backward on the t23d
+    DiT-L/2 at batch ``B`` (f32 parameters, bf16 autocast); its Euler
+    sampler for ``steps`` CFG-6.5 steps (ms per step); the flow-matching
+    stack's loss on DiT-I23D-L/2 at batch ``B``.  Everything finite; no
+    kernel (none in JAX)."""
+    import torch
+    from ln3diff_tpu_torch import sgm_config
+    from ln3diff_tpu_torch.config import denoiser_preset
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    from ln3diff_tpu_torch.models.layers import random_init_
+
+    zero_kernel_launches()
+    t23d_map, fm_map = _sgm_mappings()
+    t23d = sgm_config.load_ldm_configs(t23d_map)
+    fm = sgm_config.load_ldm_configs(fm_map)
+    check(t23d.loss.kind == 'edm' and t23d.sampler.guider.scale == 6.5
+          and t23d.scheduler(5000) < 1.0 and t23d.denoiser.scaling.kind
+          == 'eps', 't23d stack fields')
+    check(fm.loss.kind == 'flow_matching' and fm.guider.scale == 5.0
+          and fm.conditioner.embedders[0].maker == 'dino_mv_plucker',
+          'fm stack fields')
+    g = torch.Generator(device='cuda').manual_seed(21)
+    secs = {}
+
+    t0 = time.perf_counter()
+    cond = t23d.conditioner.build(g, device='cuda')
+    c, uc = cond.get_unconditional_conditioning(
+        {'caption': ['a red wooden chair', 'a blue sports car']})
+    torch.cuda.synchronize()
+    secs['conditioner_build_and_encode'] = round(time.perf_counter() - t0, 3)
+    check(tuple(c['crossattn'].shape) == (2, 77, 768)
+          and tuple(c['vector'].shape) == (2, 768), 'conditioner shapes')
+    check(all(bool(torch.isfinite(v).all()) for v in (*c.values(),
+                                                       *uc.values())),
+          'conditioning not finite')
+    del cond
+
+    def network_of(model):
+        def network(x, t, ctx):
+            with torch.autocast('cuda', dtype=torch.bfloat16):
+                return model(x, t.float(), ctx).float()
+        return network
+
+    with torch.device('cuda'):
+        model = DiT_TriLatent(denoiser_preset('t23d-dit-l2')).cuda()
+    random_init_(model, g)
+    net = network_of(model)
+    x0 = torch.randn((B, 32, 32, 12), generator=g, device='cuda')
+    ctx = {'crossattn': c['crossattn'][torch.arange(B) % 2]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = t23d.loss.make_loss_fn(t23d.denoiser)(net, x0, ctx,
+                                                   generator=g)
+    losses.mean().backward()
+    torch.cuda.synchronize()
+    secs['edm_loss_and_backward'] = round(time.perf_counter() - t0, 3)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    gnorm = float(torch.sqrt(sum((gr.float()**2).sum() for gr in grads)))
+    check(bool(torch.isfinite(losses).all()) and math.isfinite(gnorm)
+          and gnorm > 0, f'edm loss {losses} grad norm {gnorm}')
+    model.zero_grad(set_to_none=True)
+
+    spec = dataclasses.replace(t23d.sampler, num_steps=steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = spec.sample(t23d.denoiser, net, (1, 32, 32, 12),
+                        {'crossattn': c['crossattn'][:1]},
+                        {'crossattn': uc['crossattn'][:1]}, generator=g,
+                        device='cuda')
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    check(tuple(x.shape) == (1, 32, 32, 12)
+          and bool(torch.isfinite(x).all()), 'euler sample')
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = denoiser_preset('i23d-pixart-l2')
+    with torch.device('cuda'):
+        model = DiT_TriLatent(cfg).cuda()
+    random_init_(model, g)
+    ctx = {'crossattn': torch.randn((B, 257, 1024), generator=g,
+                                    device='cuda'),
+           'vector': torch.randn((B, 768), generator=g, device='cuda'),
+           'dino': torch.randn((B, 257, cfg.dino_dim), generator=g,
+                               device='cuda')}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fm_losses = fm.loss.make_loss_fn()(network_of(model), x0, ctx,
+                                           generator=g)
+    torch.cuda.synchronize()
+    secs['fm_loss'] = round(time.perf_counter() - t0, 3)
+    check(tuple(fm_losses.shape) == (B,)
+          and bool(torch.isfinite(fm_losses).all()), f'fm loss {fm_losses}')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stacks='t23d EDM (CLIP-L text, DiT-L/2) and mv23d FM, '
+                       'from mappings built in Python',
+                batch=B, edm_loss=[float(v) for v in losses],
+                edm_grad_norm=gnorm, fm_loss=[float(v) for v in fm_losses],
+                euler_steps=steps, euler_ms_per_step=round(
+                    sample_s * 1e3 / steps, 3),
+                sample_abs_max=float(x.abs().max()), seconds_by_stage=secs,
+                kernel_launches=no_kernel_launches('sgm_stack'))
+
+
+def profiling_trace(workdir, calls=3):
+    """``utils.profiling.trace`` around ``calls`` calls of the fused
+    DiT-L/2 denoiser (``fused_attention=True``, bf16, CFG-doubled batch
+    2) inside an ``annotate`` range: the trace file must hold the range,
+    and kernel 3 must launch once per block per call (24 per call, its
+    counter set to 0 just before the traced block).  The trace's CUDA
+    kernel events are reported, not checked: the profiler at times reads
+    no device activity on this machine."""
+    import torch
+    from ln3diff_tpu_torch.config import denoiser_preset
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(denoiser_preset('t23d-dit-l2'),
+                              exact_gelu=False, fused_attention=True)
+    g = torch.Generator(device='cuda').manual_seed(41)
+    with torch.device('cuda'):
+        model = DiT_TriLatent(cfg).cuda()
+    random_init_(model, g)
+    model = model.to(cfg.dtype).eval()
+    x = torch.randn((2, 32, 32, 12), generator=g, device='cuda')
+    t = torch.full((2,), 500.0, device='cuda')
+    ctx = {'crossattn': torch.randn((2, 77, 768), generator=g,
+                                    device='cuda')}
+    with torch.no_grad():
+        model(x, t, ctx)                       # warm-up, outside the trace
+        torch.cuda.synchronize()
+        zero_kernel_launches()
+        t0 = time.perf_counter()
+        with profiling.trace(os.path.join(workdir, 'trace')) as prof:
+            with profiling.annotate('ln3diff_dit_calls'):
+                for _ in range(calls):
+                    out = model(x, t, ctx)
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        launches = FusedAttention.launches
+        check(launches == calls * cfg.depth,
+              f'kernel 3 launched {launches} times, want {calls * cfg.depth}')
+        check(bool(torch.isfinite(out).all()), 'denoiser output not finite')
+        ms = profiling.benchmark_fn(lambda: model(x, t, ctx), warmup=1,
+                                    iters=3) * 1e3
+    with open(prof.trace_path) as f:
+        events = json.load(f)['traceEvents']
+    check(any(e.get('name') == 'ln3diff_dit_calls' for e in events),
+          'the annotate range is not in the trace')
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    attn = [e for e in kernels if 'attention' in e.get('name', '').lower()]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(denoiser='t23d DiT-L/2, fused attention, bf16, batch 2',
+                calls=calls, traced_seconds=round(traced_s, 3),
+                ms_per_call_untraced=round(ms, 3),
+                fused_attention_launches=launches,
+                trace_mib=round(os.path.getsize(prof.trace_path) / 2**20, 3),
+                trace_cuda_kernel_events=len(kernels),
+                trace_attention_kernel_events=len(attn),
+                trace_kernel_ms=round(sum(e.get('dur', 0) for e in kernels)
+                                      / 1e3, 3))
+
+
+def _timed_method(cls, name, seconds):
+    """Wrap ``cls.name`` with a synchronising timer adding into
+    ``seconds[name]``; returns the original, to put back."""
+    import torch
+    orig = getattr(cls, name)
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - s
+        return out
+    setattr(cls, name, run)
+    return orig
+
+
+def two_stage_demo(workdir):
+    """The two-stage demo as a user runs it: the port's VAE and diffusion
+    training entries for 2 steps each into temporary log directories
+    (``--vae objaverse-s --encoder_resolution 128 --num_views 4``;
+    ``--denoiser_scale DiT-B/2 --latent_size 16
+    --triplane_scaling_divider 1.0``), then ``demo_two_stage`` at its
+    defaults (100 FM steps, 8 frames of 64², a 96³ grid).  Checked: the
+    restored steps equal the entries' steps, finite frames in [-1, 1],
+    the OBJ parses; no kernel (the entries train the plain route and the
+    demo renders plainly, as in JAX)."""
+    import torch
+    from ln3diff_tpu_torch import pipeline as P
+    from ln3diff_tpu_torch.scripts import (demo_two_stage,
+                                           vit_triplane_diffusion_train,
+                                           vit_triplane_train)
+
+    zero_kernel_launches()
+    vae_dir, ldm_dir = (os.path.join(workdir, d) for d in ('vae', 'ldm'))
+    out_dir = os.path.join(workdir, 'demo')
+    common = ['--device', 'cuda', '--total_steps', '2', '--save_interval',
+              '2', '--log_interval', '1']
+    secs = {}
+    t0 = time.perf_counter()
+    (vae_tr, vae_m), _ = _run_cli(vit_triplane_train.run, common + [
+        '--logdir', vae_dir, '--vae', 'objaverse-s', '--encoder_resolution',
+        '128', '--num_views', '4'])
+    secs['vae_entry'] = round(time.perf_counter() - t0, 3)
+    vae_step = int(vae_tr.state.step)
+    del vae_tr
+    t0 = time.perf_counter()
+    (ldm_tr, ldm_m), _ = _run_cli(vit_triplane_diffusion_train.run, common + [
+        '--logdir', ldm_dir, '--denoiser_scale', 'DiT-B/2', '--latent_size',
+        '16', '--triplane_scaling_divider', '1.0'])
+    secs['ldm_entry'] = round(time.perf_counter() - t0, 3)
+    ldm_step = int(ldm_tr.state.step)
+    del ldm_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(v) for v in (*vae_m.values(), *ldm_m.values())),
+          f'entry metrics {vae_m} {ldm_m}')
+
+    inner = {}
+    origs = {k: _timed_method(P.TextTo3DPipeline, k, inner)
+             for k in ('sample_latents', 'render_orbit',
+                       'dispatch_mesh_sigma')}
+    t0 = time.perf_counter()
+    try:
+        res, _ = _run_cli(demo_two_stage.main, [
+            '--vae_logdir', vae_dir, '--ldm_logdir', ldm_dir, '--outdir',
+            out_dir, '--device', 'cuda'])
+    finally:
+        for k, v in origs.items():
+            setattr(P.TextTo3DPipeline, k, v)
+    secs['demo'] = round(time.perf_counter() - t0, 3)
+    secs.update({f'demo_{k}': round(v, 3) for k, v in inner.items()})
+    check((res['vae_step'], res['ldm_step']) == (vae_step, ldm_step) == (2, 2),
+          f'restored steps {res["vae_step"]}, {res["ldm_step"]}')
+    video = res['out']['video'].float()
+    check(tuple(video.shape) == (1, 8, 64, 64, 3), f'video {video.shape}')
+    vmin, vmax = float(video.min()), float(video.max())
+    check(bool(torch.isfinite(video).all()) and -1.0 <= vmin
+          and vmax <= 1.0, f'frames [{vmin}, {vmax}]')
+    check(len(res['frames']) == 8 and all(os.path.exists(p)
+                                          for p in res['frames']),
+          'frame files')
+    verts, faces = res['out']['mesh']
+    check(obj_counts(res['mesh_path']) == (len(verts), len(faces)),
+          'OBJ does not parse back')
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(entries='vit_triplane_train (objaverse-s, 4 views of 128^2)'
+                        ' and vit_triplane_diffusion_train (DiT-B/2 over '
+                        '16^2 x 12), 2 steps each',
+                demo='100 FM steps, cfg 1.0, 8 frames of 64^2, 96^3 grid',
+                restored_steps=dict(vae=vae_step, ldm=ldm_step),
+                frames_range=[vmin, vmax], triangles=len(faces),
+                seconds_by_stage=secs,
+                kernel_launches=no_kernel_launches('two_stage_demo'))
+
+
+def _avi_frame_count(path):
+    import struct
+    with open(path, 'rb') as f:
+        data = f.read()
+    check(data[:4] == b'RIFF' and data[8:12] == b'AVI ', f'{path}: no AVI')
+    i = data.rindex(b'idx1')
+    (n,) = struct.unpack('<I', data[i + 4:i + 8])
+    return sum(data[i + 8 + 16 * e:i + 12 + 16 * e] == b'00dc'
+               for e in range(n // 16))
+
+
+def gradio_i23d(workdir, frames=12, res=128, grid=128):
+    """The image→3D demo's command-line fallback (``gradio`` made
+    unimportable) at its defaults — the random ``i23d-pixart-l2`` DiT in
+    bf16, the ``objaverse-s`` VAE, CLIP ViT-L/14, 75 FM steps at CFG 4.0,
+    ``frames`` frames of ``res``², a ``grid``³ σ grid, the render and the
+    σ query through kernel 1 — over an ``--image_dir`` of 2 PNGs of 512²,
+    then once on one image with ``--int8_dit``.  Kernel 1 must launch
+    ``frames``·2 + ``grid``³/2^18 = 32 times per image (its counter set
+    to 0 before each image, read after); each image's frames, AVI and OBJ
+    are checked.  Seconds per image and per runner build."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.scripts import gradio_app
+
+    img_dir = os.path.join(workdir, 'images')
+    os.makedirs(img_dir)
+    imgs = _eval_images(2, 512, 51)
+    for i, im in enumerate(imgs):
+        Image.fromarray(im).save(os.path.join(img_dir, f'view{i}.png'))
+    want = frames * 2 + -(-grid**3 // 2**18)
+    builds, per_image = [], []
+    orig_build = gradio_app.build_runner
+
+    def build(args, **kw):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        run = orig_build(args, **kw)
+        torch.cuda.synchronize()
+        builds.append(round(time.perf_counter() - s, 3))
+
+        def timed_run(image, outdir, tag='out'):
+            torch.cuda.synchronize()
+            FusedOSG.launches = 0
+            s = time.perf_counter()
+            out = run(image, outdir, tag)
+            torch.cuda.synchronize()
+            per_image.append(dict(tag=tag, int8=args.int8_dit,
+                                  seconds=round(time.perf_counter() - s, 3),
+                                  fused_osg_launches=FusedOSG.launches))
+            return out
+        return timed_run
+
+    saved = sys.modules.get('gradio', False)
+    sys.modules['gradio'] = None
+    gradio_app.build_runner = build
+    out_dir = os.path.join(workdir, 'out')
+    try:
+        written, _ = _run_cli(gradio_app.main, [
+            '--image_dir', img_dir, '--outdir', out_dir, '--device', 'cuda'])
+        written8, _ = _run_cli(gradio_app.main, [
+            '--image', os.path.join(img_dir, 'view0.png'), '--outdir',
+            os.path.join(workdir, 'out_int8'), '--device', 'cuda',
+            '--int8_dit'])
+    finally:
+        gradio_app.build_runner = orig_build
+        if saved is False:
+            sys.modules.pop('gradio', None)
+        else:
+            sys.modules['gradio'] = saved
+    check(len(written) == 2 and len(written8) == 1, 'images run')
+    triangles = []
+    for tag, paths, mesh in written + written8:
+        outdir = os.path.dirname(mesh)
+        check(len(paths) == frames and all(os.path.exists(p)
+                                           for p in paths), f'{tag} frames')
+        check(_avi_frame_count(os.path.join(outdir, f'{tag}.avi')) == frames,
+              f'{tag} AVI frames')
+        triangles.append(obj_counts(mesh)[1])
+    for rec in per_image:
+        check(rec['fused_osg_launches'] == want,
+              f'kernel 1 launched {rec["fused_osg_launches"]} times for '
+              f'{rec["tag"]}, want {want}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runner='i23d-pixart-l2 DiT bf16 (and W8A8 int8), '
+                       'objaverse-s VAE, CLIP ViT-L/14 f32, random weights',
+                call=f'75 FM steps, cfg 4.0, {frames} frames of {res}^2, '
+                     f'{grid}^3 sigma grid',
+                images='2 PNGs of 512^2 through RealDataset, then one with '
+                       '--int8_dit',
+                per_image=per_image, build_seconds=builds,
+                triangles=triangles,
+                fused_osg_launches_per_image=want)
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -4726,7 +5374,6 @@ def main():
     main_s = time.perf_counter() - t_main
 
     video, latents = out['video'], out['latents']
-    bf16_latents = {'plain_attention': latents}
     check(tuple(latents.shape) == (1, 32, 32, 12), 'latent shape')
     check(tuple(out['planes'].shape) == (1, 3, 128, 128, 32), 'plane shape')
     check(tuple(video.shape) == (1, 24, 192, 192, 3), 'video shape')
@@ -4765,8 +5412,7 @@ def main():
     t0 = time.perf_counter()
     plain_denoiser = modules['denoiser']
     modules = dict(modules, denoiser=fused_denoiser(plain_denoiser))
-    serving, bf16_latents['fused_attention'] = serving_pipeline(modules,
-                                                               prompt)
+    serving, _ = serving_pipeline(modules, prompt)
     phase_done('serving_pipeline', t0, **serving)
 
     # 8. a DDIM step of each denoiser under the profiler
@@ -4783,12 +5429,12 @@ def main():
     phase_done('t23d_samplers', t0, **samplers)
     t0 = time.perf_counter()
     int8 = t23d_int8(dict(modules, denoiser=plain_denoiser), modules, cond,
-                     uncond, prompt, bf16_latents)
-    phase_done('t23d_int8', t0, **int8)
+                     uncond, prompt)
+    phase_done('t23d_int8', t0, sizes=CUT, **int8)
     t0 = time.perf_counter()
     orbit = orbit_options(modules, cond, uncond)
     phase_done('orbit_options', t0, **orbit)
-    del modules, plain_denoiser, cond, uncond, bf16_latents
+    del modules, plain_denoiser, cond, uncond
     torch.cuda.empty_cache()
 
     # 10. the stage-1 VAE training step at full width, both routes
@@ -4914,7 +5560,7 @@ def main():
                        kernel_launches=kernel_launches())
             t0 = time.perf_counter()
             served = serving_mesh(prompt)
-            phase_done('serving_mesh', t0, **served)
+            phase_done('serving_mesh', t0, sizes=CUT, **served)
         finally:
             dist.destroy_process_group()
 
@@ -4925,6 +5571,30 @@ def main():
         t0 = time.perf_counter()
         data_train = data_vae_train(workdir)
         phase_done('data_vae_train', t0, **data_train)
+
+    # 21. evaluation (the FID InceptionV3 and the evaluator CLI), the sgm
+    # stacks, a profiler trace of the fused denoiser (kernel 3), the
+    # two-stage demo after the training entries, and the image→3D demo's
+    # command-line fallback (kernel 1)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        evaluated = evaluation(workdir)
+        phase_done('evaluation', t0, **evaluated)
+    t0 = time.perf_counter()
+    sgm = sgm_stack()
+    phase_done('sgm_stack', t0, **sgm)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        traced = profiling_trace(workdir)
+        phase_done('profiling_trace', t0, **traced)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        demo = two_stage_demo(workdir)
+        phase_done('two_stage_demo', t0, **demo)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        i23d_demo = gradio_i23d(workdir)
+        phase_done('gradio_i23d', t0, **i23d_demo)
 
     osg_main, attn_main, bwd_main = checks[0], attn_checks[0], bwd_checks[0]
     osg_ffhq = next(c for c in checks if c['case'] == 'ffhq_frame')
@@ -4951,6 +5621,9 @@ def main():
     osg_by_path['parallel_vae_train'] = par['fused_osg_launches']
     osg_by_path['serving_mesh'] = served['fused_osg_launches']
     osg_by_path['data_vae_train'] = data_train['fused_osg_launches']
+    osg_by_path['gradio_i23d'] = i23d_demo['per_image'][0][
+        'fused_osg_launches']
+    attn_by_path['profiling_trace'] = traced['fused_attention_launches']
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']

@@ -225,6 +225,25 @@ def vision_aided_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+
+_BN_LEAVES = {'bn_scale': 'bn.weight', 'bn_bias': 'bn.bias',
+              'bn_mean': 'bn.running_mean', 'bn_var': 'bn.running_var'}
+
+
+def inception_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """The FID ``InceptionV3`` params of
+    ``ln3diff_tpu/evaluation/inception.py`` → the port's (pytorch-fid)
+    names: each ``conv`` kernel HWIO → OIHW, ``bn_scale`` / ``bn_bias`` /
+    ``bn_mean`` / ``bn_var`` → ``bn.weight`` / ``bn.bias`` /
+    ``bn.running_mean`` / ``bn.running_var``, ``fc`` as a Linear."""
+    out = {}
+    for key, t in _convert(params, {}).items():
+        head, _, leaf = key.rpartition('.')
+        if leaf in _BN_LEAVES:
+            key = '.'.join(filter(None, (head, _BN_LEAVES[leaf])))
+        out[key] = t
+    return out
+
 # -- reference checkpoints ---------------------------------------------------
 
 # the kinds of the convert CLI (``scripts/convert_checkpoint.py:30-31``)

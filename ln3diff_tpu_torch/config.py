@@ -2,8 +2,8 @@
 scripts, as plain dataclasses.
 
 The port's copy of ``ln3diff_tpu/config.py`` (that module imports JAX and
-every model): the render options of the Objaverse, ShapeNet and FFHQ
-releases (``RENDER_PRESETS`` :35-54), the evaluation cameras
+every model): the render options of every reference preset
+(``RENDER_PRESETS`` :33-133), the evaluation cameras
 (``CAMERA_PRESETS`` :156-160), the Objaverse (DiT2-L/2 and the smaller
 'objaverse-s', DiT2-B/2), ShapeNet, FFHQ and fg/bg FFHQ VAEs
 (``vae_preset`` :167-232, encoder fields included), ``build_vae`` (:236),
@@ -41,15 +41,99 @@ RENDER_PRESETS: dict[str, RenderOptions] = {
         ray_start='auto', ray_end='auto', box_warp=0.9, white_back=True,
         filter_out_of_bbox=True, sampler_bbox_min=-0.45,
         sampler_bbox_max=0.45),
+    'objverse_tuneray_aug_resolution_128_128_auto': RenderOptions(
+        depth_resolution=128, depth_resolution_importance=128,
+        ray_start='auto', ray_end='auto', box_warp=0.9, white_back=True,
+        filter_out_of_bbox=True, sampler_bbox_min=-0.45,
+        sampler_bbox_max=0.45),
     # ShapeNet release cfg (:679-699); ray_start/end 0.6/1.8 from the
-    # release scripts (radius 1.2, box_warp = end - start)
+    # release scripts (radius 1.2, box_warp = end - start).
     'shapenet_tuneray_aug_resolution_64_64_nearestSR': RenderOptions(
         depth_resolution=64, depth_resolution_importance=64,
         ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
-    # FFHQ (:466-489): 48+48 samples, fixed near and far
+    # FFHQ (:466-489): 48+48 fg (16 bg samples handled by the fg/bg
+    # renderer variant), fixed near/far.
     'ffhq': RenderOptions(
         depth_resolution=48, depth_resolution_importance=48,
         ray_start=2.25, ray_end=3.3, box_warp=1.0, white_back=False),
+    # AFHQ (:490-503): same camera/near/far as FFHQ, Hybrid8X SR head.
+    'afhq': RenderOptions(
+        depth_resolution=48, depth_resolution_importance=48,
+        ray_start=2.25, ray_end=3.3, box_warp=1.0, white_back=False),
+    # Legacy fixed-ray ShapeNet (:504-518).
+    'shapenet': RenderOptions(
+        depth_resolution=64, depth_resolution_importance=64,
+        ray_start=0.2, ray_end=2.2, box_warp=2.0, white_back=True),
+    # EG3D-rendered ShapeNet family (:519-566): radius-1.2 orbit,
+    # near/far 0.1/1.9, box_warp 1.1; depth-resolution ladder.
+    'eg3d_shapenet_aug_resolution': RenderOptions(
+        depth_resolution=80, depth_resolution_importance=80,
+        ray_start=0.1, ray_end=1.9, box_warp=1.1, white_back=True),
+    'eg3d_shapenet_aug_resolution_chair': RenderOptions(
+        depth_resolution=96, depth_resolution_importance=96,
+        ray_start=0.1, ray_end=1.9, box_warp=1.1, white_back=True),
+    'eg3d_shapenet_aug_resolution_chair_128': RenderOptions(
+        depth_resolution=128, depth_resolution_importance=128,
+        ray_start=0.1, ray_end=1.9, box_warp=1.1, white_back=True),
+    'eg3d_shapenet_aug_resolution_chair_64': RenderOptions(
+        depth_resolution=64, depth_resolution_importance=64,
+        ray_start=0.1, ray_end=1.9, box_warp=1.1, white_back=True),
+    # (:579-599) — same rays as chair_128; Residual SR head (see
+    # RENDER_PRESET_SR).
+    'eg3d_shapenet_aug_resolution_chair_128_residualSR': RenderOptions(
+        depth_resolution=128, depth_resolution_importance=128,
+        ray_start=0.1, ray_end=1.9, box_warp=1.1, white_back=True),
+    # SRN-rendered chairs (:567-578): radius-2 orbit.
+    'srn_shapenet_aug_resolution_chair_128': RenderOptions(
+        depth_resolution=128, depth_resolution_importance=128,
+        ray_start=1.25, ray_end=2.75, box_warp=1.5, white_back=True),
+    # 'tuneray' family (:600-730,870-931): near/far come from the shell
+    # scripts (--ray_start 0.6 --ray_end 1.8, radius 1.2; box_warp =
+    # end - start); only the sample-count ladder and SR head differ.
+    'shapenet_tuneray': RenderOptions(
+        depth_resolution=64, depth_resolution_importance=64,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution': RenderOptions(
+        depth_resolution=80, depth_resolution_importance=80,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64': RenderOptions(
+        depth_resolution=128, depth_resolution_importance=128,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64_96': RenderOptions(
+        depth_resolution=96, depth_resolution_importance=96,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64_96_nearestSR': RenderOptions(
+        depth_resolution=96, depth_resolution_importance=96,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64_96_nearestResidualSR':
+        RenderOptions(
+            depth_resolution=96, depth_resolution_importance=96,
+            ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64_64_nearestResidualSR':
+        RenderOptions(
+            depth_resolution=64, depth_resolution_importance=64,
+            ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    'shapenet_tuneray_aug_resolution_64_104': RenderOptions(
+        depth_resolution=104, depth_resolution_importance=104,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    # (:702-730) — identical geometry to 64_64_nearestSR; patch-ray
+    # sampling is a trainer knob here (VAETrainConfig
+    # .patch_rendering_resolution), not a render option.
+    'shapenet_tuneray_aug_resolution_64_64_nearestSR_patch':
+        RenderOptions(
+            depth_resolution=64, depth_resolution_importance=64,
+            ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    # (:731-760) objaverse with fixed rays + NearestConvSR (pre-'auto'
+    # cfg; radius 1.946 orbit).
+    'objverse_tuneray_aug_resolution_64_64_nearestSR': RenderOptions(
+        depth_resolution=64, depth_resolution_importance=64,
+        ray_start=0.6, ray_end=1.8, box_warp=1.2, white_back=True),
+    # (:838-869) 96-sample variant of the released auto cfg.
+    'objverse_tuneray_aug_resolution_96_96_auto': RenderOptions(
+        depth_resolution=96, depth_resolution_importance=96,
+        ray_start='auto', ray_end='auto', box_warp=0.9, white_back=True,
+        filter_out_of_bbox=True, sampler_bbox_min=-0.45,
+        sampler_bbox_max=0.45),
 }
 
 # per-dataset evaluation orbits (radius, fov, pitch)

@@ -510,8 +510,18 @@ def dit_registry(name: str, **overrides) -> DiTConfig:
     (``dit/dit_trilatent.py:320``, ``dit/dit_i23d.py``): the released
     text→3D, PixArt, image→3D and multi-view→3D ones."""
     presets = {
+        'DiT-XL/2': dict(depth=28, hidden_size=1152, patch_size=2,
+                         num_heads=16, variant='text'),
         'DiT-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
                         num_heads=16, variant='text'),
+        'DiT-B/2': dict(depth=12, hidden_size=768, patch_size=2,
+                        num_heads=12, variant='text'),
+        'DiT-B/1': dict(depth=12, hidden_size=768, patch_size=1,
+                        num_heads=12, variant='text'),
+        'DiT-B/16': dict(depth=12, hidden_size=768, patch_size=16,
+                         num_heads=12, variant='text'),
+        'DiT-S/2': dict(depth=12, hidden_size=384, patch_size=2,
+                        num_heads=6, variant='text'),
         'DiT-PixelArt-L/2': dict(depth=24, hidden_size=1024, patch_size=2,
                                  num_heads=16, variant='pixelart-text',
                                  pooled_vector_dim=768, t2i_final=True),

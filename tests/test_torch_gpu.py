@@ -1520,3 +1520,99 @@ def test_dit_pipeline_pp1_on_card(cuda_f32):
         got = dit_pipeline_apply(model, x, t, ctx, mesh=LocalMesh('cuda'),
                                  n_micro=4)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_inception_card_matches_cpu(cuda_f32):
+    """The FID InceptionV3 at 299², batch 2, He-scaled random weights:
+    pool3, the logits and the 2023-d spatial features on the card against
+    the CPU, f32 with TF32 off (1e-3 of each output's scale)."""
+    import math
+    from ln3diff_tpu_torch.evaluation.inception import InceptionV3
+    g = torch.Generator().manual_seed(0)
+    model = InceptionV3().eval()
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k.endswith('conv.weight'):
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * math.sqrt(2.0 / p[0].numel()))
+    x = torch.rand((2, 299, 299, 3), generator=g) * 2 - 1
+    with torch.no_grad():
+        want = model(x)
+        got = model.cuda()(x.cuda())
+    for k in ('pool3', 'logits', 'spatial'):
+        w = want[k]
+        assert got[k].shape == w.shape and torch.isfinite(got[k]).all()
+        torch.testing.assert_close(got[k].cpu(), w, rtol=0,
+                                   atol=1e-3 * max(1.0, float(w.abs().max())))
+
+
+def test_gradio_runner_on_kernel_1(cuda, tmp_path):
+    """The image→3D demo's runner at toy widths on the card (the VAE with
+    kernel 1's 32 plane and colour channels): the render and the σ grid
+    launch kernel 1 (2 frames × 2 passes + one σ chunk, and colour chunks
+    when the field crosses the threshold); frames, AVI and OBJ written."""
+    import argparse
+    import numpy as np
+    from ln3diff_tpu_torch.conditioning.clip import CLIPVisionConfig
+    from ln3diff_tpu_torch.models.dit import DiT2Config, DiTConfig
+    from ln3diff_tpu_torch.models.vae import TriplaneVAEConfig
+    from ln3diff_tpu_torch.render.renderer import RenderOptions
+    from ln3diff_tpu_torch.scripts import gradio_app
+    args = argparse.Namespace(num_steps=2, num_frames=2, render_resolution=16,
+                              mesh_grid=32, seed=0, int8_dit=False,
+                              device='cuda')
+    run = gradio_app.build_runner(
+        args,
+        den_cfg=DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                          hidden_size=32, depth=2, num_heads=2,
+                          variant='image-pixelart', context_dim=32,
+                          pooled_vector_dim=32, t2i_final=True),
+        vae_cfg=TriplaneVAEConfig(
+            latent_size=8, patch_size=2, conv_sr_ch=8,
+            conv_sr_ch_mult=(1, 2), conv_sr_res_blocks=1,
+            dit2=DiT2Config(tokens_per_plane=16, hidden_size=32, depth=2,
+                            num_heads=2, dtype=torch.float32),
+            dtype=torch.float32),
+        vision_cfg=CLIPVisionConfig(image_size=28, patch_size=14,
+                                    hidden_size=32, num_layers=1,
+                                    num_heads=2, intermediate_size=64),
+        render_opts=RenderOptions(depth_resolution=8,
+                                  depth_resolution_importance=8,
+                                  filter_out_of_bbox=True))
+    image = np.random.default_rng(0).integers(0, 256, (48, 48, 3),
+                                              dtype=np.uint8)
+    FusedOSG.launches = 0
+    frames, mesh = run(image, str(tmp_path))
+    torch.cuda.synchronize()
+    assert FusedOSG.launches >= 2 * 2 + 1
+    assert len(frames) == 2 and all(os.path.exists(p) for p in frames)
+    assert (tmp_path / 'out.avi').stat().st_size > 0
+    assert os.path.exists(mesh)
+
+
+def test_profiling_trace_on_card(cuda, tmp_path):
+    """``utils.profiling.trace`` around a small fused-attention DiT (head
+    width 64, kernel 3 once per block): the trace holds the ``annotate``
+    range and kernel 3's counter reads one launch per block."""
+    import json
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.utils import profiling
+    cfg = DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                    hidden_size=128, depth=2, num_heads=2, context_dim=32,
+                    fused_attention=True, exact_gelu=False)
+    model = DiT_TriLatent(cfg).cuda()
+    random_init_(model, torch.Generator('cuda').manual_seed(0))
+    model = model.to(torch.bfloat16).eval()
+    x = torch.randn(2, 8, 8, 12, device='cuda')
+    t = torch.full((2,), 10.0, device='cuda')
+    ctx = {'crossattn': torch.randn(2, 7, 32, device='cuda')}
+    FusedAttention.launches = 0
+    with torch.no_grad(), profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate('dit_probe'):
+            out = model(x, t, ctx)
+        torch.cuda.synchronize()
+    assert FusedAttention.launches == cfg.depth
+    assert torch.isfinite(out).all()
+    events = json.loads(open(prof.trace_path).read())['traceEvents']
+    assert any(e.get('name') == 'dit_probe' for e in events)

@@ -388,7 +388,8 @@ def test_boundary_covers_the_entry_layer():
     """The checks here cover the entry layer: the CLIs under
     ``ln3diff_tpu_torch/scripts/`` (the data CLIs among them), the console
     wrappers, the converters, the utilities, the parallel layer, the data
-    layer with its native reader's binding, and the reference-dict writer
+    layer with its native reader's binding, evaluation, the sgm configs,
+    profiling, the evaluator and demo CLIs, and the reference-dict writer
     that ``chip_smoke.py`` imports from ``tests/``."""
     for m in ('ln3diff_tpu_torch.cli',
               'ln3diff_tpu_torch.parallel.mesh',
@@ -420,7 +421,14 @@ def test_boundary_covers_the_entry_layer():
               'ln3diff_tpu_torch.native.build',
               'ln3diff_tpu_torch.scripts.wds_create',
               'ln3diff_tpu_torch.scripts.lmdb_create',
-              'ln3diff_tpu_torch.scripts.profile_dataloading'):
+              'ln3diff_tpu_torch.scripts.profile_dataloading',
+              'ln3diff_tpu_torch.evaluation.inception',
+              'ln3diff_tpu_torch.evaluation.metrics',
+              'ln3diff_tpu_torch.utils.profiling',
+              'ln3diff_tpu_torch.sgm_config',
+              'ln3diff_tpu_torch.scripts.evaluator',
+              'ln3diff_tpu_torch.scripts.demo_two_stage',
+              'ln3diff_tpu_torch.scripts.gradio_app'):
         assert m in _PORT_MODULES, m
     src = (REPO / 'chip_smoke.py').read_text()
     assert '_torch_reference_sd' in src
