@@ -142,7 +142,22 @@ from a fixed seed:
   defaults (i23d DiT-L/2 in bf16, 75 FM steps, 12 frames of 128², a 128³
   grid; 32 launches of kernel 1 per image) over two 512² PNGs, then with
   ``--int8_dit``.  No kernel runs in ``evaluation``, ``sgm_stack`` and
-  ``two_stage_demo`` (none does in JAX).
+  ``two_stage_demo`` (none does in JAX);
+* ``tp_int8_shards``: the rank-local pieces of the tensor-parallel int8
+  layers (``ops/int8.py``) for every rank of tp = 2 and 4 in one
+  process, at the int8 DiT-L/2's ``qkv``, ``fc1`` and ``fc2`` and the
+  int8 U-Net's 1x1 convs at 320 and 1280 channels: the column shards'
+  outputs and the int32 row partials' sum equal the whole layer's bit for
+  bit;
+* ``noise_strip``: ``scripts/viz.py``'s noise-schedule strip over the
+  main path's Objaverse VAE, 5 frames of 192² through kernel 1;
+* ``unet_samplers``: the ShapeNet call with 25 DPM-Solver++(2M) steps over
+  the unspaced schedule and with 25 PLMS steps over ``ddim25``
+  (v-prediction, the mixing logit), on ``shapenet_pipeline``'s modules,
+  and a small ShapeNet model card vs CPU under DPM;
+* ``profile_device``: ``scripts/profile_device.py`` ``profile_fn`` over
+  the fused DiT-L/2 of ``profiling_trace``: a non-empty per-kernel
+  device table whose kernel 3 row counts 24 launches a call.
 
 The serving calls after ``pipeline`` and ``serving_pipeline`` (i23d,
 mv23d, ShapeNet, FFHQ, every int8 call and ``serving_mesh``) run ``SERVING_STEPS`` = 50
@@ -153,8 +168,9 @@ run their 25 steps, the sample CLI its preset's DDIM 250.
 Before them it builds every CUDA kernel from ``ln3diff_tpu_torch/ops/csrc``
 with nvcc and the native mesh and shard-reader code from
 ``ln3diff_tpu_torch/native`` with g++ and holds each kernel against its plain PyTorch version
-(``kernel_check``, ``attention_check``, ``qkv_attention_check``,
-``osg_backward_check``).  It also checks the mesh stage on an analytic
+(``kernel_check``, ``attention_check`` — also at the 8 and 4 heads that
+tensor parallelism over 2 and 4 ranks leaves the DiT-L/2 —
+``qkv_attention_check``, ``osg_backward_check``).  It also checks the mesh stage on an analytic
 sphere (``mesh_check``), small text→3D, image→3D and multi-view→3D
 models card against CPU (``small_reference``, ``small_reference_i23d``;
 ``small_reference_samplers``: DPM, PLMS and the int8 DiT;
@@ -663,7 +679,7 @@ def small_reference_i23d():
     return res
 
 
-def small_reference_unet():
+def small_reference_unet(runs=None, kind='ddim'):
     """``small_reference`` for the ShapeNet and FFHQ paths: a small U-Net
     (roll-out, spatial transformer, mixing logit) under 4 DDIM steps of
     v-prediction, CFG 1.0 and 6.5, a small CLIP text tower with
@@ -675,7 +691,9 @@ def small_reference_unet():
     again with the int8 U-Net (``quantized=True``: ``Int8Conv`` and
     ``Int8Linear`` on ``torch._int_mm`` on both sides), its latents held
     within ``TOL_INT8`` and the planes and frames from the CPU's
-    latents."""
+    latents.  ``runs``: ``(family, quantized)`` pairs in place of those
+    three; ``kind``: the sampler (``'dpm'``: 4 DPM-Solver++ steps over the
+    unspaced schedule, ``'plms'``: over ``ddim4``)."""
     import torch
     from ln3diff_tpu_torch.conditioning.clip import CLIPTextConfig
     from ln3diff_tpu_torch.config import CAMERA_PRESETS, RENDER_PRESETS
@@ -699,7 +717,8 @@ def small_reference_unet():
                      1.0, 2),
         'ffhq': (FFHQVAEConfig(token_size=8, **vae_kw), 'ffhq', 6.5, 1)}
     res = {}
-    runs = [(family, False) for family in families] + [('shapenet', True)]
+    runs = runs or ([(family, False) for family in families]
+                    + [('shapenet', True)])
     for family, quantized in runs:
         vae_cfg, preset, cfg_scale, frames = families[family]
         kw = dict(
@@ -716,12 +735,13 @@ def small_reference_unet():
                 RENDER_PRESETS[preset], depth_resolution=16,
                 depth_resolution_importance=16),
             render_resolution=16, render_dtype=None,
-            sampler=SamplerSpec(kind='ddim', num_steps=4,
+            sampler=SamplerSpec(kind=kind, num_steps=4,
                                 cfg_scale=cfg_scale,
                                 triplane_scaling_divider=1.0,
                                 latent_shape=(8, 8, 12)))
         cams = orbit_cameras(frames, **CAMERA_PRESETS[family])
         name = f'{family}_int8' if quantized else family
+        name += '' if kind == 'ddim' else f'_{kind}'
         res[name] = _small_card_vs_cpu(
             lambda *a, **k: build_unet_pipeline(family, *a, **k), kw,
             'a red sports car', False, name, shared=quantized,
@@ -825,8 +845,10 @@ def attention_check():
     latent and 257 DINO tokens (L = 1025: the last query tile holds one
     row; q and k RMS-normalised into fresh tensors, v read in place), a
     ragged L, d = 32 (the small model's head), a long L = 2048 (the K/V
-    ring streams far past shared memory) and f32 operands; each with the
-    kernel's, the plain version's and
+    ring streams far past shared memory), f32 operands, and the DiT's 16
+    heads split over tp = 2 and 4 tensor ranks (8 and 4 heads, as
+    ``tp_shard_denoiser_params`` gives them); each with the kernel's, the
+    plain version's and
     scaled_dot_product_attention's times on the same inputs (CUDA events
     around one call, ``ms``, and the profiler's device time, ``device_ms``),
     and the host time per call of the kernel's wrapper and of the
@@ -842,7 +864,10 @@ def attention_check():
              ('ragged_L77', 2, 77, 16, 64, torch.bfloat16),
              ('head_dim_32', 2, 192, 2, 32, torch.bfloat16),
              ('long_L2048', 2, 2048, 16, 64, torch.bfloat16),
-             ('dit_shape_f32', 2, 768, 16, 64, torch.float32)]
+             ('dit_shape_f32', 2, 768, 16, 64, torch.float32),
+             # the DiT-L/2's 16 heads split over tp = 2 and 4 tensor ranks
+             ('dit_tp2_heads', 2, 768, 8, 64, torch.bfloat16),
+             ('dit_tp4_heads', 2, 768, 4, 64, torch.bfloat16)]
     results = []
     for i, (name, B, L, H, d, dt) in enumerate(cases):
         g = torch.Generator(device='cuda').manual_seed(200 + i)
@@ -1793,7 +1818,7 @@ def orbit_options(modules, cond, uncond):
 
 def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
                   call_kw=None, shapes=None, mesh=True, sr_head=None,
-                  repeat=True):
+                  repeat=True, bounded=True):
     """A serving call at full width: ``__call__`` (with a ``mesh_path``
     unless ``mesh`` is False) on the conditioning ``encode(inputs)``.  The
     call runs twice from the same noise: once as a user runs it (its wall
@@ -1811,7 +1836,8 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
     kernel 1) and ``sr_head``; the first call returns uint8 frames
     (``video_uint8``), which must be within one level of the second
     call's float frames converted (the SR frames are unbounded, so no
-    range check).  Returns
+    range check).  ``bounded=False``: frames past an SR head in a call
+    without ``sr_head`` (no split, no range check).  Returns
     the phase's fields and the sampled latents."""
     import numpy as np
     import torch
@@ -1911,10 +1937,10 @@ def _serving_call(pipe, encode, inputs, encode_key, sample_key='dit_sample',
               f'{key} shape {tuple(t.shape)}, expected {shapes[key]}')
         check(bool(torch.isfinite(t).all()), f'{key} not finite')
     vmin, vmax = float(video.min()), float(video.max())
-    if sr_head is None:
+    if sr_head is None and bounded:
         check(-1.01 <= vmin and vmax <= 1.01,
               f'frames out of range [{vmin}, {vmax}]')
-    else:
+    elif sr_head is not None:
         # cuDNN's conv sums may run in another order in the other call,
         # which moves a frame value across a uint8 level now and then
         got_u8 = untimed['video']
@@ -2126,7 +2152,8 @@ def unet_families():
     batch 2 CFG-doubled (FFHQ, CFG 6.5), each beside a twin with the
     same weights whose convs are in NCHW memory (the layout cuDNN's sm90
     convs transpose on every call).  Each family's call runs again with
-    ``quantize_unet`` of its U-Net (``{family}_int8``), and
+    ``quantize_unet`` of its U-Net (``{family}_int8``); ShapeNet's
+    modules then run DPM-Solver++ and PLMS (``unet_samplers``); and
     ``unet_int8_profile`` holds a DDIM step of the int8 U-Net beside the
     bf16 one."""
     import copy
@@ -2196,6 +2223,14 @@ def unet_families():
                     int8_convs=n_conv, int8_linears=n_lin)
         phase_done(f'{family}_int8', t0, sizes=CUT, **qres)
         results[f'{family}_int8'] = qres
+        if family == 'shapenet':
+            # DPM-Solver++ and PLMS on the same modules, then a small
+            # model card vs CPU under DPM
+            t0 = time.perf_counter()
+            sampled, small = unet_samplers(modules, prompt)
+            phase_done('unet_samplers', t0, **sampled,
+                       small_reference_dpm=small)
+            results.update(sampled)
         # CFG 1.0 runs the conditional half only: batch 1
         steps[family] = (modules['denoiser'], *encode(prompt),
                          pipe.spec.latent_shape, pipe.spec.cfg_scale != 1.0)
@@ -4992,20 +5027,14 @@ def sgm_stack(B=4, steps=25):
                 kernel_launches=no_kernel_launches('sgm_stack'))
 
 
-def profiling_trace(workdir, calls=3):
-    """``utils.profiling.trace`` around ``calls`` calls of the fused
-    DiT-L/2 denoiser (``fused_attention=True``, bf16, CFG-doubled batch
-    2) inside an ``annotate`` range: the trace file must hold the range,
-    and kernel 3 must launch once per block per call (24 per call, its
-    counter set to 0 just before the traced block).  The trace's CUDA
-    kernel events are reported, not checked: the profiler at times reads
-    no device activity on this machine."""
+def fused_dit_l2_step():
+    """The fused DiT-L/2 denoiser (``fused_attention=True``, tanh GELU,
+    bf16, random weights from seed 41) and a CFG-doubled batch-2 input:
+    ``(model, x, t, ctx)``."""
     import torch
     from ln3diff_tpu_torch.config import denoiser_preset
     from ln3diff_tpu_torch.models.dit import DiT_TriLatent
     from ln3diff_tpu_torch.models.layers import random_init_
-    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
-    from ln3diff_tpu_torch.utils import profiling
 
     cfg = dataclasses.replace(denoiser_preset('t23d-dit-l2'),
                               exact_gelu=False, fused_attention=True)
@@ -5018,6 +5047,23 @@ def profiling_trace(workdir, calls=3):
     t = torch.full((2,), 500.0, device='cuda')
     ctx = {'crossattn': torch.randn((2, 77, 768), generator=g,
                                     device='cuda')}
+    return model, x, t, ctx
+
+
+def profiling_trace(workdir, step, calls=3):
+    """``utils.profiling.trace`` around ``calls`` calls of the fused
+    DiT-L/2 denoiser of ``step`` (:func:`fused_dit_l2_step`) inside an
+    ``annotate`` range: the trace file must hold the range,
+    and kernel 3 must launch once per block per call (24 per call, its
+    counter set to 0 just before the traced block).  The trace's CUDA
+    kernel events are reported, not checked: the profiler at times reads
+    no device activity on this machine."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.utils import profiling
+
+    model, x, t, ctx = step
+    cfg = model.cfg
     with torch.no_grad():
         model(x, t, ctx)                       # warm-up, outside the trace
         torch.cuda.synchronize()
@@ -5041,9 +5087,6 @@ def profiling_trace(workdir, calls=3):
           'the annotate range is not in the trace')
     kernels = [e for e in events if e.get('cat') == 'kernel']
     attn = [e for e in kernels if 'attention' in e.get('name', '').lower()]
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
     return dict(denoiser='t23d DiT-L/2, fused attention, bf16, batch 2',
                 calls=calls, traced_seconds=round(traced_s, 3),
                 ms_per_call_untraced=round(ms, 3),
@@ -5251,6 +5294,254 @@ def gradio_i23d(workdir, frames=12, res=128, grid=128):
                 fused_osg_launches_per_image=want)
 
 
+def profile_device(step, iters=5, top=200):
+    """``scripts/profile_device.py`` ``profile_fn`` over ``iters`` calls
+    of the fused DiT-L/2 of ``step`` (after ``profiling_trace`` in the
+    same process, so the profiler's first-trace cost is not paid again):
+    the per-kernel device table must not be empty (``profile_fn`` raises
+    when the trace holds no kernel event), and kernel 3's row must count
+    24 launches a call, as its launch counter does (which also counts the
+    warm-up call outside the trace and the profiler's discarded warm-up
+    step)."""
+    import torch
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.scripts.profile_device import profile_fn
+
+    model, x, t, ctx = step
+    depth = model.cfg.depth
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows = profile_fn(lambda: model(x, t, ctx), iters=iters, top=top,
+                          quiet=True, device='cuda')
+    table_s = time.perf_counter() - t0
+    check(len(rows) > 0, 'profile_fn returned an empty device table')
+    attn = [r for r in rows if 'attention_kernel' in r[2]]
+    counted = sum(r[1] for r in attn)
+    check(counted == depth * iters, f'the table counts {counted} launches '
+          f'of kernel 3 in {iters} calls, want {depth * iters}')
+    check(FusedAttention.launches == depth * (iters + 2),
+          f'kernel 3 launched {FusedAttention.launches} times')
+    total_us = sum(r[0] for r in rows)
+    return dict(
+        denoiser='t23d DiT-L/2, fused attention, bf16, batch 2',
+        iters=iters, table_seconds=round(table_s, 3), rows=len(rows),
+        device_ms_per_call_top_rows=round(total_us / iters / 1e3, 4),
+        fused_attention_launches=FusedAttention.launches,
+        kernel_3_rows=[dict(name=r[2], launches=r[1],
+                            us_per_launch=round(r[0] / r[1], 3))
+                       for r in attn],
+        top=[dict(ms=round(r[0] / 1e3, 4), launches=r[1], name=r[2][:80])
+             for r in rows[:8]])
+
+
+def tp_int8_shards():
+    """The rank-local pieces of a tensor-parallel int8 layer
+    (``ops/int8.py``: ``column_shard``, ``row_shard``,
+    ``int8_dense_row_partial``, ``int8_conv_row_partial``), every rank r
+    of tp = 2 and 4 computed in this one process on the card, at the
+    int8 DiT-L/2's ``qkv`` (1024 → 3072), ``fc1`` (1024 → 4096) and
+    ``fc2`` (4096 → 1024) over a CFG step's 2 × 768 tokens in bf16, and
+    the int8 U-Net's 1x1 ``proj_in``/``proj_out`` at 320 channels (over
+    the rolled-out 32 × 96 latent) and 1280 (over 4 × 12): the column
+    shards' outputs concatenated equal the whole layer's output, the
+    int32 row partials summed equal the whole layer's accumulator and,
+    rescaled, its output — bit for bit, with the whole input quantized
+    whole and, for ``fc2`` and the convs, also with the input given as
+    the rank's slice and the amax MAX-reduced across the ranks (the pair
+    after a column layer)."""
+    import torch
+    from ln3diff_tpu_torch.ops import int8 as q8
+
+    g = torch.Generator(device='cuda').manual_seed(17)
+
+    def layer(cls, fan_in, fan_out, **kw):
+        with torch.device('cuda'):
+            m = cls(fan_in, fan_out, **kw)
+        m.load_weight(torch.randn(m.kernel_q.shape, generator=g,
+                                  device='cuda') / fan_in ** 0.5)
+        m.bias.copy_(0.1 * torch.randn(fan_out, generator=g, device='cuda'))
+        return m
+
+    cases = [('dit_qkv', layer(q8.Int8Linear, 1024, 3072), (2, 768, 1024)),
+             ('dit_fc1', layer(q8.Int8Linear, 1024, 4096), (2, 768, 1024)),
+             ('dit_fc2', layer(q8.Int8Linear, 4096, 1024), (2, 768, 4096)),
+             ('unet_proj_320', layer(q8.Int8Conv, 320, 320, kernel_size=1),
+              (1, 320, 32, 96)),
+             ('unet_proj_1280', layer(q8.Int8Conv, 1280, 1280,
+                                      kernel_size=1), (1, 1280, 4, 12))]
+    res = {}
+    for name, m, shape in cases:
+        conv = isinstance(m, q8.Int8Conv)
+        x = torch.randn(shape, generator=g, device='cuda').to(torch.bfloat16)
+        if conv:
+            x = x.contiguous(memory_format=torch.channels_last)
+            x_q, x_scale = q8.quantize_per_sample(x.permute(0, 2, 3, 1))
+            whole_acc = q8.int8_conv_acc(x_q, m.kernel_q)
+        else:
+            x_q, x_scale = q8._quantize_rows(x)
+            whole_acc = q8.int8_dense_acc(x_q, m.kernel_q)
+        with torch.no_grad():
+            want = m(x)
+        fan_out, fan_in = m.kernel_q.shape[:2]
+        ch = 1 if conv else -1
+
+        def finish(acc, scale):
+            y = q8.int8_rescale(acc, scale, m.scale, m.bias, x.dtype)
+            return y.permute(0, 3, 1, 2) if conv else y
+
+        for tp in (2, 4):
+            rows = [torch.arange(r * fan_out // tp, (r + 1) * fan_out // tp,
+                                 device='cuda') for r in range(tp)]
+            cols = [torch.arange(r * fan_in // tp, (r + 1) * fan_in // tp,
+                                 device='cuda') for r in range(tp)]
+            for r in range(tp):
+                q8.check_int8_shard(name, fan_in, len(rows[r]), 'cuda')
+                q8.check_int8_shard(name, len(cols[r]), fan_out, 'cuda')
+            col_out = torch.cat([
+                (q8.int8_conv(x, *q8.column_shard(m, rows[r])) if conv else
+                 q8.int8_dense(x, *q8.column_shard(m, rows[r])))
+                for r in range(tp)], dim=ch)
+            check(torch.equal(col_out, want), f'{name} tp={tp}: the column '
+                  f'shards differ from the whole layer')
+            modes = ['whole_input'] + (['split_input'] if name != 'dit_qkv'
+                                       else [])
+            for mode in modes:
+                local = [x.index_select(ch, cols[r]) for r in range(tp)]
+                if conv:
+                    amaxes = [t.float().abs().amax(dim=(1, 2, 3),
+                                                   keepdim=True)
+                              .permute(0, 2, 3, 1) for t in local]
+                else:
+                    amaxes = [t.float().abs().amax(-1, keepdim=True)
+                              for t in local]
+                amax = torch.stack(amaxes).amax(0)
+                parts = []
+                for r in range(tp):
+                    kw = (dict(cols=cols[r]) if mode == 'whole_input' else
+                          dict(amax_reduce=lambda a: amax))
+                    inp = x if mode == 'whole_input' else local[r]
+                    if conv:
+                        acc, scale = q8.int8_conv_row_partial(
+                            inp, q8.row_shard(m, cols[r]), **kw)
+                    else:
+                        acc, scale = q8.int8_dense_row_partial(
+                            inp, q8.row_shard(m, cols[r]), **kw)
+                    parts.append(acc)
+                    check(torch.equal(scale, x_scale), f'{name} tp={tp} '
+                          f'{mode}: rank {r} took another activation scale')
+                total = torch.stack(parts).sum(0, dtype=torch.int32)
+                check(torch.equal(total, whole_acc), f'{name} tp={tp} '
+                      f'{mode}: the int32 partials do not sum to the whole '
+                      f'accumulator')
+                check(torch.equal(finish(total, scale), want),
+                      f'{name} tp={tp} {mode}: the rescaled sum differs '
+                      f'from the whole layer')
+            res[f'{name}_tp{tp}'] = dict(
+                shard_in_out=[[fan_in, fan_out // tp],
+                              [fan_in // tp, fan_out]],
+                modes=modes, bit_for_bit=True)
+    return res
+
+
+def noise_strip(modules, frames=5):
+    """``scripts/viz.py`` ``render_noise_schedule_strip`` over the
+    Objaverse VAE of the main path's modules (the DiT2-L/2 decoder in
+    bf16; bf16 planes rendered at 192² with 64+64 samples through kernel
+    1): a random clean latent (seed 12) q-noised at the ``frames``
+    fractions 0, 1/4, ..., 1 of the 1000-step linear schedule (t = 0,
+    249, 499, 749, 999), each decoded and rendered from the orbit's first
+    camera, then written with ``save_image_strip``.  The frames are
+    finite and in [-1, 1] (±0.01, the pipeline phase's check), and kernel
+    1 launches twice a frame."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from ln3diff_tpu_torch.diffusion.gaussian import make_diffusion
+    from ln3diff_tpu_torch.ops.fused_render import FusedOSG
+    from ln3diff_tpu_torch.pipeline import build_t23d_pipeline
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    from ln3diff_tpu_torch.scripts.viz import (render_noise_schedule_strip,
+                                               save_image_strip)
+
+    pipe, _, _ = build_t23d_pipeline('cuda', den_cfg=modules['denoiser'].cfg,
+                                     modules=modules)
+    g = torch.Generator(device='cuda').manual_seed(12)
+    latent = torch.randn((1, 32, 32, 12), generator=g, device='cuda')
+    cam = torch.as_tensor(orbit_cameras(24)[:1], dtype=torch.float32,
+                          device='cuda')
+    ts = tuple(i / (frames - 1) for i in range(frames))
+    FusedOSG.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strip = render_noise_schedule_strip(
+        latent, cam, make_diffusion(steps=1000), pipe.decode_fn,
+        lambda planes, c: pipe.render_fn(planes.to(torch.bfloat16), c),
+        generator=g, ts=ts)
+    strip_s = time.perf_counter() - t0
+    launches = FusedOSG.launches
+    check(strip.shape == (frames, 192, 192, 3),
+          f'strip shape {strip.shape}')
+    check(bool(np.isfinite(strip).all()), 'strip frames not finite')
+    vmin, vmax = float(strip.min()), float(strip.max())
+    check(-1.01 <= vmin and vmax <= 1.01,
+          f'strip frames out of range [{vmin}, {vmax}]')
+    check(launches == 2 * frames, f'kernel 1 launched {launches} times for '
+          f'{frames} frames')
+    spread = [float(np.abs(f - strip[0]).mean()) for f in strip]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_image_strip(strip, os.path.join(tmp, 'strip.png'))
+        png = np.asarray(Image.open(path))
+    check(png.shape == (192, 192 * frames, 3), f'PNG shape {png.shape}')
+    return dict(t=[int(f * 999) for f in ts], strip_seconds=round(strip_s, 3),
+                frames_range=[vmin, vmax], fused_osg_launches=launches,
+                mean_abs_diff_to_t0=spread)
+
+
+def unet_samplers(modules, prompt):
+    """The ShapeNet text→3D call at full width on the modules of
+    ``shapenet_pipeline`` (the U-Net-320 LSGM in bf16 with v-prediction
+    and its mixing logit, the fusionv5 VAE, kernel 1 on the render and the
+    σ grid) with ``kind='dpm'``, 25 DPM-Solver++(2M) steps over the
+    unspaced 1000-step schedule, and with ``kind='plms'``, 25 PLMS steps
+    over ``ddim25``: ``_serving_call`` once each (26 U-Net calls, the
+    frames past ``NearestConvSR`` finite, the OBJ parsed back); then the
+    small ShapeNet model card vs CPU under 4 DPM steps
+    (``small_reference_unet``, ``TOL_PIPE``)."""
+    from ln3diff_tpu_torch.config import CAMERA_PRESETS
+    from ln3diff_tpu_torch.pipeline import (UNET_FAMILIES, SamplerSpec,
+                                            build_unet_pipeline)
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    rays = UNET_FAMILIES['shapenet']['ray_res']
+    side = rays * modules['vae'].cfg.sr_ratio
+    hw = modules['vae'].cfg.latent_size
+    shape = (hw, hw, modules['vae'].cfg.latent_channels)
+    res = {}
+    for kind in ('dpm', 'plms'):
+        pipe, encode, _ = build_unet_pipeline(
+            'shapenet', 'cuda', den_cfg=modules['denoiser'].cfg,
+            modules=modules,
+            sampler=SamplerSpec(kind=kind, num_steps=25, cfg_scale=1.0,
+                                triplane_scaling_divider=1.0,
+                                latent_shape=shape))
+        check(pipe.diffusion.num_timesteps == (1000 if kind == 'dpm'
+                                               else 25),
+              f'{kind}: schedule of {pipe.diffusion.num_timesteps} steps')
+        check(pipe.mixing_logit is not None, f'{kind}: no mixing logit')
+        r, _ = _serving_call(
+            pipe, encode, prompt, 'text_encode', sample_key='unet_sample',
+            call_kw=dict(cameras=orbit_cameras(24, **CAMERA_PRESETS[
+                'shapenet']), render_resolution=rays),
+            shapes=dict(latents=(1, *shape), planes=(1, 3, 256, 256, 32),
+                        video=(1, 24, side, side, 3)),
+            mesh=True, repeat=False, bounded=False)
+        check(r['denoiser_calls'] == 26, f'{kind}25 called the U-Net '
+              f'{r["denoiser_calls"]} times')
+        res[f'shapenet_{kind}25'] = r
+    small = small_reference_unet(runs=[('shapenet', False)], kind='dpm')
+    return res, small
+
+
 def main():
     # The tokenizer's hash fallback is salted per process, and the small
     # text→3D model's decoder is ill-conditioned for some prompts' token
@@ -5307,6 +5598,11 @@ def main():
     t0 = time.perf_counter()
     bwd_checks, bwd_autograd = osg_backward_check()
     phase_done('osg_backward_check', t0)
+    # the rank-local pieces of the tensor-parallel int8 layers, every rank
+    # in this process
+    t0 = time.perf_counter()
+    tp_shards = tp_int8_shards()
+    phase_done('tp_int8_shards', t0, **tp_shards)
 
     # 4. small models: card vs CPU
     t0 = time.perf_counter()
@@ -5434,6 +5730,10 @@ def main():
     t0 = time.perf_counter()
     orbit = orbit_options(modules, cond, uncond)
     phase_done('orbit_options', t0, **orbit)
+    # the noise-schedule strip over the same VAE (kernel 1)
+    t0 = time.perf_counter()
+    strip = noise_strip(modules)
+    phase_done('noise_strip', t0, **strip)
     del modules, plain_denoiser, cond, uncond
     torch.cuda.empty_cache()
 
@@ -5585,8 +5885,17 @@ def main():
     phase_done('sgm_stack', t0, **sgm)
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
-        traced = profiling_trace(workdir)
+        dit_step = fused_dit_l2_step()
+        traced = profiling_trace(workdir, dit_step)
         phase_done('profiling_trace', t0, **traced)
+    # the per-kernel device table of the same denoiser, in the process
+    # the profiler has already started in
+    t0 = time.perf_counter()
+    table = profile_device(dit_step)
+    phase_done('profile_device', t0, **table)
+    del dit_step
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         demo = two_stage_demo(workdir)
@@ -5624,6 +5933,9 @@ def main():
     osg_by_path['gradio_i23d'] = i23d_demo['per_image'][0][
         'fused_osg_launches']
     attn_by_path['profiling_trace'] = traced['fused_attention_launches']
+    attn_by_path['profile_device'] = table['fused_attention_launches']
+    osg_by_path['noise_strip'] = strip['fused_osg_launches']
+    attn_tp = [c for c in attn_checks if c['case'].startswith('dit_tp')]
     for key in ('cameras', 'flat_rays'):
         osg_by_path[f'orbit_{key}'] = orbit[key]['fused_osg_launches']
         attn_by_path[f'orbit_{key}'] = orbit[key]['fused_attention_launches']
@@ -5658,7 +5970,11 @@ def main():
              at_i23d_shape={k: attn_i23d[k] for k in (
                  'shape', 'ms', 'device_ms', 'host_us', 'plain_ms',
                  'bound_ms', 'bound_by', 'library_ms',
-                 'library_device_ms')}),
+                 'library_device_ms')},
+             at_tp_heads=[{k: c[k] for k in (
+                 'shape', 'max_abs_err', 'ms', 'device_ms', 'host_us',
+                 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                 'library_device_ms')} for c in attn_tp]),
         dict(name='fused_osg_bwd', route='cuda',
              source='ln3diff_tpu_torch/ops/csrc/fused_osg_bwd.cu',
              replaces='ln3diff_tpu/ops/fused_render.py:219',

@@ -145,7 +145,8 @@ class SelfAttention2D(nn.Module):
         B, C, H, W = x.shape
         qkv = self.qkv(self.norm(x)).flatten(2).transpose(1, 2)  # B HW 3C
         q, k, v = (_heads(t, B, self.num_heads) for t in qkv.chunk(3, -1))
-        out = dot_product_attention(q, k, v).reshape(B, H, W, C)
+        # C / tp channels on a tensor rank that holds num_heads / tp heads
+        out = dot_product_attention(q, k, v).reshape(B, H, W, -1)
         return x + self.proj(out.permute(0, 3, 1, 2))
 
 

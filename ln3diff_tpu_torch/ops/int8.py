@@ -54,11 +54,18 @@ def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
 
 
-def _quantize(x: torch.Tensor, dims):
+def _quantize(x: torch.Tensor, dims, amax_reduce=None):
     """Symmetric int8 quantization with one scale per slice over ``dims``
-    (the amax over them) → (x_q int8, scale f32 with ``dims`` kept)."""
+    (the amax over them) → (x_q int8, scale f32 with ``dims`` kept).
+    ``amax_reduce``: a function applied to the local amax before the
+    scale is taken — the MAX all-reduce over the tensor ranks when ``x``
+    is a rank's slice of the quantized axis, so that every rank takes the
+    one-rank scale."""
     x = x.float()
-    scale = _amax_scale(x.abs().amax(dim=dims, keepdim=True))
+    amax = x.abs().amax(dim=dims, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    scale = _amax_scale(amax)
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), \
         scale
 
@@ -75,10 +82,10 @@ def quantize_weight(w: torch.Tensor, all_but_last: bool = False):
     return w_q, scale.reshape(kept)
 
 
-def _quantize_rows(x: torch.Tensor):
+def _quantize_rows(x: torch.Tensor, amax_reduce=None):
     """Dynamic symmetric per-token (last-axis row) int8 quantization →
-    (x_q int8, scale f32 (..., 1))."""
-    return _quantize(x, -1)
+    (x_q int8, scale f32 (..., 1)); ``amax_reduce`` as :func:`_quantize`."""
+    return _quantize(x, -1, amax_reduce)
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -106,11 +113,23 @@ def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor,
     :func:`quantize_weight` gives it; ``w_scale`` (out,) f32.  Accumulates
     exactly in int32, rescales in f32 by ``row_scale · w_scale``, adds the
     bias in f32 and returns ``dtype`` (default: x's dtype)."""
-    dtype = dtype or x.dtype
     x_q, x_scale = _quantize_rows(x)
-    lead = x_q.shape[:-1]
+    return int8_rescale(int8_dense_acc(x_q, kernel_q), x_scale, w_scale,
+                        bias, dtype or x.dtype)
+
+
+def int8_dense_acc(x_q: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 accumulator (..., out) of int8 ``x_q`` (..., in)
+    and ``kernel_q`` (out, in)."""
     acc = int8_matmul(x_q.reshape(-1, x_q.shape[-1]), kernel_q.t())
-    y = acc.reshape(*lead, -1).float() * (x_scale * w_scale)
+    return acc.reshape(*x_q.shape[:-1], -1)
+
+
+def int8_rescale(acc: torch.Tensor, x_scale: torch.Tensor,
+                 w_scale: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """``acc`` (int32) in f32 × ``x_scale · w_scale`` (the product of the
+    scales taken first), plus the bias in f32, cast to ``dtype``."""
+    y = acc.float() * (x_scale * w_scale)
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)
@@ -176,10 +195,11 @@ class Int8Linear(Int8Module):
         return int8_dense(x, self.kernel_q, self.scale, self.bias)
 
 
-def quantize_per_sample(x: torch.Tensor):
+def quantize_per_sample(x: torch.Tensor, amax_reduce=None):
     """Dynamic symmetric int8 quantization with one scale per batch item
-    (the amax over every other axis) → (x_q int8, scale f32 (B, 1, …))."""
-    return _quantize(x, tuple(range(1, x.ndim)))
+    (the amax over every other axis) → (x_q int8, scale f32 (B, 1, …));
+    ``amax_reduce`` as :func:`_quantize`."""
+    return _quantize(x, tuple(range(1, x.ndim)), amax_reduce)
 
 
 def im2col(x_q: torch.Tensor, kernel: int, stride: int = 1,
@@ -222,12 +242,94 @@ class Int8Conv(Int8Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        x_q, x_scale = quantize_per_sample(x.permute(0, 2, 3, 1))
-        acc = int8_conv_acc(x_q, self.kernel_q, self.stride, self.padding)
-        y = acc.float() * (x_scale * self.scale)
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(x.dtype).permute(0, 3, 1, 2)
+        return int8_conv(x, self.kernel_q, self.scale, self.bias,
+                         self.stride, self.padding)
+
+
+def int8_conv(x: torch.Tensor, kernel_q: torch.Tensor,
+              w_scale: torch.Tensor, bias=None, stride: int = 1,
+              padding: int = 0) -> torch.Tensor:
+    """:class:`Int8Conv`'s function: NCHW-shaped ``x`` quantized per
+    sample, the exact int32 convolution with ``kernel_q`` (out, in, k, k),
+    rescaled in f32 — NCHW-shaped output in channels-last memory, in x's
+    dtype."""
+    x_q, x_scale = quantize_per_sample(x.permute(0, 2, 3, 1))
+    acc = int8_conv_acc(x_q, kernel_q, stride, padding)
+    return int8_rescale(acc, x_scale, w_scale, bias,
+                        x.dtype).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shards: the rank-local pieces (no process group)
+# ---------------------------------------------------------------------------
+# A column shard holds the rank's output rows of ``kernel_q`` with their
+# ``scale`` and ``bias``; it quantizes the whole input exactly as the
+# whole layer does, so its output is the matching slice of the whole
+# layer's, bit for bit.  A row shard holds the rank's input columns of
+# ``kernel_q`` (dim 1 of the Linear and the conv layout alike) and gives
+# a partial int32 accumulator; the partials summed over the ranks in
+# int32 are the whole layer's accumulator exactly (integer sums do not
+# round), and only then is the sum rescaled by ``x_scale · w_scale`` and
+# the bias added, once.  The activation scale of a row shard is the whole
+# layer's: a whole input is quantized whole and the rank takes its
+# columns; an input that is already the rank's slice (after a column
+# layer) has its per-token (per-sample, for a conv) amax MAX-reduced over
+# the ranks before the scale is taken.  This is the computation GSPMD
+# makes of JAX's int32 ``dot_general`` with a sharded contraction axis.
+
+def check_int8_shard(name: str, in_width: int, out_width: int,
+                     device) -> None:
+    """Refuse an int8 shard that :func:`int8_matmul` cannot run: on CUDA
+    the GEMM's inner width (``in_width``; a conv's in-channels × k²) and
+    outer width (``out_width``) must be multiples of 8.  Raises a
+    ``ValueError`` naming the layer ``name``."""
+    if torch.device(device).type == 'cuda' and (in_width % 8
+                                                or out_width % 8):
+        raise ValueError(
+            f'{name}: an int8 shard of inner width {in_width} and outer '
+            f'width {out_width}; the int8 GEMM on CUDA needs multiples of 8')
+
+
+def column_shard(module: Int8Module, rows: torch.Tensor):
+    """``(kernel_q, scale, bias)`` of the output rows (channels) ``rows``
+    of an :class:`Int8Linear` or :class:`Int8Conv`."""
+    return (module.kernel_q[rows], module.scale[rows],
+            None if module.bias is None else module.bias[rows])
+
+
+def row_shard(module: Int8Module, cols: torch.Tensor) -> torch.Tensor:
+    """The input columns (channels) ``cols`` of ``module.kernel_q``."""
+    return module.kernel_q[:, cols]
+
+
+def int8_dense_row_partial(x: torch.Tensor, kernel_q_cols: torch.Tensor,
+                           cols=None, amax_reduce=None):
+    """A row shard's ``(int32 partial (..., out), x_scale (..., 1))``: with
+    ``cols``, ``x`` is the whole input, quantized per token and then cut to
+    the rank's columns; without, ``x`` is the rank's columns and its
+    per-token amax goes through ``amax_reduce`` (the MAX all-reduce)."""
+    if cols is not None:
+        x_q, x_scale = _quantize_rows(x)
+        x_q = x_q.index_select(-1, cols)
+    else:
+        x_q, x_scale = _quantize_rows(x, amax_reduce)
+    return int8_dense_acc(x_q, kernel_q_cols), x_scale
+
+
+def int8_conv_row_partial(x: torch.Tensor, kernel_q_cols: torch.Tensor,
+                          stride: int = 1, padding: int = 0, cols=None,
+                          amax_reduce=None):
+    """:func:`int8_dense_row_partial` for an :class:`Int8Conv` shard over
+    input channels: NCHW-shaped ``x`` (whole with ``cols``, else the
+    rank's channels) → ``(int32 partial (B, Ho, Wo, out), x_scale (B, 1,
+    1, 1))``, the scale one per sample."""
+    x = x.permute(0, 2, 3, 1)
+    if cols is not None:
+        x_q, x_scale = quantize_per_sample(x)
+        x_q = x_q.index_select(-1, cols)
+    else:
+        x_q, x_scale = quantize_per_sample(x, amax_reduce)
+    return int8_conv_acc(x_q, kernel_q_cols, stride, padding), x_scale
 
 
 def quantize_params_like(q_state: dict, state: dict) -> dict:

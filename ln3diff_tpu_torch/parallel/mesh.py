@@ -270,13 +270,18 @@ def trunk_index(name: str, trunk_key: str = 'blocks'):
     return None
 
 
-def _logical_params(module: nn.Module, trunk_key: str = 'blocks'):
+def _logical_params(module: nn.Module, trunk_key: str = 'blocks',
+                    int8: bool = False):
     """``(name, owner path segments, is_kernel, jax_shape, port_axis)``
     per parameter: JAX's shape of the leaf (with the stacked layer axis
     first for a trunk block) and, per JAX axis, the port tensor's axis
-    (None for the layer axis)."""
+    (None for the layer axis).  ``int8``: the int8 layers' ``kernel_q``
+    buffers too, which are parameters in JAX."""
     modules = dict(module.named_modules())
     params = list(module.named_parameters())
+    if int8:
+        params += [(n, b) for n, b in module.named_buffers()
+                   if n.rsplit('.', 1)[-1] == 'kernel_q']
     depth: dict = {}
     for name, _ in params:
         hit = trunk_index(name, trunk_key)
@@ -345,13 +350,16 @@ def tensor_parallel_rules(module: nn.Module, mesh,
     ``COL_MARKERS`` is column-parallel — its output axis over 'tensor'
     (``Shard(0)`` of a Linear weight) — and under ``ROW_MARKERS``
     row-parallel — its input axis (``Shard(1)``); with fsdp > 1 the other
-    axis of the pair goes over 'fsdp' when divisible.  Biases and every
-    other parameter stay replicated, as in JAX."""
+    axis of the pair goes over 'fsdp' when divisible.  An int8 layer's
+    ``kernel_q`` buffer is placed as a kernel, as JAX places the int8
+    ``kernel_q`` leaf.  Biases and every other parameter stay replicated,
+    as in JAX."""
     tp = axis_size(mesh, 'tensor')
     fsdp = axis_size(mesh, 'fsdp')
     t_i, f_i = AXES.index('tensor'), AXES.index('fsdp')
     out = {}
-    for name, segs, is_kernel, jshape, jmap in _logical_params(module):
+    for name, segs, is_kernel, jshape, jmap in _logical_params(module,
+                                                               int8=True):
         pl = _replicate()
         out[name] = tuple(pl)
         if tp == 1 or math.prod(jshape) < min_size_to_shard \

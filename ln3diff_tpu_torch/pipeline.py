@@ -24,7 +24,11 @@ Port of ``ln3diff_tpu/pipeline.py`` (``SamplerSpec`` :47,
 the σ grid's points split over its ``data`` ranks
 (``parallel/serving.py``), every rank running the one-device path on its
 share and holding the gathered result, as the JAX pipeline does
-(:103-114, :241-262, :332-343).
+(:103-114, :241-262, :332-343).  Every ``build_*_pipeline`` takes one.
+The denoiser splits over the mesh's ``tensor`` ranks apart from it, as
+JAX's ``tp_shard_denoiser_params`` is applied to the params the
+pipeline is given: ``parallel.serving.tp_shard_denoiser_params(
+modules['denoiser'], mesh)`` on the built modules, float or int8.
 
 The pipeline takes callables over tensors (the JAX version takes
 param-explicit ones); :func:`build_t23d_pipeline`,
@@ -525,7 +529,7 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
 def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
                         seed, den_cfg, vae_cfg, render_opts,
                         render_resolution, sampler, transport, render_dtype,
-                        modules):
+                        modules, serving_mesh):
     """The body that the image→3D and multi-view→3D builders share: the
     ``preset`` denoiser with tanh GELU, the Objaverse VAE and render
     options, DINOv2-B/14 in bf16, with ``clip_cfg`` the f32 CLIP vision
@@ -567,7 +571,8 @@ def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
     pipeline = _objaverse_pipeline(out['denoiser'], out['vae'], opts,
                                    render_resolution, sampler, render_dtype,
                                    device, transport=transport,
-                                   diffusion=_sampler_diffusion(sampler))
+                                   diffusion=_sampler_diffusion(sampler),
+                                   serving_mesh=serving_mesh)
     return pipeline, make_encode(out), out
 
 
@@ -577,9 +582,10 @@ def build_i23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
                         sampler: Optional[SamplerSpec] = None,
                         transport: Optional[Transport] = None,
                         render_dtype: Optional[torch.dtype] = torch.bfloat16,
-                        modules: Optional[dict] = None):
+                        modules: Optional[dict] = None, serving_mesh=None):
     """The released Objaverse image→3D model on ``device``, as
-    ``bench.py`` ``_build_i23d_family`` configures it.
+    ``bench.py`` ``_build_i23d_family`` configures it (with
+    ``serving_mesh``: the orbit and the σ grid split over its ranks).
 
     Defaults: the f32 CLIP ViT-L/14 vision tower and DINOv2-B/14 in bf16
     over one 224² image; DiT-I23D-L/2 (``'image-pixelart'`` blocks with
@@ -617,7 +623,8 @@ def build_i23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     return _build_image_family(
         'i23d-pixart-l2', vision_cfg or CLIPVisionConfig(), dino_cfg,
         make_encode, device, seed, den_cfg, vae_cfg, render_opts,
-        render_resolution, sampler, transport, render_dtype, modules)
+        render_resolution, sampler, transport, render_dtype, modules,
+        serving_mesh)
 
 
 def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
@@ -626,9 +633,10 @@ def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
                          sampler: Optional[SamplerSpec] = None,
                          transport: Optional[Transport] = None,
                          render_dtype: Optional[torch.dtype] = torch.bfloat16,
-                         modules: Optional[dict] = None):
+                         modules: Optional[dict] = None, serving_mesh=None):
     """The released Objaverse multi-view→3D model on ``device``, as
-    ``bench.py`` ``_build_mv23d_family`` configures it.
+    ``bench.py`` ``_build_mv23d_family`` configures it (with
+    ``serving_mesh``: the orbit and the σ grid split over its ranks).
 
     Defaults: DINOv2-B/14 in bf16 over the views; DiT-PixArt-MV-L/2
     (``'mv-pixelart'`` blocks: RMSNorm, q/k RMSNorm, the flattened views'
@@ -657,7 +665,7 @@ def build_mv23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
     return _build_image_family(
         'mv23d-dit-l2', None, dino_cfg, make_encode, device, seed, den_cfg,
         vae_cfg, render_opts, render_resolution, sampler, transport,
-        render_dtype, modules)
+        render_dtype, modules, serving_mesh)
 
 
 # bench.py FAMILY_SPECS / _build_unet_family: CFG scale, pooled-CLIP scale,
@@ -677,10 +685,11 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
                         sampler: Optional[SamplerSpec] = None,
                         render_dtype: Optional[torch.dtype] = torch.bfloat16,
                         modules: Optional[dict] = None,
-                        render_key: str = 'image_sr'):
+                        render_key: str = 'image_sr', serving_mesh=None):
     """The released ShapeNet (``family='shapenet'``) or FFHQ (``'ffhq'``)
     text→3D model on ``device``, as ``bench.py`` ``_build_unet_family``
-    configures it.
+    configures it (with ``serving_mesh``: the orbit and the σ grid split
+    over its ranks).
 
     Defaults: the f32 CLIP-L text tower with ``text_projection``; the
     pooled feature L2-normalised × 18.4 (shapenet) or × 1.0 (ffhq) as a
@@ -688,7 +697,11 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
     'shapenet-unet')``, bf16) with v-prediction and its mixing logit,
     250-step DDIM (``make_diffusion(steps=1000, mean_type='v',
     mixed_prediction=True, timestep_respacing='ddim250')``), CFG 1.0
-    (the conditional half only) or 6.5, ``triplane_scaling_divider`` 1.0;
+    (the conditional half only) or 6.5, ``triplane_scaling_divider`` 1.0
+    — or ``sampler.kind='plms'`` over ``ddim{num_steps}`` or ``'dpm'``
+    (DPM-Solver++(2M)) over the unspaced 1000-step schedule, with the same
+    v-prediction and mixing logit (``_sampler_diffusion``); the
+    checkpoint is a DDPM-family model, so flow matching is refused;
     the fusionv5 (shapenet) or 4XC_final (ffhq) VAE decoder in bf16 to
     (3, 256, 256, 32) planes, rendered in bf16 through the fused point
     kernel at 64² rays with 64+64 samples + ``NearestConvSR`` to 128², or
@@ -724,8 +737,9 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
         kind='ddim', num_steps=250, cfg_scale=spec['cfg_scale'],
         triplane_scaling_divider=1.0,
         latent_shape=(hw, hw, vae_cfg.latent_channels))
-    if sampler.kind != 'ddim':
-        raise ValueError(f'the {family} family samples with DDIM, got '
+    if sampler.kind not in ('ddim', 'plms', 'dpm'):
+        raise ValueError(f'the {family} U-Net is a DDPM-family model: it '
+                         f'samples with DDIM, PLMS or DPM-Solver, got '
                          f'sampler kind {sampler.kind!r}')
 
     if modules is None:
@@ -750,7 +764,7 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
                                      mixed_prediction=True),
         mixing_logit=(denoiser.mixing_logit.detach()
                       if den_cfg.mixed_prediction else None),
-        render_dtype=render_dtype, device=device)
+        render_dtype=render_dtype, device=device, serving_mesh=serving_mesh)
 
     @torch.no_grad()
     def encode(prompt: str):

@@ -17,8 +17,13 @@ weights are random, drawn from ``--seed``.  As in the JAX script the CLIP
 text tower is random: no converted text weights are loaded.  The
 denoiser is stored in bf16 after loading (``cast_floating``);
 ``--int8_dit`` then quantizes a DiT (``ops.int8.quantize_dit``), while a
-U-Net stays bf16.  The renders and σ-grid queries run the fused point
-kernel; ``--device`` (default ``cuda``) picks the device, and a missing
+U-Net stays bf16.  ``--objective`` picks the sampler for either
+denoiser: ``ddim`` and ``plms`` over ``ddim{num_steps}``, ``dpm``
+(DPM-Solver++(2M)) over the unspaced schedule — the U-Net with its
+v-prediction and mixing logit; ``build_t23d_pipeline`` and
+``build_unet_pipeline`` refuse ``flow_matching``, as both text→3D
+checkpoints are DDPM-family models.
+The renders and σ-grid queries run the fused point kernel; ``--device`` (default ``cuda``) picks the device, and a missing
 card raises.
 """
 

@@ -3,6 +3,7 @@
 
     torchrun --nproc_per_node=4 scripts/parallel_card_check.py
     torchrun --nproc_per_node=4 scripts/parallel_card_check.py --device cpu
+    torchrun --nproc_per_node=4 scripts/parallel_card_check.py --only tp_
 
 Each rank runs the multi-rank tasks of the CPU tests
 (``tests/_torch_parallel_tasks.py``) on its card, and the same work
@@ -27,7 +28,17 @@ without a mesh as the one-rank reference, and checks the two agree:
 * on the cards only, the full-width DiT-L/2 LDM step (remat 'dots', bf16
   autocast, global batch 8) at fsdp = 1 and at fsdp = 4: each rank's
   resident and peak memory (the parameters sharded in the module at
-  fsdp = 4) and s/step, the first losses within 1e-2 relative.
+  fsdp = 4) and s/step, the first losses within 1e-2 relative;
+* on the cards only, tensor-parallel DDIM over four ranks against the
+  whole denoiser on each rank: the int8 DiT-L/2 with fused attention
+  (kernel 3 at 16 / 4 = 4 heads, 24 launches a step) within 1e-2 of
+  scale or twice the whole DiT's move under a one-bf16-ulp change of
+  its condition (its float embedders split in bf16), its first call
+  likewise, and the ShapeNet U-Net-320 (int8 ``proj_in``/``proj_out`` and
+  GEGLU split in int8, the float ones in float) in f32 within 2e-4 of
+  scale and int8 within 1e-2 — the CPU tests' bounds
+  (``tests/test_torch_tp_int8.py``) — and in bf16, whose row partials
+  round to bf16 before the all-reduce (2^-8 relative), within 1e-2.
 
 Prints one JSON line per check on rank 0, the card's name and power limit,
 and ``{"ok": ...}`` last; exits non-zero if any check failed.  It needs
@@ -74,7 +85,11 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
-    dev = parser.parse_args().device
+    parser.add_argument('--only', nargs='*', default=None,
+                        help='run only the checks whose names start with '
+                             'one of these prefixes')
+    cli = parser.parse_args()
+    dev = cli.device
     if 'WORLD_SIZE' not in os.environ:
         print('parallel_card_check: run under torchrun', file=sys.stderr)
         return 1
@@ -119,6 +134,8 @@ def main():
                               **fields}, default=float), flush=True)
 
     def run(name, fn):
+        if cli.only is not None and not name.startswith(tuple(cli.only)):
+            return
         t0 = time.perf_counter()
         try:
             fn(name, t0)
@@ -308,6 +325,47 @@ def main():
 
     if dev == 'cuda':
         run('ldm_dit_l2_memory_fsdp1_vs_fsdp4', ldm_memory)
+
+    def tp_dit_l2_int8(name, t0):
+        """The split int8 DiT-L/2's latents within 1e-2 of scale of the
+        whole one's, or within twice the whole one's own move under a
+        one-bf16-ulp change of its condition (``twin``): its float
+        embedders split in bf16, where a row shard's partial sums round
+        to bf16 before the all-reduce, and CFG 6.5 carries an int8
+        rounding flip on through the steps.  The first call's output
+        split against whole likewise, against the first call's twin."""
+        o = tasks.tp_sampling_dit_l2_int8()
+        scale = max(1.0, float(np.abs(o['ref']).max()))
+        err = float(np.abs(o['got'] - o['ref']).max())
+        twin = float(np.abs(o['twin'] - o['ref']).max())
+        c_scale = max(1.0, float(np.abs(o['call_ref']).max()))
+        c_err = float(np.abs(o['call_got'] - o['call_ref']).max())
+        c_twin = float(np.abs(o['call_twin'] - o['call_ref']).max())
+        want_launches = o['depth'] * 10
+        report(name, err <= max(1e-2 * scale, 2 * twin)
+               and c_err <= max(1e-2 * c_scale, 2 * c_twin)
+               and o['heads'] == 4
+               and o['fused_attention_launches'] == want_launches, t0,
+               max_abs_err=err, scale=scale, twin_max_abs_err=twin,
+               bit_for_bit=err == 0.0, first_call_max_abs_err=c_err,
+               first_call_scale=c_scale, first_call_twin_max_abs_err=c_twin,
+               heads=o['heads'],
+               fused_attention_launches=o['fused_attention_launches'])
+
+    def tp_unet(name, t0, kind, tol):
+        o = tasks.tp_sampling_shapenet_unet(kind)
+        scale = max(1.0, float(np.abs(o['ref']).max()))
+        err = float(np.abs(o['got'] - o['ref']).max())
+        report(name, err <= tol * scale and np.isfinite(o['got']).all(),
+               t0, max_abs_err=err, scale=scale, tol=tol,
+               bit_for_bit=err == 0.0)
+
+    if dev == 'cuda':
+        run('tp_ddim_int8_dit_l2_fused_tensor4', tp_dit_l2_int8)
+        for kind, tol in (('float32', 2e-4), ('bfloat16', 1e-2),
+                          ('int8', 1e-2)):
+            run(f'tp_ddim_shapenet_unet_{kind}_tensor4',
+                lambda n, t0, k=kind, tl=tol: tp_unet(n, t0, k, tl))
 
     if rank == 0:
         kind = 'cpu'

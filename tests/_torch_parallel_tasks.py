@@ -301,46 +301,362 @@ def serving_call(tmpdir, num_frames, grid, flat=False, device='cpu'):
     return out
 
 
-def tp_sampling(min_size, device='cpu'):
-    """DDIM sampling with CFG through a toy DiT split over the tensor
-    ranks (``tp_shard_denoiser_params``) and through the whole one: the
-    two latents, and which of the first block's layers were split."""
-    from ln3diff_tpu_torch.diffusion.gaussian import make_diffusion
+# ---------------------------------------------------------------------------
+# tensor-parallel int8 layers and convs
+# ---------------------------------------------------------------------------
+
+def _tensor_mesh():
+    return pmesh.make_mesh(pmesh.MeshConfig(tensor=dist.get_world_size()))
+
+
+def _int8_layer(cls, fan_in, fan_out, g, **kw):
+    """An int8 layer whose kernel is quantized from a N(0, 1/fan_in) draw
+    and whose bias is N(0, 0.1²)."""
+    layer = cls(fan_in, fan_out, **kw)
+    layer.load_weight(torch.randn(layer.kernel_q.shape, generator=g)
+                      / fan_in ** 0.5)
+    layer.bias.copy_(0.1 * torch.randn(fan_out, generator=g))
+    return layer
+
+
+def _split_run(mesh, layers, x):
+    """``layers`` applied in turn to ``x``, whole and split over the tensor
+    ranks (a ``Sequential`` through ``tp_shard_denoiser_params`` with every
+    size sharded: the pairs of an ``fc1``/``fc2`` owner split together)."""
+    from ln3diff_tpu_torch.parallel.serving import tp_shard_denoiser_params
+    model = torch.nn.Sequential(*layers)
+    with torch.no_grad():
+        want = model(x)
+        tp_shard_denoiser_params(model, mesh, min_size_to_shard=0)
+        got = model(x)
+    return got, want, [type(m).__name__ for m in model]
+
+
+class _Pair(torch.nn.Module):
+    """``fc2(gelu(fc1(x)))``: the executor's fc1/fc2 pair."""
+
+    def __init__(self, fc1, fc2):
+        super().__init__()
+        self.fc1, self.fc2 = fc1, fc2
+
+    def forward(self, x):
+        return self.fc2(torch.nn.functional.gelu(self.fc1(x)))
+
+
+class _Named(torch.nn.Module):
+    """One layer under a marker name (``qkv``: column, ``proj``: row),
+    unpaired."""
+
+    def __init__(self, name, layer):
+        super().__init__()
+        self.name = name
+        self.add_module(name, layer)
+
+    def forward(self, x):
+        return getattr(self, self.name)(x)
+
+
+def tp_int8_layers(device='cpu'):
+    """Each split layer of ``parallel/serving.py`` over the tensor ranks
+    against the whole layer on the same input: ``Int8Linear`` column
+    (gathered), row with a whole input (scattered), and row paired after a
+    column layer (the per-token amax MAX-reduced); the 1x1 ``Int8Conv``
+    column, row and paired; the float 1x1 conv column and row, on random
+    data and on integer-valued data (every f32 product and sum exact, so
+    the summation order cannot move a bit).  Each case → (got, want, the
+    split types)."""
+    import torch.nn as nn
+    from ln3diff_tpu_torch.ops.int8 import Int8Conv, Int8Linear
+    mesh = _tensor_mesh()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 48, generator=g)
+    xc = torch.randn(2, 48, 3, 4, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    lin = lambda i, o: _int8_layer(Int8Linear, i, o, g)     # noqa: E731
+    conv = lambda i, o: _int8_layer(Int8Conv, i, o, g,      # noqa: E731
+                                    kernel_size=1)
+    out = {}
+    for name, layers, inp in (
+            ('int8_linear_column', [_Named('qkv', lin(48, 64))], x),
+            ('int8_linear_row', [_Named('proj', lin(48, 32))], x),
+            ('int8_linear_paired', [_Pair(lin(48, 64), lin(64, 40))], x),
+            ('int8_conv_column', [_Named('qkv', conv(48, 32))], xc),
+            ('int8_conv_row', [_Named('proj', conv(48, 40))], xc),
+            ('int8_conv_paired', [_Pair(conv(48, 64), conv(64, 24))], xc)):
+        got, want, kinds = _split_run(mesh, [m.to(device) for m in layers],
+                                      inp.to(device))
+        out[name] = dict(got=_np(got), want=_np(want),
+                         kinds=[type(m).__name__ for layer in layers
+                                for m in layer.children()] or kinds)
+    for exact in (False, True):
+        for name, marker, fan_out in (('conv_column', 'qkv', 32),
+                                      ('conv_row', 'proj', 40)):
+            c = nn.Conv2d(48, fan_out, 1)
+            with torch.no_grad():
+                if exact:
+                    c.weight.copy_(torch.randint(-4, 5, c.weight.shape,
+                                                 generator=g))
+                    c.bias.copy_(torch.randint(-4, 5, c.bias.shape,
+                                               generator=g))
+                else:
+                    c.weight.copy_(torch.randn(c.weight.shape, generator=g)
+                                   / 48 ** 0.5)
+                    c.bias.copy_(0.1 * torch.randn(fan_out, generator=g))
+            inp = (torch.randint(-4, 5, xc.shape, generator=g).float()
+                   if exact else xc)
+            layer = _Named(marker, c.to(memory_format=torch.channels_last))
+            got, want, _ = _split_run(mesh, [layer.to(device)],
+                                      inp.to(device))
+            out[f'float_{name}' + ('_exact' if exact else '')] = dict(
+                got=_np(got), want=_np(want),
+                kinds=[type(m).__name__ for m in layer.children()])
+    return out
+
+
+def _toy_denoiser(which, quantized, seed=0, device='cpu', spatial=True):
+    """A toy DiT (4 heads) or U-Net (a spatial transformer with 1x1
+    ``proj_in``/``proj_out`` and a GEGLU, or with ``spatial=False`` the
+    ADM attention's 1x1 ``qkv``/``proj``), f32, random weights with the
+    biases drawn too; with ``quantized`` its int8 twin
+    (``quantize_dit`` / ``quantize_unet``)."""
     from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
     from ln3diff_tpu_torch.models.layers import random_init_
-    from ln3diff_tpu_torch.parallel.serving import (ColumnParallelLinear,
-                                                    RowParallelLinear,
+    from ln3diff_tpu_torch.models.unet import UNetConfig, UNetModel
+    from ln3diff_tpu_torch.ops.int8 import quantize_dit, quantize_unet
+    gen = torch.Generator().manual_seed(seed)
+    if which == 'dit':
+        model = DiT_TriLatent(DiTConfig(
+            input_size=8, patch_size=2, in_channels=4, hidden_size=64,
+            depth=2, num_heads=4, variant='text', context_dim=16,
+            dtype=torch.float32))
+    else:
+        model = UNetModel(UNetConfig(
+            in_channels=4, model_channels=16, out_channels=4,
+            num_res_blocks=1, attention_resolutions=(2,),
+            channel_mult=(1, 2), num_heads=4, num_head_channels=-1
+            if spatial else 8, use_spatial_transformer=spatial,
+            context_dim=16, roll_out=True, mixed_prediction=True,
+            dtype=torch.float32))
+    random_init_(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('bias') or name == 'mixing_logit':
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    if quantized:
+        model = (quantize_dit if which == 'dit' else quantize_unet)(model)
+    return model.to(device).eval()
+
+
+def tp_placement(which, quantized, spatial=True):
+    """``tp_shard_denoiser_params`` of a toy denoiser (every size sharded):
+    for each layer whose kernel ``tensor_parallel_rules`` places on
+    'tensor', its type after the split and its kernel's local and whole
+    element counts."""
+    from ln3diff_tpu_torch.parallel.serving import tp_shard_denoiser_params
+    mesh = _tensor_mesh()
+    model = _toy_denoiser(which, quantized, spatial=spatial)
+    t_i = pmesh.AXES.index('tensor')
+    rules = pmesh.tensor_parallel_rules(model, mesh, 0)
+    whole = dict(model.named_parameters())
+    whole.update(model.named_buffers())
+    tp_shard_denoiser_params(model, mesh, min_size_to_shard=0)
+    mods = dict(model.named_modules())
+    out = {}
+    for name, pl in rules.items():
+        if not pl[t_i].is_shard():
+            continue
+        owner, leaf = name.rsplit('.', 1)
+        local = getattr(mods[owner], leaf)
+        out[owner] = dict(kind=type(mods[owner]).__name__,
+                          local=local.numel(), whole=whole[name].numel(),
+                          dim=pl[t_i].dim)
+    return out
+
+
+def tp_refuses_unsplittable():
+    """``tp_shard_denoiser_params`` on a layer that the rules shard (a
+    ``Conv1d`` kernel under ``qkv``) but that has no split module: the
+    error's text."""
+    from ln3diff_tpu_torch.parallel.serving import tp_shard_denoiser_params
+    model = torch.nn.Sequential(_Named('qkv', torch.nn.Conv1d(16, 32, 4)))
+    try:
+        tp_shard_denoiser_params(model, _tensor_mesh(), min_size_to_shard=0)
+    except ValueError as e:
+        return str(e)
+    return 'not refused'
+
+
+def tp_sampling(min_size, device='cpu', which='dit', quantized=False,
+                spatial=True, steps=4):
+    """DDIM sampling with CFG through a toy denoiser split over the tensor
+    ranks (``tp_shard_denoiser_params``) and through the whole one: the
+    two latents, and which of the layers were split.  ``which='dit'``:
+    the DiT (v = ε prediction, no mixing), with ``quantized`` its int8
+    twin; ``'unet'``: the U-Net LSGM (v-prediction with its mixing logit),
+    with ``spatial=False`` its ADM attention in place of the transformer.
+    For the DiT, ``kinds`` lists the first block's split layers and
+    ``heads`` its attention's heads; for the U-Net every split layer."""
+    from ln3diff_tpu_torch.diffusion.gaussian import make_diffusion
+    from ln3diff_tpu_torch.parallel.serving import (SPLIT_CLASSES,
                                                     tp_shard_denoiser_params)
     from ln3diff_tpu_torch.pipeline import SamplerSpec, TextTo3DPipeline
-    mesh = pmesh.make_mesh(pmesh.MeshConfig(tensor=dist.get_world_size()))
-    cfg = DiTConfig(input_size=8, patch_size=2, in_channels=4,
-                    hidden_size=64, depth=2, num_heads=4, variant='text',
-                    context_dim=16, dtype=torch.float32)
-    model = DiT_TriLatent(cfg)
-    random_init_(model, torch.Generator().manual_seed(0))
-    model.to(device)
+    mesh = _tensor_mesh()
+    if which == 'dit' and not quantized:
+        from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+        from ln3diff_tpu_torch.models.layers import random_init_
+        cfg = DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                        hidden_size=64, depth=2, num_heads=4,
+                        variant='text', context_dim=16, dtype=torch.float32)
+        model = DiT_TriLatent(cfg)
+        random_init_(model, torch.Generator().manual_seed(0))
+        model.to(device)
+    else:
+        model = _toy_denoiser(which, quantized, device=device,
+                              spatial=spatial)
     cond = {'crossattn': torch.ones(1, 7, 16, device=device)}
     uncond = {'crossattn': torch.zeros(1, 7, 16, device=device)}
     x_init = torch.randn(2, 8, 8, 12, generator=torch.Generator()
                          .manual_seed(1)).to(device)
+    unet = which == 'unet'
 
     def sample():
         pipe = TextTo3DPipeline(
             lambda x, t, c: model(x, t, c), None, None, None,
-            sampler=SamplerSpec(kind='ddim', num_steps=4, cfg_scale=2.0,
+            sampler=SamplerSpec(kind='ddim', num_steps=steps, cfg_scale=2.0,
                                 latent_shape=(8, 8, 12)),
-            diffusion=make_diffusion(steps=100, timestep_respacing='4'),
+            diffusion=make_diffusion(steps=100, timestep_respacing=str(steps),
+                                     mean_type='v' if unet else 'eps',
+                                     mixed_prediction=unet),
+            mixing_logit=model.mixing_logit.detach() if unet else None,
             device=device)
         return pipe.sample_latents(2, cond, uncond, x_init=x_init)
 
     ref = sample()
     tp_shard_denoiser_params(model, mesh, min_size_to_shard=min_size)
     got = sample()
-    blk = model.blocks[0]
-    kinds = {n: type(m).__name__ for n, m in blk.named_modules()
-             if isinstance(m, (ColumnParallelLinear, RowParallelLinear))}
-    return dict(ref=_np(ref), got=_np(got), kinds=kinds,
-                heads=blk.attn.num_heads)
+    root = model.blocks[0] if which == 'dit' else model
+    kinds = {n: type(m).__name__ for n, m in root.named_modules()
+             if isinstance(m, SPLIT_CLASSES)}
+    heads = root.attn.num_heads if which == 'dit' else None
+    return dict(ref=_np(ref), got=_np(got), kinds=kinds, heads=heads)
+
+
+def tp_sampling_dit_l2_int8(steps=10):
+    """On the cards: DDIM sampling with CFG 6.5 through the int8 DiT-L/2
+    (the t23d preset with tanh GELU, ``quantize_dit``, bf16, fused
+    attention) split over the tensor ranks, against the whole int8 DiT on
+    the same rank.  Returns both latents; ``twin``, the whole DiT's
+    latents with the condition's context scaled by 1 + 2^-8 (one bf16 ulp:
+    the size of the rounding that a bf16 row shard's partial sums add);
+    the first denoiser call's output split and whole (``call_got``,
+    ``call_ref``) and the whole one's under that change (``call_twin``);
+    kernel 3's launches in the split sampling and the first block's
+    attention heads."""
+    import dataclasses
+
+    from ln3diff_tpu_torch.config import denoiser_preset
+    from ln3diff_tpu_torch.diffusion.gaussian import make_diffusion
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
+    from ln3diff_tpu_torch.ops.int8 import quantize_dit
+    from ln3diff_tpu_torch.parallel.serving import tp_shard_denoiser_params
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, TextTo3DPipeline
+    mesh = _tensor_mesh()
+    cfg = dataclasses.replace(denoiser_preset('t23d-dit-l2'),
+                              exact_gelu=False, fused_attention=True)
+    with torch.device('cuda'):
+        model = DiT_TriLatent(cfg)
+    random_init_(model, torch.Generator(device='cuda').manual_seed(0))
+    model = quantize_dit(model.to('cuda').to(cfg.dtype).eval())
+    g = torch.Generator(device='cuda').manual_seed(1)
+    cond = {'crossattn': torch.randn(1, 77, 768, generator=g,
+                                     device='cuda')}
+    uncond = {'crossattn': torch.zeros(1, 77, 768, device='cuda')}
+    x_init = torch.randn(1, 32, 32, 12, generator=g, device='cuda')
+    t999 = torch.full((2,), 999, device='cuda')
+    both = {'crossattn': torch.cat([cond['crossattn'],
+                                    uncond['crossattn']])}
+    nudged = {'crossattn': cond['crossattn'] * (1 + 2**-8)}
+
+    def sample(c):
+        pipe = TextTo3DPipeline(
+            model, None, None, None,
+            sampler=SamplerSpec(kind='ddim', num_steps=steps, cfg_scale=6.5),
+            diffusion=make_diffusion(steps=1000,
+                                     timestep_respacing=f'ddim{steps}'),
+            device='cuda')
+        return pipe.sample_latents(1, c, uncond, x_init=x_init)
+
+    with torch.no_grad():
+        ref = sample(cond)
+        twin = sample(nudged)
+        call_ref = model(x_init.expand(2, -1, -1, -1), t999, both)
+        call_twin = model(x_init.expand(2, -1, -1, -1), t999, {
+            'crossattn': torch.cat([nudged['crossattn'],
+                                    uncond['crossattn']])})
+        tp_shard_denoiser_params(model, mesh)
+        call_got = model(x_init.expand(2, -1, -1, -1), t999, both)
+        FusedAttention.launches = 0
+        got = sample(cond)
+    torch.cuda.synchronize()
+    return dict(ref=_np(ref.float()), got=_np(got.float()),
+                twin=_np(twin.float()), call_ref=_np(call_ref.float()),
+                call_got=_np(call_got.float()),
+                call_twin=_np(call_twin.float()),
+                fused_attention_launches=FusedAttention.launches,
+                heads=model.blocks[0].attn.num_heads, depth=cfg.depth)
+
+
+def tp_sampling_shapenet_unet(kind, steps=10):
+    """On the cards: DDIM sampling of the ShapeNet U-Net-320 LSGM
+    (v-prediction, the mixing logit, CFG 1.0 over batch 1) split over the
+    tensor ranks against the whole U-Net on the same rank; ``kind``:
+    ``'float32'``, ``'bfloat16'`` (the serving dtype) or ``'int8'``
+    (``quantize_unet`` of the bf16 U-Net).  The mixing logit is drawn near
+    0 so that the U-Net weighs in the prediction (the preset's −6 leaves
+    it 0.25%)."""
+    from ln3diff_tpu_torch.config import denoiser_preset, vae_preset
+    from ln3diff_tpu_torch.diffusion.gaussian import make_diffusion
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.unet import UNetModel
+    from ln3diff_tpu_torch.ops.int8 import quantize_unet
+    from ln3diff_tpu_torch.parallel.serving import tp_shard_denoiser_params
+    from ln3diff_tpu_torch.pipeline import SamplerSpec, TextTo3DPipeline
+    mesh = _tensor_mesh()
+    cfg = denoiser_preset('shapenet-unet')
+    dtype = torch.float32 if kind == 'float32' else torch.bfloat16
+    with torch.device('cuda'):
+        model = UNetModel(cfg)
+    g = torch.Generator(device='cuda').manual_seed(0)
+    random_init_(model, g)
+    with torch.no_grad():
+        model.mixing_logit.normal_(0.0, 0.1, generator=g)
+    model = model.to('cuda').to(dtype).eval()
+    if kind == 'int8':
+        model = quantize_unet(model)
+    vae = vae_preset('shapenet')
+    shape = (vae.latent_size, vae.latent_size, vae.latent_channels)
+    cond = {'crossattn': torch.randn(1, 1, 768, generator=g, device='cuda')}
+    x_init = torch.randn((1, *shape), generator=g, device='cuda')
+
+    def sample():
+        pipe = TextTo3DPipeline(
+            model, None, None, None,
+            sampler=SamplerSpec(kind='ddim', num_steps=steps, cfg_scale=1.0,
+                                triplane_scaling_divider=1.0,
+                                latent_shape=shape),
+            diffusion=make_diffusion(steps=1000, mean_type='v',
+                                     mixed_prediction=True,
+                                     timestep_respacing=f'ddim{steps}'),
+            mixing_logit=model.mixing_logit.detach(), device='cuda')
+        return pipe.sample_latents(1, cond, cond, x_init=x_init)
+
+    ref = sample()
+    tp_shard_denoiser_params(model, mesh)
+    got = sample()
+    torch.cuda.synchronize()
+    return dict(ref=_np(ref.float()), got=_np(got.float()))
 
 
 # ---------------------------------------------------------------------------

@@ -1616,3 +1616,80 @@ def test_profiling_trace_on_card(cuda, tmp_path):
     assert torch.isfinite(out).all()
     events = json.loads(open(prof.trace_path).read())['traceEvents']
     assert any(e.get('name') == 'dit_probe' for e in events)
+
+
+# -- tensor parallelism: kernel 3 at the split head counts, int8 shards ------
+
+@pytest.mark.parametrize('H', [4, 8])
+def test_fused_attention_at_tensor_parallel_heads(cuda, H):
+    """Kernel 3 at the DiT-L/2's 16 heads split over tp = 4 and 2 ranks:
+    (2, 768, H, 64) in bf16, against its plain version."""
+    q, k, v = _qkv(2, 768, H, 64, torch.bfloat16, cuda, seed=H)
+    _attn_close(fused_attention(q, k, v), attention_reference(q, k, v),
+                torch.bfloat16)
+
+
+def test_int8_shards_sum_to_the_whole_layer_on_card(cuda):
+    """The rank-local pieces of ``ops/int8.py`` on the card at the int8
+    DiT-L/2's ``fc2`` (4096 → 1024) over tp = 4 and the int8 U-Net's 1x1
+    conv at 1280 channels: column shards are slices of the whole output,
+    the int32 row partials sum to the whole accumulator and, rescaled, to
+    the whole output, bit for bit."""
+    from ln3diff_tpu_torch.ops import int8 as q8
+    g = torch.Generator(device='cuda').manual_seed(0)
+    lin = q8.Int8Linear(4096, 1024).cuda()
+    conv = q8.Int8Conv(1280, 1280, 1).cuda()
+    for m in (lin, conv):
+        m.load_weight(torch.randn(m.kernel_q.shape, generator=g,
+                                  device='cuda') / 32)
+        m.bias.normal_(0, 0.1, generator=g)
+    cases = ((lin, torch.randn(2, 768, 4096, generator=g, device='cuda')),
+             (conv, torch.randn(1, 1280, 4, 12, generator=g,
+                                device='cuda')))
+    for m, x in cases:
+        x = x.to(torch.bfloat16)
+        is_conv = isinstance(m, q8.Int8Conv)
+        want = m(x)
+        fan_out, fan_in = m.kernel_q.shape[:2]
+        parts, outs = [], []
+        for r in range(4):
+            rows = torch.arange(r * fan_out // 4, (r + 1) * fan_out // 4,
+                                device='cuda')
+            cols = torch.arange(r * fan_in // 4, (r + 1) * fan_in // 4,
+                                device='cuda')
+            shard = q8.column_shard(m, rows)
+            outs.append(q8.int8_conv(x, *shard) if is_conv
+                        else q8.int8_dense(x, *shard))
+            piece = (q8.int8_conv_row_partial if is_conv
+                     else q8.int8_dense_row_partial)
+            acc, x_scale = piece(x, q8.row_shard(m, cols), cols=cols)
+            parts.append(acc)
+        assert torch.equal(torch.cat(outs, 1 if is_conv else -1), want)
+        y = q8.int8_rescale(torch.stack(parts).sum(0, dtype=torch.int32),
+                            x_scale, m.scale, m.bias, x.dtype)
+        assert torch.equal(y.permute(0, 3, 1, 2) if is_conv else y, want)
+
+
+def test_profile_device_table_on_card(cuda):
+    """``scripts/profile_device.py`` ``profile_fn`` over a small
+    fused-attention DiT (head width 64): a device-kernel table, longest
+    first, whose kernel 3 rows count one launch per block and call."""
+    from ln3diff_tpu_torch.models.dit import DiT_TriLatent, DiTConfig
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.scripts.profile_device import profile_fn
+    cfg = DiTConfig(input_size=8, patch_size=2, in_channels=4,
+                    hidden_size=128, depth=2, num_heads=2, context_dim=32,
+                    fused_attention=True, exact_gelu=False)
+    model = DiT_TriLatent(cfg).cuda()
+    random_init_(model, torch.Generator('cuda').manual_seed(0))
+    model = model.to(torch.bfloat16).eval()
+    x = torch.randn(2, 8, 8, 12, device='cuda')
+    t = torch.full((2,), 10.0, device='cuda')
+    ctx = {'crossattn': torch.randn(2, 7, 32, device='cuda')}
+    with torch.no_grad():
+        rows = profile_fn(lambda: model(x, t, ctx), iters=3, top=100,
+                          quiet=True)
+    assert rows and [r[0] for r in rows] == sorted((r[0] for r in rows),
+                                                   reverse=True)
+    attn = sum(r[1] for r in rows if 'attention_kernel' in r[2])
+    assert attn == 3 * cfg.depth, rows
