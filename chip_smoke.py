@@ -18,6 +18,13 @@ from a fixed seed:
   64+64 samples, AdamW, EMA) in bf16 over f32 parameters, with the point
   pipeline through the fused kernel and its backward kernel
   (``use_fused_osg=True``) and through plain PyTorch;
+* ``vae_variants``: that VAE with the LRM point decoder
+  (``lrm_decoder``) and DiT2 without roll-out, random weights: the decode
+  of one latent, 4 frames of the 192² orbit (64+64 samples, bf16 planes)
+  and the 192³ σ grid through the pipeline's own calls, then 2 training
+  steps at ``vae_train``'s sizes; ``use_fused_osg=True`` must raise (JAX's
+  fused kernel refuses the LRM decoder) and no kernel runs; a small twin
+  card vs CPU;
 * ``qkv_attention_chain``: the fused qkv projection + attention (kernel 4)
   at the DiT-L/2 self-attention's shapes (B=2, L=768, D=1024, H=16, bf16)
   in the chain of ``.bench_megakernel.py``, x ← 0.5·y + 0.5·x for 1000
@@ -134,7 +141,8 @@ from a fixed seed:
   conditioner, the EDM loss and backward on DiT-L/2 at batch 4, 25 Euler
   CFG steps, the FM loss on DiT-I23D-L/2;
 * ``profiling_trace``: ``utils.profiling.trace`` around 3 calls of the
-  fused DiT-L/2 (kernel 3, 24 launches a call) in an ``annotate`` range;
+  fused DiT-L/2 (kernel 3, 24 launches a call) in an ``annotate`` range,
+  one kernel-3 event in the trace per launch;
 * ``two_stage_demo``: the VAE and diffusion training entries for 2 steps
   each, then ``demo_two_stage`` at its defaults on their checkpoints
   (100 FM steps of DiT-B/2, 8 frames of 64², a 96³ mesh);
@@ -1518,6 +1526,198 @@ def vae_train(steps=5, warmup=2):
     res['first_loss_rel_diff'] = rel
     res['first_step_same_direction_share'] = same / max(moved, 1)
     res['timed_order'] = order
+    return res
+
+
+def _variant_cfg(cfg):
+    """``cfg`` with the LRM point decoder and DiT2 without roll-out."""
+    return dataclasses.replace(
+        cfg, lrm_decoder=True,
+        dit2=dataclasses.replace(cfg.dit2, roll_out=False))
+
+
+def small_reference_variants():
+    """A small VAE with the LRM point decoder and DiT2 without roll-out
+    (f32; 8 plane channels, DiT2 of width 64) on the CPU (seed 7) and on
+    the card (a copy of the same weights): the decode of one latent, a
+    2-frame orbit of 16² rays with 16+16 samples and 512 point queries,
+    each within ``TOL_PIPE`` of scale; ``feature_image`` has the LRM
+    decoder's 3 channels."""
+    import torch
+    from ln3diff_tpu_torch.config import CAMERA_PRESETS, RENDER_PRESETS
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    cfg = _variant_cfg(_small_vae_kw()['vae_cfg'])
+    cpu = TriplaneVAE(cfg)
+    random_init_(cpu, torch.Generator().manual_seed(7))
+    vaes = {'cpu': cpu.eval(), 'cuda': copy.deepcopy(cpu).cuda().eval()}
+    latent = torch.randn((1, 8, 8, 12),
+                         generator=torch.Generator().manual_seed(3))
+    cams = torch.from_numpy(orbit_cameras(2, **CAMERA_PRESETS['objaverse']))
+    opts = dataclasses.replace(
+        RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto'],
+        depth_resolution=16, depth_resolution_importance=16)
+    coords = (torch.rand((1, 512, 3), generator=torch.Generator().manual_seed(
+        4)) - 0.5) * 0.9
+    outs = {}
+    for name, vae in vaes.items():
+        dev = 'cpu' if name == 'cpu' else 'cuda'
+        with torch.no_grad():
+            planes = vae.decode_latent(latent.to(dev))
+            ret = vae.render(planes.expand(len(cams), -1, -1, -1, -1),
+                             cams.float().to(dev), opts, 16)
+            rgb, sigma = vae.query_points(planes, coords.to(dev),
+                                          opts.box_warp)
+        outs[name] = dict(planes=planes, query_rgb=rgb, query_sigma=sigma,
+                          **ret)
+    check(outs['cuda']['feature_image'].shape[-1] == 3,
+          'the LRM decoder\'s feature_image has '
+          f'{outs["cuda"]["feature_image"].shape[-1]} channels, not 3')
+    r = {}
+    for key in ('planes', 'feature_image', 'image_depth', 'image_mask',
+                'query_rgb', 'query_sigma'):
+        ref = outs['cpu'][key]
+        got = outs['cuda'][key].cpu()
+        err = float((got - ref).abs().max())
+        tol = TOL_PIPE * max(1.0, float(ref.abs().max()))
+        r[key] = dict(max_abs_err=err, tol=tol)
+        check(bool(torch.isfinite(got).all()), f'variants {key}: non-finite')
+        check(err <= tol, f'variants {key}: card vs CPU max|Δ| {err} > {tol}')
+    return r
+
+
+def vae_variants(frames=4, steps=2):
+    """The decode side's last switches at the released width:
+    ``vae_preset('objaverse')`` (DiT2-L/2, (3, 128, 128, 32) planes, bf16
+    decoder) with the LRM point decoder (``lrm_decoder``) and DiT2 without
+    roll-out, random weights (seed 5).  A small twin card vs CPU
+    (:func:`small_reference_variants`); then, through
+    ``TextTo3DPipeline``'s own orbit and σ-grid calls over the VAE's plain
+    point path, the decode of a random (1, 32, 32, 12) latent, the first
+    ``frames`` frames of the 24-frame 192² orbit with 64+64 samples (bf16
+    planes) and the 192³ σ grid in the pipeline's 2^18-point chunks;
+    ``use_fused_osg=True`` must raise on the card (JAX's fused kernel
+    refuses the LRM decoder), and ``steps`` steps of ``VAETrainer`` at
+    ``vae_train``'s sizes with ``use_fused_osg=False``.  Kernels 1 and 2
+    must not launch: their counters are read by the caller."""
+    import torch
+    from ln3diff_tpu_torch.config import RENDER_PRESETS, vae_preset
+    from ln3diff_tpu_torch.data.synthetic import make_multiview_batch
+    from ln3diff_tpu_torch.models.layers import random_init_
+    from ln3diff_tpu_torch.models.osg_decoder import LRMOSGDecoder
+    from ln3diff_tpu_torch.models.vae import TriplaneVAE
+    from ln3diff_tpu_torch.pipeline import TextTo3DPipeline
+    from ln3diff_tpu_torch.render.camera import orbit_cameras
+    from ln3diff_tpu_torch.training.vae_trainer import VAETrainer
+
+    res = dict(small_card_vs_cpu=small_reference_variants())
+    cfg = _variant_cfg(vae_preset('objaverse'))
+    opts = RENDER_PRESETS['objverse_tuneray_aug_resolution_64_64_auto']
+    g = torch.Generator(device='cuda').manual_seed(5)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device('cuda'):
+        vae = TriplaneVAE(cfg)
+    random_init_(vae, g)
+    vae = vae.cast_decoder().eval()
+    check(isinstance(vae.osg_decoder, LRMOSGDecoder), 'not the LRM decoder')
+    channels = set()
+
+    def render(planes, cams):
+        out = vae.render(planes, cams, opts, 192)
+        channels.add(out['feature_image'].shape[-1])
+        return out['image_raw']
+
+    pipe = TextTo3DPipeline(
+        None, vae.decode_latent, render,
+        lambda planes, coords: vae.query_points(planes, coords,
+                                                opts.box_warp),
+        render_dtype=torch.bfloat16, device='cuda')
+    latent = torch.randn((1, 32, 32, 12), generator=g, device='cuda')
+    torch.cuda.synchronize()
+    secs = dict(build=time.perf_counter() - t0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        planes = pipe.decode_fn(latent)
+        torch.cuda.synchronize()
+        secs['decode'] = time.perf_counter() - t0
+        planes = planes.to(torch.bfloat16)
+        t0 = time.perf_counter()
+        video = pipe.render_orbit(planes, num_frames=24,
+                                  render_resolution=192,
+                                  frame_slice=(0, frames))
+        torch.cuda.synchronize()
+        secs['render'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sigma = pipe.dispatch_mesh_sigma(planes, 192, smooth=True)
+        torch.cuda.synchronize()
+        secs['sigma_query'] = time.perf_counter() - t0
+        refused = []
+        cam = torch.as_tensor(orbit_cameras(1), dtype=torch.float32,
+                              device='cuda')
+        for route, call in (
+                ('render', lambda: vae.render(planes, cam, opts, 192,
+                                              use_fused_osg=True)),
+                ('query_points', lambda: vae.query_points(
+                    planes, torch.zeros((1, 8, 3), device='cuda'),
+                    opts.box_warp, use_fused_osg=True))):
+            try:
+                call()
+            except ValueError as e:
+                refused.append(route)
+                msg = str(e)
+    check(refused == ['render', 'query_points'],
+          f'use_fused_osg=True ran on the LRM decoder: refused {refused}')
+    check(tuple(planes.shape) == (1, 3, 128, 128, 32), 'plane shape')
+    check(tuple(video.shape) == (1, frames, 192, 192, 3), 'video shape')
+    check(tuple(sigma.shape) == (192**3,), 'sigma grid shape')
+    check(channels == {3}, f'feature_image channels {channels}, not 3')
+    for key, v in (('planes', planes), ('frames', video), ('sigma', sigma)):
+        check(bool(torch.isfinite(v).all()), f'{key} not finite')
+    vmin, vmax = float(video.min()), float(video.max())
+    check(-1.01 <= vmin and vmax <= 1.01, f'frames out of range '
+          f'[{vmin}, {vmax}]')
+    res['call'] = dict(
+        seconds_by_phase={k: round(v, 3) for k, v in secs.items()},
+        call_seconds=round(secs['decode'] + secs['render']
+                           + secs['sigma_query'], 3),
+        frames=frames, frames_range=[vmin, vmax],
+        sigma_range=[float(sigma.min()), float(sigma.max())],
+        fused_refusal=msg,
+        peak_mem_gib=round((torch.cuda.max_memory_allocated() - resident)
+                           / 2**30, 3))
+    del vae, pipe, planes, video, sigma
+    torch.cuda.empty_cache()
+
+    model_cfg, train_cfg, loss_cfg, train_opts = _train_cfgs(small=False)
+    raw = make_multiview_batch(4, 256, 128, seed=0)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = VAETrainer(_variant_cfg(model_cfg),
+                    dataclasses.replace(train_cfg, use_fused_osg=False),
+                    loss_cfg, render_opts=train_opts, seed=0, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    losses, step_s = [], []
+    for i in range(steps):
+        batch = tr.prepare_batch(raw)
+        batch['step'] = float(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m['loss']))
+    check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
+    check(not tr.cfg.use_fused_osg, 'the step ran the fused route')
+    res['train'] = dict(
+        s_per_step_runs=[round(x, 4) for x in step_s], losses=losses,
+        peak_mem_gib=round((torch.cuda.max_memory_allocated() - resident)
+                           / 2**30, 3))
+    del tr
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5053,11 +5253,11 @@ def fused_dit_l2_step():
 def profiling_trace(workdir, step, calls=3):
     """``utils.profiling.trace`` around ``calls`` calls of the fused
     DiT-L/2 denoiser of ``step`` (:func:`fused_dit_l2_step`) inside an
-    ``annotate`` range: the trace file must hold the range,
-    and kernel 3 must launch once per block per call (24 per call, its
-    counter set to 0 just before the traced block).  The trace's CUDA
-    kernel events are reported, not checked: the profiler at times reads
-    no device activity on this machine."""
+    ``annotate`` range: the trace file must hold the range, kernel 3 must
+    launch once per block per call (24 per call, its counter set to 0
+    just before the traced block), and the trace must hold one kernel-3
+    event per launch (``trace`` discards a warm-up step, which keeps the
+    kernels at the trace's start)."""
     import torch
     from ln3diff_tpu_torch.ops.fused_attention import FusedAttention
     from ln3diff_tpu_torch.utils import profiling
@@ -5087,6 +5287,8 @@ def profiling_trace(workdir, step, calls=3):
           'the annotate range is not in the trace')
     kernels = [e for e in events if e.get('cat') == 'kernel']
     attn = [e for e in kernels if 'attention' in e.get('name', '').lower()]
+    check(len(attn) == launches, f'the trace holds {len(attn)} kernel-3 '
+          f'events of {launches} launches ({len(kernels)} kernel events)')
     return dict(denoiser='t23d DiT-L/2, fused attention, bf16, batch 2',
                 calls=calls, traced_seconds=round(traced_s, 3),
                 ms_per_call_untraced=round(ms, 3),
@@ -5741,6 +5943,15 @@ def main():
     t0 = time.perf_counter()
     train = vae_train()
     phase_done('vae_train', t0, **train)
+
+    # 10b. the VAE with the LRM point decoder and DiT2 without roll-out:
+    # decode, orbit, σ grid and training steps, no kernel (JAX's fused
+    # kernel refuses the LRM decoder)
+    t0 = time.perf_counter()
+    zero_kernel_launches()
+    variants = vae_variants()
+    phase_done('vae_variants', t0, **variants,
+               kernel_launches=no_kernel_launches('vae_variants'))
 
     # 11. kernel 4's chain at the DiT-L/2 self-attention's shapes
     t0 = time.perf_counter()

@@ -17,7 +17,7 @@ cross-attention context.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,9 @@ class CLIPTextConfig:
     max_length: int = 77
     intermediate_size: int = 3072
     with_projection: bool = False     # OpenAI encode_text text_projection
+    # the dtype the pipeline builders store the tower in (JAX: its
+    # compute dtype), as ``ViTConfig.dtype``
+    dtype: Any = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +52,8 @@ class CLIPVisionConfig:
     num_layers: int = 24
     num_heads: int = 16
     intermediate_size: int = 4096
+    # as ``CLIPTextConfig.dtype``
+    dtype: Any = torch.float32
 
 
 class CLIPMLP(nn.Module):

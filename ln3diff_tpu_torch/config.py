@@ -136,6 +136,25 @@ RENDER_PRESETS: dict[str, RenderOptions] = {
         sampler_bbox_max=0.45),
 }
 
+# Which render-space SR head the reference couples to each preset
+# (``superresolution_module`` in rendering_options_defaults; the VAE
+# configs hold the SR choice, and this map documents the pairing for
+# preset-faithful assembly).  Presets absent here use the table default
+# NearestConvSR (nsr/script_util.py:496).
+RENDER_PRESET_SR = {
+    'ffhq': 'stylegan-8xdc',          # SuperresolutionHybrid8XDC
+    'afhq': 'stylegan-8x',            # SuperresolutionHybrid8X
+    'eg3d_shapenet_aug_resolution_chair_128_residualSR':
+        'nearest-conv-residual',
+    'shapenet_tuneray_aug_resolution_64_96_nearestResidualSR':
+        'nearest-conv-residual',
+    'shapenet_tuneray_aug_resolution_64_64_nearestResidualSR':
+        'nearest-conv-residual',
+    'objverse_tuneray_aug_resolution_64_64_auto': None,  # no render SR
+    'objverse_tuneray_aug_resolution_128_128_auto': None,
+    'objverse_tuneray_aug_resolution_96_96_auto': None,
+}
+
 # per-dataset evaluation orbits (radius, fov, pitch)
 CAMERA_PRESETS = {
     'objaverse': dict(radius=1.8, fov=30.0, pitch_deg=20.0),

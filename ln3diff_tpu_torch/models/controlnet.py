@@ -75,13 +75,12 @@ class ControlNet(nn.Module):
     already spans the rolled-out planes, and its encoding is resized
     (bilinear) to the latent's grid where the sizes differ.  Every
     attention is a ``SpatialTransformer`` with ``cfg.num_heads`` heads, as
-    in JAX."""
+    in JAX.  The branch is float whatever ``cfg.quantized`` says: JAX's
+    never reads it, so the config of an int8 U-Net gives the float branch
+    whose residuals that U-Net adds to its skips."""
 
     def __init__(self, cfg: UNetConfig, hint_channels: int = 3):
         super().__init__()
-        if cfg.quantized:
-            raise NotImplementedError('the ControlNet branch trains; it has '
-                                      'no int8 form')
         self.cfg = cfg
         mc = cfg.model_channels
         emb = 4 * mc

@@ -562,6 +562,9 @@ class DiT2Config:
     num_heads: int = 12
     mlp_ratio: int = 4
     plane_n: int = 3
+    # the first block of each pair attends within each plane (False: over
+    # all planes, as the second does)
+    roll_out: bool = True
     # recompute each block pair in the backward pass ('full' | 'dots')
     remat: bool = False
     remat_policy: str = 'full'
@@ -569,7 +572,9 @@ class DiT2Config:
 
 
 class _Pair(nn.Module):
-    """One within-plane block and one cross-plane block."""
+    """One within-plane block and one cross-plane block (with
+    ``roll_out=False`` both attend over all planes, JAX ``dit.py:695-703``;
+    the first keeps the name ``within``)."""
 
     def __init__(self, cfg: DiT2Config):
         super().__init__()
@@ -579,8 +584,11 @@ class _Pair(nn.Module):
         self.across = DiTBlock(D, cfg.num_heads, cfg.mlp_ratio,
                                token_modulation=True)
         self.plane_n = cfg.plane_n
+        self.roll_out = cfg.roll_out
 
     def forward(self, x, c):
+        if not self.roll_out:
+            return self.across(self.within(x, c), c)
         B, nL, D = x.shape
         n = self.plane_n
         h = self.within(x.reshape(B * n, nL // n, D),
@@ -593,7 +601,8 @@ class DiT2(nn.Module):
     learnable ``pos_embed`` is the query; the latent tokens ``c``
     ``(B, plane_n*L, D)`` condition every block per token.  Even blocks
     attend within a plane, odd blocks across all planes (the released
-    roll-out configuration)."""
+    roll-out configuration); with ``roll_out=False`` every block attends
+    across all planes."""
 
     def __init__(self, cfg: DiT2Config):
         super().__init__()
@@ -619,11 +628,18 @@ class DiT2(nn.Module):
 
 
 def dit2_registry(name: str, **overrides) -> DiT2Config:
-    """The VAE decoder backbones: the released Objaverse one (L/2) and
-    the fg/bg FFHQ preset's (B/2)."""
+    """The VAE decoder backbones (JAX ``dit2_registry``): the released
+    Objaverse one (L/2), the fg/bg FFHQ preset's (B/2) and the other
+    sizes.  Patching lives in the VAE's ``ldm_upsample``
+    (``TriplaneVAEConfig.patch_size``), so B/16 differs from B/2 only in
+    ``tokens_per_plane``."""
     presets = {
-        'DiT2-L/2': dict(depth=24, hidden_size=1024, num_heads=16),
+        'DiT2-S/2': dict(depth=12, hidden_size=384, num_heads=6),
         'DiT2-B/2': dict(depth=12, hidden_size=768, num_heads=12),
+        'DiT2-B/16': dict(depth=12, hidden_size=768, num_heads=12,
+                          tokens_per_plane=4),
+        'DiT2-L/2': dict(depth=24, hidden_size=1024, num_heads=16),
+        'DiT2-XL/2': dict(depth=28, hidden_size=1152, num_heads=16),
     }
     kw = dict(presets[name])
     kw.update(overrides)

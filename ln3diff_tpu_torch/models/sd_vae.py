@@ -15,7 +15,7 @@ modules', so the bridge maps parameters one to one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 import torch.nn as nn
@@ -198,6 +198,9 @@ class AutoencoderConfig:
     num_views: int = 1            # >1: multi-view attention in the encoder
     attn_heads: int = 8           # mv-vanilla SpatialTransformer3D heads
     attn_dim_head: int = 64       # reference nsr/script_util.py:1311-1314
+    # the compute dtype; parameters are built in f32 and the owner stores
+    # or autocasts the module to it (``TriplaneVAE.cast_decoder``)
+    dtype: Any = torch.float32
 
 
 class Encoder(nn.Module):

@@ -10,7 +10,9 @@ Port of ``ln3diff_tpu/models/vae.py`` (``encode`` :180, ``reparameterize``
 ``'nearest'`` (``NearestConvSR``), ``'stylegan-8xdc'``
 (``SuperresolutionHybrid8XDC``) and ``'stylegan'``
 (``SuperresolutionHybrid``), the StyleGAN ones conditioned on ``sr_ws``.
-``use_background`` splits the planes' channels into fg | bg halves,
+``lrm_decoder`` swaps the point decoder for ``LRMOSGDecoder`` (3 colour
+channels; the fused point kernel refuses it, as JAX's ``_fused_osg``
+does).  ``use_background`` splits the planes' channels into fg | bg halves,
 rendered by ``render/background.py`` with a second point decoder
 ``bg_decoder`` (the ``'ffhq-fgbg'`` preset).
 
@@ -37,7 +39,7 @@ from ..render.renderer import (RenderDraws, RenderOptions, pack_corner_table,
 from .dit import DiT2, DiT2Config
 from .distributions import make_gaussian
 from .mv_unet import LGMMVEncoder, MVUNetConfig
-from .osg_decoder import OSGDecoder
+from .osg_decoder import LRMOSGDecoder, OSGDecoder
 from .sd_vae import (AutoencoderConfig, Decoder, Encoder, MVEncoder,
                      MVEncoderDynamic)
 from .sr import NearestConvSR
@@ -70,6 +72,9 @@ class TriplaneVAEConfig:
     conv_sr_res_blocks: int = 1
     plane_channels: int = 32
     decoder_output_dim: int = 32
+    # the LRM point decoder (concatenated planes, 4-layer ReLU MLP, 3
+    # colour channels) in place of the OSG decoder; plain PyTorch only
+    lrm_decoder: bool = False
     # render-space SR: 'nearest' (NearestConvSR), 'stylegan-8xdc' or
     # 'stylegan' (SuperresolutionHybrid)
     use_sr: bool = False
@@ -118,12 +123,15 @@ class TriplaneVAE(nn.Module):
         self.conv_sr = Decoder(AutoencoderConfig(
             ch=cfg.conv_sr_ch, ch_mult=tuple(cfg.conv_sr_ch_mult),
             num_res_blocks=cfg.conv_sr_res_blocks, z_channels=D,
-            out_ch=cfg.plane_channels))
+            out_ch=cfg.plane_channels, dtype=cfg.dtype))
         point_features = cfg.plane_channels // (2 if cfg.use_background
                                                 else 1)
-        self.osg_decoder = OSGDecoder(
-            in_features=point_features,
-            decoder_output_dim=cfg.decoder_output_dim)
+        if cfg.lrm_decoder:
+            self.osg_decoder = LRMOSGDecoder(in_features=point_features)
+        else:
+            self.osg_decoder = OSGDecoder(
+                in_features=point_features,
+                decoder_output_dim=cfg.decoder_output_dim)
         if cfg.use_background:
             self.bg_decoder = OSGDecoder(
                 in_features=point_features,
@@ -170,7 +178,7 @@ class TriplaneVAE(nn.Module):
             num_res_blocks=cfg.encoder_res_blocks,
             z_channels=cfg.latent_channels, double_z=True,
             in_channels=cfg.encoder_in_channels,
-            resolution=cfg.img_resolution)
+            resolution=cfg.img_resolution, dtype=cfg.dtype)
         if cfg.encoder_type == 'lgm':
             self.encoder = LGMMVEncoder(
                 MVUNetConfig(in_channels=cfg.encoder_in_channels,
@@ -191,12 +199,14 @@ class TriplaneVAE(nn.Module):
         self.quant_conv = nn.Conv2d(zc, zc, 1, groups=3)
 
     def cast_decoder(self) -> 'TriplaneVAE':
-        """Store ``ldm_upsample``, ``dit2``, ``conv_sr`` and a
-        ``NearestConvSR`` head in ``cfg.dtype`` (serving only: training
+        """Store ``ldm_upsample``, ``dit2``, a ``NearestConvSR`` head and
+        ``conv_sr`` in ``cfg.dtype`` (``conv_sr`` in its own config's
+        dtype, which the VAE sets to ``cfg.dtype``; serving only: training
         keeps f32 parameters).  The StyleGAN head computes in f32, as in
         JAX."""
-        for m in (self.ldm_upsample, self.dit2, self.conv_sr):
+        for m in (self.ldm_upsample, self.dit2):
             m.to(self.cfg.dtype)
+        self.conv_sr.to(self.conv_sr.cfg.dtype)
         if isinstance(getattr(self, 'superresolution', None), NearestConvSR):
             self.superresolution.to(self.cfg.dtype)
         return self
@@ -256,7 +266,12 @@ class TriplaneVAE(nn.Module):
     def fused_osg(self) -> FusedOSG:
         """The fused point pipeline built from this module's OSG
         parameters (folded differentiably, so that training through it
-        reaches them)."""
+        reaches them).  The kernel computes the OSG decoder only: with
+        another point decoder (``lrm_decoder``) it raises ``ValueError``,
+        as JAX's assert does."""
+        if not isinstance(self.osg_decoder, OSGDecoder):
+            raise ValueError('fused OSG kernel supports the OSGDecoder arch '
+                             'only')
         dec = self.osg_decoder
         return fused_osg_from_params(dict(dec.named_parameters()),
                                      lr_multiplier=dec.decoder_lr_mul,
@@ -280,13 +295,23 @@ class TriplaneVAE(nn.Module):
         StyleGAN heads in f32).  With ``use_background`` the fg half of
         the planes goes through the two-pass renderer (and kernel 1 with
         ``use_fused_osg``), the bg half through ``bg_decoder``
-        (``render_rays_fg_bg``; ``draws`` are the fg pass's)."""
+        (``render_rays_fg_bg``; ``draws`` are the fg pass's).  With
+        ``lrm_decoder`` that composite needs ``decoder_output_dim`` = 3,
+        the LRM decoder's colour channels; else it raises
+        ``ValueError``."""
         if ray_origins is None:
             cam2world, intrinsics = unpack_25d_camera(camera25)
             ray_origins, ray_directions = sample_full_rays(
                 cam2world, intrinsics, resolution)
         fused = self.fused_osg() if use_fused_osg else None
         if self.cfg.use_background:
+            if (isinstance(self.osg_decoder, LRMOSGDecoder)
+                    and self.cfg.decoder_output_dim != 3):
+                # JAX fails here on a broadcast of the two decoders' outputs
+                raise ValueError(
+                    'the fg/bg composite adds the LRM decoder\'s 3 colour '
+                    'channels to bg_decoder\'s decoder_output_dim = '
+                    f'{self.cfg.decoder_output_dim}: set it to 3')
             out = render_rays_fg_bg(
                 planes, self.osg_decoder, self.bg_decoder, ray_origins,
                 ray_directions, render_opts,
@@ -371,10 +396,11 @@ class TriplaneVAE(nn.Module):
         if self.cfg.use_background:
             planes = planes[..., :planes.shape[-1] // 2]
         if use_fused_osg:
+            fused = self.fused_osg()
             H, W = planes.shape[2:4]
             packed = pack_corner_table(planes)
             proj = project_onto_planes((2.0 / box_warp) * coords)
             rows, tx, ty, live = packed_gather(packed, proj, H, W)
-            return self.fused_osg()(rows, tx, ty, live)
+            return fused(rows, tx, ty, live)
         feats = sample_from_planes(planes, coords, box_warp)
         return self.osg_decoder(feats, None)

@@ -508,7 +508,7 @@ def build_t23d_pipeline(device='cuda', seed: int = 0, den_cfg=None,
             text_model=lambda: CLIPTextModel(text_cfg)))
     denoiser = modules['denoiser'].to(device).to(den_cfg.dtype).eval()
     vae = modules['vae'].to(device).cast_decoder().eval()
-    text_model = modules['text_model'].to(device).eval()
+    text_model = modules['text_model'].to(device).to(text_cfg.dtype).eval()
     tokenizer = default_tokenizer(max_length=text_cfg.max_length)
 
     pipeline = _objaverse_pipeline(
@@ -532,10 +532,11 @@ def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
                         modules, serving_mesh):
     """The body that the image→3D and multi-view→3D builders share: the
     ``preset`` denoiser with tanh GELU, the Objaverse VAE and render
-    options, DINOv2-B/14 in bf16, with ``clip_cfg`` the f32 CLIP vision
-    tower, CFG 4.0 on the flow-matching ODE (or a DDPM-family
-    ``sampler.kind`` over ``_sampler_diffusion``).  ``make_encode(modules)``
-    gives the family's ``encode``."""
+    options, DINOv2-B/14 in bf16, with ``clip_cfg`` the CLIP vision
+    tower in ``clip_cfg.dtype`` (f32 by default), CFG 4.0 on the
+    flow-matching ODE (or a DDPM-family ``sampler.kind`` over
+    ``_sampler_diffusion``).  ``make_encode(modules)`` gives the family's
+    ``encode``."""
     from .conditioning.clip import CLIPVisionModel
     from .config import RENDER_PRESETS, denoiser_preset, vae_preset
     from .models.dit import DiT_TriLatent
@@ -563,7 +564,8 @@ def _build_image_family(preset, clip_cfg, dino_cfg, make_encode, device,
     out = dict(denoiser=modules['denoiser'].to(device).to(den_cfg.dtype),
                vae=modules['vae'].to(device).cast_decoder())
     if clip_cfg is not None:
-        out['vision_model'] = modules['vision_model'].to(device)
+        out['vision_model'] = modules['vision_model'].to(device).to(
+            clip_cfg.dtype)
     out['dino'] = modules['dino'].to(device).to(dino_cfg.dtype)
     for m in out.values():
         m.eval()
@@ -749,7 +751,7 @@ def build_unet_pipeline(family: str, device='cuda', seed: int = 0,
             text_model=lambda: CLIPTextModel(text_cfg)))
     denoiser = modules['denoiser'].to(device).to(den_cfg.dtype).eval()
     vae = modules['vae'].to(device).cast_decoder().eval()
-    text_model = modules['text_model'].to(device).eval()
+    text_model = modules['text_model'].to(device).to(text_cfg.dtype).eval()
     tokenizer = default_tokenizer(max_length=text_cfg.max_length)
 
     pipeline = TextTo3DPipeline(

@@ -31,21 +31,39 @@ def _sync():
 @contextlib.contextmanager
 def trace(logdir: str):
     """Trace the enclosed block; on exit the Chrome trace is written under
-    ``logdir`` and its path set as the yielded profiler's
-    ``trace_path``."""
+    ``logdir`` and its path set as the yielded profiler's ``trace_path``.
+
+    The profiler first runs a warm-up step that it discards
+    (``torch.profiler.schedule(warmup=1)``), with one small kernel
+    launched on the card in it, and records from the next step on: a
+    trace that records from its start loses kernels at the start on the
+    card.  It waits for the card before it starts, before it records and
+    before it stops, so that the trace holds the kernels of the block and
+    no others."""
     os.makedirs(logdir, exist_ok=True)
+    on_card = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    path = os.path.join(logdir,
+                        f'trace-{os.getpid()}-{time.time_ns()}.pt.trace.json')
+    prof = torch.profiler.profile(
+        activities=activities,
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                         repeat=1),
+        on_trace_ready=lambda p: p.export_chrome_trace(path))
+    _sync()
     prof.start()
+    if on_card:
+        torch.ones(1, device='cuda').add_(1)
+        torch.cuda.synchronize()
+    prof.step()
     try:
         yield prof
     finally:
+        _sync()
         prof.stop()
-        prof.trace_path = os.path.join(
-            logdir, f'trace-{os.getpid()}-{time.time_ns()}.pt.trace.json')
-        prof.export_chrome_trace(prof.trace_path)
+        prof.trace_path = path
 
 
 def annotate(name: str):
